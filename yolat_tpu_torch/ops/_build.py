@@ -1,0 +1,118 @@
+"""Build, load and count the port's CUDA kernels.
+
+`yolat_tpu_torch/csrc/*.cu` (plain C entry points, no PyTorch headers) are
+compiled by nvcc into one shared library at first use:
+
+  nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+       -Xcompiler -fPIC -o build/yolat_tpu_torch/<hash>/libyolat_kernels.so
+
+keyed on a hash of the sources and flags (`build/` is git-ignored), and
+loaded with ctypes. A build failure raises; nothing falls back. The
+launch counters are plain integers the kernel wrappers bump where they
+launch (and nowhere else), so a run can show its path went through them.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+import torch
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "yolat_tpu_torch")
+SOURCES = ("edge_window.cu", "block_max.cu")
+HEADERS = ("common.cuh",)
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+# dynamic shared memory one block can opt into on sm_90 (bytes)
+SMEM_LIMIT = 232448
+
+launch_counts = {"edge_window_message_sum": 0, "folded_mlp_block_max2": 0}
+
+_lock = threading.Lock()
+_lib = None
+
+
+def reset_launch_counts() -> None:
+    for k in launch_counts:
+        launch_counts[k] = 0
+
+
+def _nvcc() -> str:
+    cands = [shutil.which("nvcc")]
+    for env in ("CUDA_HOME", "CUDA_PATH"):
+        if os.environ.get(env):
+            cands.append(os.path.join(os.environ[env], "bin", "nvcc"))
+    cands.append("/usr/local/cuda/bin/nvcc")
+    for c in cands:
+        if c and os.path.exists(c):
+            return c
+    raise RuntimeError("nvcc not found (PATH, CUDA_HOME, /usr/local/cuda): "
+                       "the yolat_tpu_torch kernels cannot be built")
+
+
+def library_path() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES + HEADERS:
+        with open(os.path.join(CSRC, name), "rb") as f:
+            h.update(name.encode() + b"\0" + f.read())
+    return os.path.join(BUILD_DIR, h.hexdigest()[:16], "libyolat_kernels.so")
+
+
+def _compile(so: str) -> None:
+    os.makedirs(os.path.dirname(so), exist_ok=True)
+    tmp = f"{so}.tmp.{os.getpid()}"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+           *[os.path.join(CSRC, s) for s in SOURCES]]
+    r = subprocess.run(cmd, capture_output=True, text=True)
+    if r.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{' '.join(cmd)}\n"
+                           f"{r.stdout}{r.stderr}")
+    os.replace(tmp, so)
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, compiling it first if needed."""
+    global _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        so = library_path()
+        if not os.path.exists(so):
+            _compile(so)
+        lib = ctypes.CDLL(so)
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.yk_edge_window_message_sum.argtypes = [p] * 10 + [i] * 6 + [p]
+        lib.yk_edge_window_message_sum.restype = i
+        lib.yk_edge_window_smem_bytes.argtypes = [i] * 3
+        lib.yk_edge_window_smem_bytes.restype = ctypes.c_long
+        lib.yk_folded_mlp_block_max2.argtypes = [p] * 6 + [i] * 4 + [p]
+        lib.yk_folded_mlp_block_max2.restype = i
+        lib.yk_block_max_smem_bytes.argtypes = [i]
+        lib.yk_block_max_smem_bytes.restype = ctypes.c_long
+        lib.yk_error_string.argtypes = [i]
+        lib.yk_error_string.restype = ctypes.c_char_p
+        _lib = lib
+        return lib
+
+
+def check(lib, rc: int, what: str) -> None:
+    """Raise on a nonzero CUDA error code returned by a C entry point."""
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA error {rc} "
+                           f"({lib.yk_error_string(rc).decode()})")
+
+
+def ptr(t) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def stream_of(t) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)

@@ -1,0 +1,109 @@
+"""Edge-window message sum: the serving conv's edge pipeline (kernel 1).
+
+Counterpart of `yolat_tpu/ops/edge_window.py:184-264`
+(`edge_window_message_sum`, the Pallas `_kernel` at :125, and its oracle
+`edge_window_message_sum_reference`). Per node, the SUM over incoming
+edges of the folded-BN message MLP
+  relu(relu([x_i || x_j - x_i || attr] @ W1 * sc1[0] + sc1[1]) @ W2
+       * sc2[0] + sc2[1]),
+over the plan of `ops.plans.edge_window_plan` (real edges, dst-sorted,
+per-window offsets). The caller divides by the in-degree and adds the
+`lin_r` term (`eval/fast_forward.py`).
+
+`edge_window_message_sum` launches the CUDA kernel
+(`csrc/edge_window.cu`) for CUDA tensors and runs
+`edge_window_message_sum_plain` for CPU tensors; any other device raises.
+Both follow the TPU kernel's rounding: W1 split as (W1a - W1b, W1b, W1c)
+in x's type, x_i/x_j/attr, h1 and h2 rounded to x's type, f32 sums.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from yolat_tpu_torch.ops import _build
+
+H_KERNEL = 64  # message width the CUDA kernel is compiled for
+
+
+def _split_w1(w1, c: int, dtype):
+    """[W1a; W1b; W1c] -> [W1a - W1b; W1b; W1c], formed in `dtype` as the
+    TPU kernel forms it (edge_window.py:139-140)."""
+    w1 = w1.to(dtype)
+    return torch.cat([w1[:c] - w1[c:2 * c], w1[c:]], dim=0)
+
+
+def edge_window_message_sum_plain(x, ew, w1, sc1, w2, sc2):
+    """Plain PyTorch version: x [N, C] f32/bf16, ew = (src [E], dst [E],
+    attr [E, A], wptr [NW + 1], wn) from `ops.plans.ew_of`, w1 [2C+A, H],
+    sc1/sc2 [2, H], w2 [H, H] -> [N, H] f32."""
+    src, dst, attr = ew[:3]
+    n, c = x.shape
+    dt = x.dtype
+    w1s = _split_w1(w1, c, dt).float()
+    w2f = w2.to(dt).float()
+    sc1, sc2 = sc1.float(), sc2.float()
+    dst = dst.long()
+    x_i, x_j = x[dst].float(), x[src.long()].float()
+    a = attr.to(dt).float()
+    h = x_i @ w1s[:c] + x_j @ w1s[c:2 * c] + a @ w1s[2 * c:]
+    h = torch.relu(h * sc1[0] + sc1[1]).to(dt).float()
+    h = torch.relu((h @ w2f) * sc2[0] + sc2[1]).to(dt).float()
+    out = torch.zeros(n, h.shape[-1], dtype=torch.float32, device=x.device)
+    return out.index_add_(0, dst, h)
+
+
+def edge_window_message_sum(x, ew, w1, sc1, w2, sc2):
+    """Kernel 1 on CUDA tensors, its plain version on CPU tensors."""
+    if x.device.type == "cpu":
+        return edge_window_message_sum_plain(x, ew, w1, sc1, w2, sc2)
+    if x.device.type != "cuda":
+        raise ValueError(f"edge_window_message_sum: no route for {x.device}")
+    src, dst, attr, wptr, wn = ew
+    n, c = x.shape
+    e, na = attr.shape
+    h = w2.shape[-1]
+    nw = wptr.shape[0] - 1
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"x dtype {x.dtype}: float32 or bfloat16")
+    if h != H_KERNEL or nw != -(-n // wn) or tuple(src.shape) != (e,) \
+            or tuple(dst.shape) != (e,) or tuple(w1.shape) != (2 * c + na, h) \
+            or tuple(w2.shape) != (h, h) or tuple(sc1.shape) != (2, h) \
+            or tuple(sc2.shape) != (2, h):
+        raise ValueError(
+            f"edge_window_message_sum shapes: x {tuple(x.shape)}, plan "
+            f"{tuple(src.shape)}/{tuple(attr.shape)}/{tuple(wptr.shape)} at "
+            f"wn={wn}, w1 {tuple(w1.shape)}, w2 {tuple(w2.shape)}; needs "
+            f"H == {H_KERNEL} and ceil(N / wn) windows")
+    for name, t, dt in (("src", src, torch.int32), ("dst", dst, torch.int32),
+                        ("attr", attr, torch.float32),
+                        ("wptr", wptr, torch.int32)):
+        if t.dtype != dt or t.device != x.device:
+            raise TypeError(f"{name}: {t.dtype} on {t.device}, want {dt} on "
+                            f"{x.device}")
+    for name, t in (("w1", w1), ("w2", w2), ("sc1", sc1), ("sc2", sc2)):
+        if t.device != x.device or not t.is_floating_point():
+            raise TypeError(f"{name}: {t.dtype} on {t.device}, want a float "
+                            f"tensor on {x.device}")
+    out = torch.empty(n, h, dtype=torch.float32, device=x.device)
+    if n == 0:
+        return out
+    lib = _build.library()
+    smem = lib.yk_edge_window_smem_bytes(c, na, wn)
+    if smem > _build.SMEM_LIMIT:
+        raise ValueError(f"edge window of WN={wn}, C={c} needs {smem} bytes "
+                         f"of shared memory (> {_build.SMEM_LIMIT})")
+    x = x.contiguous()
+    w1s = _split_w1(w1, c, x.dtype).contiguous()
+    w2c = w2.to(x.dtype).contiguous()
+    ins = [t.contiguous() for t in (src, dst, attr, wptr)]
+    # the scale/shift pairs are read as f32 whatever their type, as the
+    # TPU kernel reads them (edge_window.py:142-143)
+    sc1c, sc2c = sc1.float().contiguous(), sc2.float().contiguous()
+    rc = lib.yk_edge_window_message_sum(
+        _build.ptr(x), *[_build.ptr(t) for t in ins], _build.ptr(w1s),
+        _build.ptr(sc1c), _build.ptr(w2c), _build.ptr(sc2c), _build.ptr(out),
+        n, c, nw, wn, na, int(x.dtype == torch.bfloat16), _build.stream_of(x))
+    _build.check(lib, rc, "edge_window_message_sum")
+    _build.launch_counts["edge_window_message_sum"] += 1
+    return out
