@@ -17,10 +17,27 @@ no jax. Phases, each of which raises on failure (non-zero exit):
      .pth and served through `yolat_tpu_torch.cli.infer` on the 8 SVGs
      in fast_bf16 mode; both kernels must launch, one record per SVG;
      kernel-route logits must match the plain route and the module
-     forward on the card.
+     forward on the card;
+  5. training kernels: on the same batch, the fusion input cat [N, 128]
+     of a train-mode forward of the seeded model; kernel 3 against its
+     plain version (f32, bf16); the fused pool head's kernel route
+     (kernel 3 -> kernel 11) against its plain route for pooled, the
+     batch statistics and all five gradients under a fixed random
+     cotangent (relative Frobenius error 1e-5 at f32, 5e-4 at bf16);
+     the kernel route against the unfused composition (Linear -> masked
+     BN -> ReLU -> segment max, torch autograd) at f32 (1e-5); kernel
+     11 twice, bit-identical; paired median times;
+  6. train: 8 bench-scale training SVGs and 2 test SVGs through
+     `yolat_tpu_torch.cli.train` (bf16, fused head, augmentation on,
+     batch 4, full width) for a few steps; losses finite, kernels 3 and
+     11 launched once per step, a checkpoint and an evaluation written;
+     the trained weights exported as a reference .pth and served through
+     `cli.infer`, one record per SVG.
 Everything it runs comes from yolat_tpu_torch, the synthetic SVG writer
 included: it imports neither jax nor the JAX package yolat_tpu.
-The line before the last is a JSON object describing each kernel; the
+The kernels line (a JSON object describing each kernel; launches are
+counted over the path that runs it: phase 4 for the serving kernels,
+phase 6 for the training kernels) comes before the nvidia-smi line; the
 last line is {"ok": true, "device": {...}}.
 """
 
@@ -37,6 +54,11 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 N_SVGS = 8
 BATCH = 4
+TRAIN_STEPS = 8
+# relative Frobenius limits of the fused head: kernel route vs plain route
+# by dtype name, and the f32 kernel route vs the unfused composition
+HEAD_TOL = {"f32": 1e-5, "bf16": 5e-4}
+UNFUSED_TOL = 1e-5
 
 
 def nvidia_smi() -> str:
@@ -211,7 +233,8 @@ def serve_phase(root, ckpt, work, dev_line):
             check(len(d["box"]) == 4 and all(map(_finite, d["box"]))
                   and 0.0 <= d["score"] <= 1.0, "bad detection")
     n_det = sum(len(r["detections"]) for r in recs)
-    check(all(v > 0 for v in counts.values()), f"kernel launches {counts}")
+    check(counts["edge_window_message_sum"] > 0
+          and counts["folded_mlp_block_max2"] > 0, f"kernel launches {counts}")
     t0 = time.perf_counter()
     infer.main(argv)
     warm = N_SVGS / (time.perf_counter() - t0)
@@ -219,6 +242,249 @@ def serve_phase(root, ckpt, work, dev_line):
           f"launches {counts}; "
           f"{cold:.3f} SVGs/s first run, {warm:.3f} SVGs/s second run "
           f"(end to end through the CLI, preprocessing caches warm) [{dev_line}]")
+    return counts
+
+
+def _rel(a, b, ref=None) -> float:
+    """||a - b|| / ||ref or b||, in f32."""
+    ref = b if ref is None else ref
+    return ((a.float() - b.float()).norm()
+            / max(ref.float().norm().item(), 1e-30)).item()
+
+
+def _head_run(cat, maskf, lin, bn, blk_first, n_prop, cot, dtype, route):
+    """The fused head on `route`: (pooled, mean, var) and the gradients
+    of sum(pooled * cot) wrt x, W, b, gamma, beta."""
+    import torch
+
+    from yolat_tpu_torch.ops.fused_pool_train import fused_pool_train
+
+    leaves = [cat.detach().clone().requires_grad_(True),
+              lin.weight.detach().t().contiguous().requires_grad_(True),
+              lin.bias.detach().clone().requires_grad_(True),
+              bn.weight.detach().clone().requires_grad_(True),
+              bn.bias.detach().clone().requires_grad_(True)]
+    x, w, b, g, be = leaves
+    pooled, mean, var, _ = fused_pool_train(
+        x.to(dtype), maskf, w.to(dtype), b, g, be, blk_first, n_prop, route)
+    (pooled.float() * cot).sum().backward()
+    torch.cuda.synchronize()
+    return ({"pooled": pooled.detach(), "mean": mean, "var": var},
+            dict(zip(("dx", "dW", "db", "dgamma", "dbeta"),
+                     (t.grad for t in leaves))))
+
+
+def _unfused_run(cat, mask, lin, bn, batch, n_prop, cot):
+    """Linear -> masked train-mode BN -> ReLU -> segment max (torch
+    autograd through the port's modules) at f32."""
+    import torch
+
+    from yolat_tpu_torch.nn.layers import MLP
+    from yolat_tpu_torch.ops.plans import plan_of
+    from yolat_tpu_torch.ops.segment import segment_max
+
+    mlp = MLP([cat.shape[1], lin.weight.shape[0]]).to(cat.device).train()
+    x = cat.detach().clone().requires_grad_(True)
+    w = lin.weight.detach().t().contiguous().requires_grad_(True)
+    b = lin.bias.detach().clone().requires_grad_(True)
+    g = bn.weight.detach().clone().requires_grad_(True)
+    be = bn.bias.detach().clone().requires_grad_(True)
+    a = torch.func.functional_call(
+        mlp, {"0.weight": w.t(), "0.bias": b, "1.weight": g, "1.bias": be},
+        (x * mask[:, None].float(), mask))
+    pooled = segment_max(a, batch["bbox_idx"], n_prop, mask=mask,
+                         plan=plan_of(batch))
+    (pooled * cot).sum().backward()
+    torch.cuda.synchronize()
+    return ({"pooled": pooled.detach()},
+            dict(zip(("dx", "dW", "db", "dgamma", "dbeta"),
+                     (t.grad for t in (x, w, b, g, be)))))
+
+
+def train_kernel_phase(model, batch, dev_line):
+    """Kernels 3 and 11 at the bench batch's training shapes; returns
+    {kernel name: dict(max_abs_err, ms, plain_ms)} (ms at bf16; kernel
+    11's max_abs_err is the largest gradient error of the f32 head)."""
+    import torch
+
+    from yolat_tpu_torch.ops.block_max import (folded_mlp_block_max,
+                                               folded_mlp_block_max_plain)
+    from yolat_tpu_torch.ops.fused_pool_train import (
+        _scale_shift, _stats, fused_pool_train_bwd,
+        fused_pool_train_bwd_plain)
+    from yolat_tpu_torch.ops.plans import plan_of
+
+    model.train()
+    with torch.no_grad():
+        cat, _ = model.cls_net.features(batch)
+    lin, bn = model.cls_net.fusion_block[0], model.cls_net.fusion_block[1]
+    mask = batch["node_mask"]
+    maskf = mask.float()[:, None]
+    blk_first = plan_of(batch)[0]
+    n_prop = batch["labels"].shape[0]
+    h = lin.weight.shape[0]
+    cot = torch.randn(n_prop, h, generator=torch.Generator().manual_seed(5)
+                      ).to(cat.device)
+    res = {"folded_mlp_block_max": dict(max_abs_err=0.0),
+           "fused_pool_train_bwd": dict(max_abs_err=0.0)}
+    print(f"train kernels: cat {tuple(cat.shape)} -> H {h}, "
+          f"{blk_first.shape[0]} blocks, {n_prop} proposals")
+
+    for dt in (torch.float32, torch.bfloat16):
+        name = "f32" if dt == torch.float32 else "bf16"
+        x = (cat * maskf).to(dt)
+        w = lin.weight.detach().t().contiguous().to(dt)
+        mean, var, _, _, _ = _stats(x, maskf, w, lin.bias.detach())
+        sc = _scale_shift(mean, var, lin.bias.detach(), bn.weight.detach(),
+                          bn.bias.detach())
+        got = folded_mlp_block_max(x, maskf, w, sc)
+        want = folded_mlp_block_max_plain(x, maskf, w, sc)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        rtol = 1e-4 if dt == torch.float32 else 1e-2
+        ok = bool(((got.float() - want.float()).abs()
+                   <= 1e-4 + rtol * want.float().abs()).all())
+        ms, pms = paired_ms(lambda: folded_mlp_block_max(x, maskf, w, sc),
+                            lambda: folded_mlp_block_max_plain(x, maskf, w, sc))
+        print(f"kernel folded_mlp_block_max {name} x{tuple(x.shape)} -> "
+              f"{tuple(got.shape)}: max_abs_err={err:.3e} (|err| <= 1e-4 + "
+              f"{rtol:g}|ref|) {'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms, "
+              f"plain {pms:.4f} ms [{dev_line}]")
+        check(ok, f"folded_mlp_block_max {name} disagrees")
+        r = res["folded_mlp_block_max"]
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        if dt == torch.bfloat16:
+            r["ms"], r["plain_ms"] = ms, pms
+
+        # the whole fused head: kernel route vs plain route
+        kv, kg = _head_run(cat, maskf, lin, bn, blk_first, n_prop, cot, dt,
+                           "kernel")
+        pv, pg = _head_run(cat, maskf, lin, bn, blk_first, n_prop, cot, dt,
+                           "plain")
+        # f32: sound runs read <= 6.9e-7; bf16: <= 7.2e-5 with one bf16
+        # winner flip, while a kernel 11 that keeps s = u*sc0 in f32
+        # instead of rounding it to bf16 reads 2.6e-3 (dx), 2.9e-3 (dW)
+        tol = HEAD_TOL[name]
+        errs = {k: _rel(kv[k], pv[k]) for k in kv}
+        errs.update({k: _rel(kg[k], pg[k], pg["dbeta"] if k == "db" else None)
+                     for k in kg})
+        abs_err = max((kg[k].float() - pg[k].float()).abs().max().item()
+                      for k in kg)
+        check(all(torch.isfinite(t.float()).all() for t in
+                  list(kv.values()) + list(kg.values())), "finite head outputs")
+        check(kg["dW"].abs().max().item() > 0, "winners found (dW nonzero)")
+        print(f"fused head {name}, kernel route vs plain route, relative "
+              f"Frobenius error (db against ||dbeta||; <= {tol:g}): "
+              + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+              + f"; max abs grad err {abs_err:.3e}")
+        check(all(v <= tol for v in errs.values()),
+              f"fused head {name}: kernel route disagrees with the plain route")
+        if dt == torch.float32:
+            # at bf16 a rounding flip at a bf16 boundary can move a winner
+            # between the routes, so the element-wise error of the
+            # kernels line is the f32 one
+            res["fused_pool_train_bwd"]["max_abs_err"] = abs_err
+
+        # kernel 11 alone: bit-identical runs, paired times
+        pooled_b = kv["pooled"][blk_first.long()]
+        gp_b = cot[blk_first.long()]
+        ppb = folded_mlp_block_max_plain(x, maskf, w, sc)  # plain's own bits
+        raw = torch.full((n_prop, h), -1e30, device=x.device).scatter_reduce_(
+            0, blk_first.long()[:, None].expand(-1, h), ppb.float(), "amax")
+        ppooled_b = torch.where(raw <= -5e29, torch.zeros_like(raw),
+                                raw).to(dt)[blk_first.long()]
+        a1 = fused_pool_train_bwd(x, maskf, w, sc, pooled_b, gp_b)
+        a2 = fused_pool_train_bwd(x, maskf, w, sc, pooled_b, gp_b)
+        torch.cuda.synchronize()
+        same = all(torch.equal(p, q) for p, q in zip(a1, a2))
+        check(same, f"kernel 11 {name}: two runs differ")
+        ms, pms = paired_ms(
+            lambda: fused_pool_train_bwd(x, maskf, w, sc, pooled_b, gp_b),
+            lambda: fused_pool_train_bwd_plain(x, maskf, w, sc, ppooled_b,
+                                               gp_b))
+        print(f"kernel fused_pool_train_bwd {name}: two runs bit-identical "
+              f"{same}; kernel {ms:.4f} ms, plain {pms:.4f} ms [{dev_line}]")
+        if dt == torch.bfloat16:
+            res["fused_pool_train_bwd"].update(ms=ms, plain_ms=pms)
+
+    # the kernel route against the unfused composition, f32
+    kv, kg = _head_run(cat, maskf, lin, bn, blk_first, n_prop, cot,
+                       torch.float32, "kernel")
+    uv, ug = _unfused_run(cat, mask, lin, bn, batch, n_prop, cot)
+    errs = {"pooled": _rel(kv["pooled"], uv["pooled"])}
+    errs.update({k: _rel(kg[k], ug[k], ug["dbeta"] if k == "db" else None)
+                 for k in kg})
+    # sound runs read <= 1.6e-6: cuBLAS and torch's BN sum in other orders
+    print(f"fused head f32, kernel route vs unfused composition, relative "
+          f"Frobenius error (<= {UNFUSED_TOL:g}): "
+          + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+    check(all(v <= UNFUSED_TOL for v in errs.values()),
+          "fused head disagrees with the unfused composition")
+    model.eval()
+    return res
+
+
+def train_phase(work, dev_line):
+    """cli.train on bench-scale SVGs (bf16, fused head), then the trained
+    weights through cli.infer; returns the train path's launch counts."""
+    from yolat_tpu_torch.cli import infer
+    from yolat_tpu_torch.cli import train as train_cli
+    from yolat_tpu_torch.config import Config
+    from yolat_tpu_torch.data.dataset import SESYDDataset
+    from yolat_tpu_torch.data.synthetic import write_dataset
+    from yolat_tpu_torch.nn.model import build_model
+    from yolat_tpu_torch.ops import _build
+    from yolat_tpu_torch.train.checkpoint import (CheckpointManager,
+                                                  load_train_state,
+                                                  save_reference_checkpoint)
+
+    root = os.path.join(work, "train_svgs")
+    write_dataset(root, n_train=N_SVGS, n_test=2, seed=11, width=2000.0,
+                  height=1500.0, n_rooms=6, symbols_per_room=(1, 3))
+    argv = ["--data_dir", root, "--device", "cuda", "--dtype", "bfloat16",
+            "--fused_head_train", "true", "--data_aug", "true",
+            "--batch_size", str(BATCH), "--n_filters", "64",
+            "--max_steps", str(TRAIN_STEPS), "--root_dir",
+            os.path.join(work, "log"), "--print_freq", "1"]
+    _build.reset_launch_counts()
+    res = train_cli.main(argv)
+    counts = dict(_build.launch_counts)
+    check(res["steps"] == TRAIN_STEPS, f"{res['steps']} train steps")
+    check(len(res["losses"]) == TRAIN_STEPS
+          and all(v == v and abs(v) != float("inf") for v in res["losses"]),
+          f"finite losses {res['losses']}")
+    check(counts["folded_mlp_block_max"] == TRAIN_STEPS
+          and counts["fused_pool_train_bwd"] == TRAIN_STEPS,
+          f"training kernels launched once per step: {counts}")
+    for k in ("map_50", "map_all", "top1_acc"):
+        check(k in res and res[k] == res[k], f"evaluation result {k}")
+    ckdir = os.path.join(res["exp_dir"], "checkpoint")
+    check(os.path.exists(os.path.join(ckdir, "ckpt_best.pt")),
+          "a best checkpoint was written")
+    secs = res["train_seconds"]
+    print(f"train: {res['steps']} bf16 steps (fused head, augmentation on, "
+          f"batch {BATCH}, 64 channels) in {secs:.3f} s = "
+          f"{res['steps'] / secs:.3f} steps/s, {res['images'] / secs:.3f} "
+          f"images/s (first steps included); losses "
+          f"{[round(v, 4) for v in res['losses']]}; MAP@0.5 "
+          f"{res['map_50']:.4f}, top1 {res['top1_acc']:.4f}; launches "
+          f"{counts} [{dev_line}]")
+
+    state, epoch, _ = CheckpointManager(ckdir).restore("best")
+    model = build_model(Config(n_classes=SESYDDataset(root).n_classes))
+    load_train_state(state, model)
+    pth = os.path.join(work, "trained.pth")
+    save_reference_checkpoint(model, pth, epoch)
+    out = os.path.join(work, "trained.jsonl")
+    infer.main(["--data_dir", root, "--phase", "train", "--pretrained_model",
+                pth, "--out", out, "--device", "cuda", "--conf_th", "0.0",
+                "--batch_size", str(BATCH)])
+    with open(out) as f:
+        recs = [json.loads(line) for line in f]
+    check(len(recs) == N_SVGS and all("error" not in r for r in recs),
+          f"{len(recs)} records for {N_SVGS} trained-on SVGs")
+    print(f"served the trained checkpoint (epoch {epoch}): {len(recs)} "
+          f"records, {sum(len(r['detections']) for r in recs)} detections")
     return counts
 
 
@@ -290,12 +556,27 @@ def main() -> int:
                                    model.state_dict().items()}, "epoch": 0}, ckpt)
         counts = serve_phase(root, ckpt, work, dev_line)
 
+        # 5. training kernels
+        res.update(train_kernel_phase(model, batch, dev_line))
+
+        # 6. train
+        counts.update({k: v for k, v in train_phase(work, dev_line).items()
+                       if k in ("folded_mlp_block_max",
+                                "fused_pool_train_bwd")})
+
+    # 7. kernels line
     sources = {"edge_window_message_sum": (
                    "yolat_tpu_torch/csrc/edge_window.cu",
                    "yolat_tpu/ops/edge_window.py:185"),
                "folded_mlp_block_max2": (
                    "yolat_tpu_torch/csrc/block_max.cu",
-                   "yolat_tpu/ops/pallas_kernels.py:274")}
+                   "yolat_tpu/ops/pallas_kernels.py:274"),
+               "folded_mlp_block_max": (
+                   "yolat_tpu_torch/csrc/block_max.cu",
+                   "yolat_tpu/ops/pallas_kernels.py:213"),
+               "fused_pool_train_bwd": (
+                   "yolat_tpu_torch/csrc/fused_pool_train.cu",
+                   "yolat_tpu/ops/fused_pool_train.py:198")}
     kernels = [{"name": k, "route": "cuda", "source": sources[k][0],
                 "replaces": sources[k][1], "launches": counts[k],
                 "max_abs_err": res[k]["max_abs_err"], "ms": res[k]["ms"],

@@ -24,10 +24,14 @@ from yolat_tpu.ops.edge_window import (edge_window_message_sum as jax_ew,
 from yolat_tpu.ops.edge_window import edge_window_plan as jax_ew_plan
 from yolat_tpu.ops.pallas_kernels import folded_mlp_block_max2 as jax_bm2
 from yolat_tpu_torch.ops import _build
-from yolat_tpu_torch.ops.block_max import (folded_mlp_block_max2,
-                                           folded_mlp_block_max2_plain)
+from yolat_tpu_torch.ops.block_max import (folded_mlp_block_max,
+                                           folded_mlp_block_max2,
+                                           folded_mlp_block_max2_plain,
+                                           folded_mlp_block_max_plain)
 from yolat_tpu_torch.ops.edge_window import (edge_window_message_sum,
                                              edge_window_message_sum_plain)
+from yolat_tpu_torch.ops.fused_pool_train import (fused_pool_train_bwd,
+                                                  fused_pool_train_bwd_plain)
 from yolat_tpu_torch.ops.plans import EW_KEYS, edge_window_plan
 
 
@@ -164,5 +168,13 @@ def test_cpu_tensors_take_the_plain_versions():
     for a, b in zip(folded_mlp_block_max2(bx, bm, bw, bsc),
                     folded_mlp_block_max2_plain(bx, bm, bw, bsc)):
         assert torch.equal(a, b)
+    bh = folded_mlp_block_max(bx, bm, bw, bsc)
+    assert torch.equal(bh, folded_mlp_block_max_plain(bx, bm, bw, bsc))
+    gp_b = torch.ones_like(bh, dtype=torch.float32)
+    for a, b in zip(fused_pool_train_bwd(bx, bm, bw, bsc, bh, gp_b),
+                    fused_pool_train_bwd_plain(bx, bm, bw, bsc, bh, gp_b)):
+        assert torch.equal(a, b)
     assert _build.launch_counts == {"edge_window_message_sum": 0,
-                                    "folded_mlp_block_max2": 0}
+                                    "folded_mlp_block_max2": 0,
+                                    "folded_mlp_block_max": 0,
+                                    "fused_pool_train_bwd": 0}

@@ -2,8 +2,9 @@
 card has none) and without the JAX package beside it: in a subprocess
 whose import system refuses jax, jaxlib, flax, optax, orbax and yolat_tpu,
 import every module of the port, write and pack synthetic files, serve
-them on the CPU (predict core and CLI), and check that none of those
-modules was loaded. Plus a source check: no import of any of them
+them on the CPU (predict core and CLI), train one step with the fused
+pool head on through the train CLI, and check that none of those modules
+was loaded. Plus a source check: no import of any of them
 anywhere in the package or in chip_smoke.py."""
 
 import os
@@ -62,6 +63,12 @@ SCRIPT = textwrap.dedent("""
                     "--device", "cpu", "--n_filters", "8", "--conf_th", "0"])
         with open(out) as f:
             assert len(f.readlines()) == 2
+        from yolat_tpu_torch.cli import train as train_cli
+        res = train_cli.main(["--data_dir", d, "--device", "cpu",
+                              "--n_filters", "8", "--batch_size", "1",
+                              "--max_steps", "1", "--fused_head_train", "true",
+                              "--root_dir", os.path.join(d, "log")])
+        assert res["steps"] == 1 and res["losses"][0] == res["losses"][0]
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     assert not loaded, loaded
     print("NOJAX-OK", len(mods))
@@ -76,7 +83,7 @@ def test_port_runs_without_jax():
     assert r.returncode == 0, r.stdout + r.stderr
     assert "NOJAX-OK" in r.stdout
     n_mods = int(r.stdout.split("NOJAX-OK")[1].split()[0])
-    assert n_mods >= 24
+    assert n_mods >= 35
 
 
 def test_no_jax_import_in_port_sources():
@@ -85,7 +92,7 @@ def test_no_jax_import_in_port_sources():
     files = [os.path.join(REPO, "chip_smoke.py")]
     for base, _, names in os.walk(os.path.join(REPO, "yolat_tpu_torch")):
         files += [os.path.join(base, n) for n in names if n.endswith(".py")]
-    assert len(files) > 24
+    assert len(files) > 35
     for path in files:
         with open(path) as f:
             assert not pat.search(f.read()), path

@@ -1,14 +1,19 @@
-// Fused fusion-MLP + 8-row block max (the serving pool head), for sm_90a.
+// Fused fusion-MLP + 8-row block max (the pool head), for sm_90a.
 //
 // Replaces: yolat_tpu/ops/pallas_kernels.py, folded_mlp_block_max2
-// (`_folded_mlp_block_max2_kernel`, pallas_call at :306). For x [N, CI],
+// (`_folded_mlp_block_max2_kernel`, pallas_call at :306; the serving head)
+// and folded_mlp_block_max (`_folded_mlp_block_max_kernel`, pallas_call at
+// :247; the forward of the fused training pool head). For x [N, CI],
 // node mask m [N], W [CI, H], sc [2, H]:
 //   outh[b] = max over rows r of block b of (m[r] > 0 ? relu((x[r] @ W) *
 //             sc[0] + sc[1]) : -1e30)                        [N/8, H]
 //   outx[b] = max over rows r of block b of (m[r] > 0 ? x[r] : -1e30)
 //                                                            [N/8, CI]
-// both stored in x's type (f32 or bf16); the [N, H] MLP output never leaves
-// the chip. Products and sums are f32, W is read in x's type.
+// (outx only for folded_mlp_block_max2), stored in x's type (f32 or bf16);
+// the [N, H] MLP output never leaves the chip. Products and sums are f32,
+// W is read in x's type. The per-row arithmetic is yk::mlp_rows8x4 and
+// yk::folded_pre (common.cuh), which the training backward
+// (fused_pool_train.cu) recomputes through to find the max's winners.
 //
 // What bounds it on the H100: at the bench batch (N 72704, CI 128,
 // H 1024) the product is 19.1 GFLOP against ~19 MB of x and ~19 MB of
@@ -23,7 +28,8 @@
 //     cross-thread reduction;
 //   * x values are broadcast across a warp (all lanes share the 8 rows),
 //     W is read as float4 rows (conflict-free);
-//   * the column-slab-0 CTAs also write the x block max from the staged tile.
+//   * with outx, the column-slab-0 CTAs also write the x block max from the
+//     staged tile.
 // CUDA-core FMA only; mma.sync / wgmma with TMA staging are later work.
 #include "common.cuh"
 
@@ -32,7 +38,7 @@ namespace {
 constexpr int ROWS = 64;      // rows per CTA (8 pool blocks)
 constexpr int COLS = 128;     // output columns per CTA
 constexpr int THREADS = 256;  // 8 row blocks x 32 column groups of 4
-constexpr int BLOCK = 8;      // pool block rows
+constexpr int BLOCK = yk::POOL_BLOCK;
 
 size_t smem_bytes(int ci) { return ((size_t)ROWS * ci + (size_t)ci * COLS + ROWS) * 4; }
 
@@ -59,22 +65,7 @@ __global__ void __launch_bounds__(THREADS) block_max_kernel(
 
   const int rb = tid / 32, cg = tid % 32;
   float acc[BLOCK][4];
-#pragma unroll
-  for (int r = 0; r < BLOCK; ++r)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) acc[r][q] = 0.f;
-  const float* xr = x_s + rb * BLOCK * ci;
-  for (int kk = 0; kk < ci; ++kk) {
-    const float4 wv = *reinterpret_cast<const float4*>(w_s + kk * COLS + cg * 4);
-#pragma unroll
-    for (int r = 0; r < BLOCK; ++r) {
-      const float xv = xr[r * ci + kk];
-      acc[r][0] = fmaf(xv, wv.x, acc[r][0]);
-      acc[r][1] = fmaf(xv, wv.y, acc[r][1]);
-      acc[r][2] = fmaf(xv, wv.z, acc[r][2]);
-      acc[r][3] = fmaf(xv, wv.w, acc[r][3]);
-    }
-  }
+  yk::mlp_rows8x4(x_s + rb * BLOCK * ci, ci, w_s + cg * 4, COLS, acc);
   const size_t blk = (size_t)blockIdx.x * (ROWS / BLOCK) + rb;
 #pragma unroll
   for (int q = 0; q < 4; ++q) {
@@ -83,13 +74,13 @@ __global__ void __launch_bounds__(THREADS) block_max_kernel(
     float mx = -INFINITY;
 #pragma unroll
     for (int r = 0; r < BLOCK; ++r) {
-      const float v = fmaxf(acc[r][q] * s0 + s1, 0.f);
+      const float v = fmaxf(yk::folded_pre(acc[r][q], s0, s1), 0.f);
       mx = fmaxf(mx, m_s[rb * BLOCK + r] > 0.f ? v : -1e30f);
     }
     outh[blk * h + col] = yk::from_f<T>(mx);
   }
 
-  if (blockIdx.y == 0) {
+  if (outx != nullptr && blockIdx.y == 0) {
     const float masked = yk::round_to<T>(-1e30f);
     for (int i = tid; i < (ROWS / BLOCK) * ci; i += THREADS) {
       const int b = i / ci, cc = i - b * ci;
@@ -134,6 +125,16 @@ int yk_folded_mlp_block_max2(const void* x, const void* mask, const void* w,
   if (bf16)
     return launch<__nv_bfloat16>(x, mask, w, sc, outh, outx, n, ci, h, st);
   return launch<float>(x, mask, w, sc, outh, outx, n, ci, h, st);
+}
+
+// The single-output form (no x block max): the same kernel, outx null.
+int yk_folded_mlp_block_max(const void* x, const void* mask, const void* w,
+                            const void* sc, void* outh, int n, int ci, int h,
+                            int bf16, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bf16)
+    return launch<__nv_bfloat16>(x, mask, w, sc, outh, nullptr, n, ci, h, st);
+  return launch<float>(x, mask, w, sc, outh, nullptr, n, ci, h, st);
 }
 
 long yk_block_max_smem_bytes(int ci) { return (long)smem_bytes(ci); }

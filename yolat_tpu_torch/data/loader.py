@@ -1,7 +1,10 @@
-"""Sequential packed loader over `yolat_tpu_torch.data.dataset.SESYDDataset`.
+"""Packed loader over `yolat_tpu_torch.data.dataset.SESYDDataset`.
 
 Counterpart of `yolat_tpu/data/dataset.py:209-600` (`PackedLoader`) for
-serving: one device, no shuffle, no buckets, no mixup. Pad sizes follow
+one device: no buckets, no mixup. With shuffle, epoch e visits the files
+in the order `np.random.default_rng(seed + e).shuffle` gives, exactly as
+`_iter_sync` (:517-529) orders them, so both packages train on the same
+batch sequence. Pad sizes follow
 `PackedLoader.compute_pad` (:402-454): the sum of the `batch_size` largest
 per-file counts per dimension, rounded up as `PadSizes` does
 (`yolat_tpu/data/packing.py:53-79`), computed from this port's own
@@ -13,12 +16,15 @@ from __future__ import annotations
 import queue
 import threading
 
+import numpy as np
+
 from yolat_tpu_torch.data.packing import (CompactFile, PadSizes, pack_files,
                                           round_up)
 
 
 class PackedLoader:
-    """Yields numpy batch dicts of `batch_size` images, in manifest order.
+    """Yields numpy batch dicts of `batch_size` images, in manifest order
+    or, with shuffle, in each epoch's shuffled order.
 
     prefetch=1 packs the next batch on one background thread while the
     consumer runs the current one; prefetch=0 packs inline.
@@ -27,11 +33,15 @@ class PackedLoader:
     """
 
     def __init__(self, dataset, batch_size: int = 4, prefetch: int = 1,
-                 edge_window: bool = True, cache_files: bool = True):
+                 edge_window: bool = True, cache_files: bool = True,
+                 shuffle: bool = False, seed: int = 0):
         if prefetch not in (0, 1):
             raise ValueError("prefetch is 0 or 1")
         self.ds = dataset
         self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.seed = seed
+        self.epoch = 0
         self.prefetch = prefetch
         self.edge_window = edge_window
         self.cache_files = cache_files
@@ -43,7 +53,8 @@ class PackedLoader:
         if hit is not None:
             return hit
         f, gt, wh = self.ds.load(i)
-        item = (CompactFile(f), gt, wh)
+        item = (CompactFile(f, n_classes=getattr(self.ds, "n_classes", None)),
+                gt, wh)
         if self.cache_files:
             self._compact[i] = item
         return item
@@ -67,10 +78,20 @@ class PackedLoader:
     def __len__(self):
         return -(-len(self.ds) // self.batch_size)
 
+    def epoch_order(self):
+        """The next epoch's file order (advances the epoch counter)."""
+        rng = np.random.default_rng(self.seed + self.epoch)
+        self.epoch += 1
+        order = np.arange(len(self.ds))
+        if self.shuffle:
+            rng.shuffle(order)
+        return order
+
     def _iter_sync(self):
-        for start in range(0, len(self.ds), self.batch_size):
-            loads = [self._load(i) for i in
-                     range(start, min(start + self.batch_size, len(self.ds)))]
+        order = self.epoch_order()
+        for start in range(0, len(order), self.batch_size):
+            loads = [self._load(int(i))
+                     for i in order[start:start + self.batch_size]]
             yield pack_files([l[0] for l in loads], [l[1] for l in loads],
                              [l[2] for l in loads], self.pad,
                              edge_window=self.edge_window)

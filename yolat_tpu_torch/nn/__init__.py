@@ -1,1 +1,1 @@
-"""The canonical YOLaT detector as PyTorch modules (eval forward)."""
+"""The canonical YOLaT detector as PyTorch modules (train and eval)."""

@@ -1,16 +1,20 @@
-"""Masked BatchNorm and the reference-shaped MLP block (eval forward).
+"""Masked BatchNorm, the reference-shaped MLP block and the fused pool head.
 
-Counterpart of `yolat_tpu/nn/layers.py:43-157` (`MaskedBatchNorm`, `MLP`).
-The MLP is laid out as the reference's flat Sequential
+Counterpart of `yolat_tpu/nn/layers.py:43-237` (`MaskedBatchNorm`, `MLP`,
+`FusedPoolFusion`). The MLP is laid out as the reference's flat Sequential
 (gcn_lib/sparse/torch_nn.py:50-71): per stage Linear, then BatchNorm and
 the activation unless the stage is bare, so a stage-k Linear sits at index
 3k and its BatchNorm at 3k+1 — the state-dict keys
-`yolat_tpu/train/import_reference._export_mlp` (:138-165) writes.
+`yolat_tpu/train/import_reference._export_mlp` (:138-165) writes. Dropout
+holds no tensor and takes no index, so reference `.pth` files load
+strictly whatever the dropout rate.
 
-Eval uses the running statistics (eps 1e-5), as the JAX module does with
-train=False: y = (x - mean) * rsqrt(var + eps) * weight + bias. The
-masked batch statistics (padding rows excluded) are training-only and
-arrive with the training slice, together with the mask argument.
+Train mode computes masked batch statistics (padding rows excluded) in
+f32 as E[z^2] - E[z]^2 clamped at 0, over max(count, 1) rows, and moves
+the f32 running statistics with momentum 0.1 and the unbiased variance
+var * n / max(n - 1, 1) (torch.nn.BatchNorm1d's convention). Eval uses
+the running statistics. Either way y = (x - mean) * rsqrt(var + eps) *
+weight + bias in f32, returned in x's type.
 Weight init matches the reference model_init: Kaiming-normal (fan_in,
 ReLU gain) for Linear weights, zero biases (`init_weights`).
 """
@@ -20,13 +24,17 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from yolat_tpu_torch.ops.fused_pool_train import fused_pool_train
+
 
 class MaskedBatchNorm(nn.Module):
-    """BatchNorm1d over a padded element axis; eval form only."""
+    """BatchNorm1d over a padded element axis."""
 
-    def __init__(self, features: int, eps: float = 1e-5):
+    def __init__(self, features: int, eps: float = 1e-5,
+                 momentum: float = 0.1):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
@@ -34,26 +42,90 @@ class MaskedBatchNorm(nn.Module):
         self.register_buffer("num_batches_tracked",
                              torch.zeros((), dtype=torch.int64))
 
-    def forward(self, x):
+    @torch.no_grad()
+    def update_running(self, mean, var, count) -> None:
+        """Move the running statistics toward one batch's f32 moments."""
+        unbiased = var * count / torch.clamp(count - 1.0, min=1.0)
+        m = self.momentum
+        self.running_mean.copy_((1 - m) * self.running_mean + m * mean)
+        self.running_var.copy_((1 - m) * self.running_var + m * unbiased)
+
+    def forward(self, x, mask=None):
         if self.training:
-            raise NotImplementedError(
-                "MaskedBatchNorm training statistics arrive with the "
-                "training slice; call model.eval()")
-        inv = torch.rsqrt(self.running_var + self.eps) * self.weight
-        return ((x - self.running_mean) * inv + self.bias).to(x.dtype)
+            xf = x.float()
+            if mask is not None:
+                m = mask.float()[:, None]
+                count = m.sum()
+                total = (xf * m).sum(dim=0)
+                total_sq = (xf * xf * m).sum(dim=0)
+            else:
+                count = torch.tensor(float(x.shape[0]), device=x.device)
+                total = xf.sum(dim=0)
+                total_sq = (xf * xf).sum(dim=0)
+            count = torch.clamp(count, min=1.0)
+            mean = total / count
+            var = torch.clamp(total_sq / count - mean * mean, min=0.0)
+            self.update_running(mean.detach(), var.detach(), count)
+        else:
+            mean, var = self.running_mean, self.running_var
+        inv = torch.rsqrt(var + self.eps) * self.weight
+        return ((x - mean) * inv + self.bias).to(x.dtype)
+
+
+def dropout(x, p: float, generator: torch.Generator | None):
+    """Inverted dropout with an explicit generator (keep 1 - p, scale
+    1 / (1 - p)), as flax's nn.Dropout."""
+    if generator is None:
+        raise ValueError("dropout > 0 in training needs a torch.Generator")
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
 
 
 class MLP(nn.Sequential):
-    """Linear -> BatchNorm -> ReLU per channel transition; bare=True keeps
-    only the Linear layers (the reference's classifier stage)."""
+    """Linear -> BatchNorm -> ReLU [-> dropout] per channel transition;
+    bare=True keeps only the Linear layers (the reference's classifier
+    stage). `mask` selects the rows of the BatchNorm statistics."""
 
-    def __init__(self, channels, bare: bool = False):
+    def __init__(self, channels, bare: bool = False, drop: float = 0.0):
         layers = []
         for i in range(len(channels) - 1):
             layers.append(nn.Linear(channels[i], channels[i + 1]))
             if not bare:
                 layers += [MaskedBatchNorm(channels[i + 1]), nn.ReLU()]
         super().__init__(*layers)
+        self.drop = drop
+
+    def forward(self, x, mask=None, generator=None):
+        for layer in self:
+            if isinstance(layer, MaskedBatchNorm):
+                x = layer(x, mask)
+            else:
+                x = layer(x)
+            if isinstance(layer, nn.ReLU) and self.drop > 0 and self.training:
+                x = dropout(x, self.drop, generator)
+        return x
+
+
+class FusedPoolFusion(MLP):
+    """The fusion MLP [cin -> h] of the pool head. Its parameters and
+    buffers are MLP([cin, h])'s (Linear at 0, BatchNorm at 1), so fused
+    and unfused checkpoints are interchangeable. `pool` is the train-mode
+    fused route: Dense -> masked BN (batch statistics in closed form) ->
+    ReLU -> per-proposal max, through kernels 3 and 11
+    (`ops/fused_pool_train.py`); it moves the running statistics with
+    MaskedBatchNorm's convention."""
+
+    def __init__(self, cin: int, h: int):
+        super().__init__([cin, h])
+
+    def pool(self, cat, node_mask, blk_first, n_prop: int):
+        lin, bn = self[0], self[1]
+        maskf = node_mask.float()[:, None]
+        pooled, mean, var, count = fused_pool_train(
+            cat, maskf, lin.weight.t(), lin.bias, bn.weight, bn.bias,
+            blk_first, n_prop)
+        bn.update_running(mean, var, count)
+        return pooled
 
 
 @torch.no_grad()

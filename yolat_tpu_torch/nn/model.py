@@ -1,12 +1,21 @@
-"""The canonical YOLaT detector, eval forward: Backbone + SparseCADGCN.
+"""The canonical YOLaT detector: Backbone + SparseCADGCN + the loss.
 
-Counterpart of `yolat_tpu/nn/model.py:39-234` (the reference's
+Counterpart of `yolat_tpu/nn/model.py:39-288` (the reference's
 cad_recognition/architecture3cc_rpn_gp_iter2.py): a head conv
 (in_channels -> C), n_blocks-1 further convs (no residual for gp2), the
 fusion MLP C*n_blocks_out -> 1024 max-pooled per proposal beside the raw
 features, the super stream mean-pooled per proposal through its own
 fusion MLP, then the prediction MLP (2*(C*n_blocks_out+1024) -> 512 ->
-256 -> n_classes).
+256 -> n_classes, dropout on the 256 stage), and `detection_loss`.
+
+Train mode (`model.train()`) uses masked batch statistics everywhere. With
+`fused_pool` set (cfg.fused_head_train) the train-mode pool head is the
+fused op of `ops/fused_pool_train.py` (kernels 3 and 11):
+[pooled fusion | segment_max(cat)] replaces segment_max_concat of
+[fusion | cat] (`nn/model.py:122-139`). It needs the aligned pool plan
+and N % 512 == 0, which `pack_files` batches always have; without them
+a CUDA batch raises, and a CPU batch takes the unfused route as the JAX
+package does, counted in `Backbone.fused_fallbacks`.
 
 Submodules carry the reference's names — `cls_net.head.gconv`,
 `cls_net.backbone.{i}.body.gconv`, `cls_net.fusion_block[_super]`,
@@ -22,11 +31,14 @@ import torch
 from torch import nn
 
 from yolat_tpu_torch.nn.conv import AttrEdgeGP2
-from yolat_tpu_torch.nn.layers import MLP, MaskedBatchNorm, init_weights
+from yolat_tpu_torch.nn.layers import (MLP, FusedPoolFusion, MaskedBatchNorm,
+                                       init_weights)
 from yolat_tpu_torch.nn.state_dict import (export_state_dict,
                                            load_reference_state_dict)
+from yolat_tpu_torch.ops.fused_pool_train import fused_pool_available
 from yolat_tpu_torch.ops.plans import plan_of
-from yolat_tpu_torch.ops.segment import segment_max_concat, segment_mean
+from yolat_tpu_torch.ops.segment import (segment_max, segment_max_concat,
+                                         segment_mean)
 
 FUSION = 1024  # fusion MLP width, fixed by the reference
 
@@ -49,21 +61,38 @@ class _ResBlock(nn.Module):
 
 class Backbone(nn.Module):
     def __init__(self, in_channels: int = 5, channels: int = 64,
-                 n_blocks: int = 2, n_blocks_out: int = 2):
+                 n_blocks: int = 2, n_blocks_out: int = 2,
+                 fused_pool: bool = False):
         super().__init__()
         self.n_blocks, self.n_blocks_out = n_blocks, n_blocks_out
         self.fusion_dims = channels * n_blocks_out
+        self.fused_pool = fused_pool
+        # train-mode CPU batches that could not take the fused head
+        self.fused_fallbacks = 0
         self.head = _GConv(in_channels, channels)
         self.backbone = nn.ModuleList(_ResBlock(channels)
                                       for _ in range(n_blocks - 1))
-        self.fusion_block = MLP([self.fusion_dims, FUSION])
+        self.fusion_block = FusedPoolFusion(self.fusion_dims, FUSION)
         self.fusion_block_super = MLP([self.fusion_dims, FUSION])
 
-    def forward(self, batch: dict):
-        """-> ((fusion, cat) node-level parts, pooled super-stream [P, .])"""
-        n_prop = batch["labels"].shape[0]
-        plan = plan_of(batch)
-        args = (batch["edge"], batch["e_attr"], batch["edge_mask"])
+    def _use_fused(self, cat, plan) -> bool:
+        if not (self.fused_pool and self.training):
+            return False
+        if fused_pool_available(cat.shape[0], plan):
+            return True
+        if cat.device.type == "cuda":
+            raise ValueError(
+                "fused_head_train needs the aligned pool plan and N % 512 "
+                "== 0 (batches from yolat_tpu_torch.data.packing.pack_files "
+                "have both)")
+        self.fused_fallbacks += 1
+        return False
+
+    def features(self, batch: dict):
+        """-> (cat [N, C * n_blocks_out], cat_super [N, C * n_blocks_out]):
+        the last n_blocks_out conv outputs of both streams."""
+        args = (batch["edge"], batch["e_attr"], batch["edge_mask"],
+                batch["node_mask"])
         f, s = self.head.gconv(batch["x"], batch["x"], *args,
                                dst_count=batch.get("dst_count"))
         feats, feats_super = [f], [s]
@@ -72,55 +101,115 @@ class Backbone(nn.Module):
             feats.append(f)
             feats_super.append(s)
         lo = self.n_blocks - self.n_blocks_out
-        cat = torch.cat(feats[lo:], dim=1)
-        fusion = self.fusion_block(cat)
-        pooled = segment_mean(torch.cat(feats_super[lo:], dim=1),
-                              batch["bbox_idx"], n_prop,
-                              mask=batch["node_mask"], plan=plan,
+        return torch.cat(feats[lo:], dim=1), torch.cat(feats_super[lo:], dim=1)
+
+    def forward(self, batch: dict):
+        """-> (pooled [P, .] or the (fusion, cat) node-level parts to pool,
+        pooled super-stream [P, .])"""
+        n_prop = batch["labels"].shape[0]
+        plan = plan_of(batch)
+        node_mask = batch["node_mask"]
+        cat, cat_super = self.features(batch)
+        if self._use_fused(cat, plan):
+            pooled_fusion = self.fusion_block.pool(cat, node_mask, plan[0],
+                                                   n_prop)
+            pooled_cat = segment_max(cat, batch["bbox_idx"], n_prop,
+                                     mask=node_mask, plan=plan)
+            parts = torch.cat([pooled_fusion,
+                               pooled_cat.to(pooled_fusion.dtype)], dim=1)
+        else:
+            parts = (self.fusion_block(cat, node_mask), cat)
+        pooled = segment_mean(cat_super, batch["bbox_idx"], n_prop,
+                              mask=node_mask, plan=plan,
                               counts=batch.get("prop_count"))
-        fusion_super = self.fusion_block_super(pooled)
-        return (fusion, cat), torch.cat([fusion_super, pooled], dim=1)
+        fusion_super = self.fusion_block_super(pooled, batch["proposal_mask"])
+        return parts, torch.cat([fusion_super, pooled], dim=1)
 
 
 class SparseCADGCN(nn.Module):
     def __init__(self, n_classes: int, in_channels: int = 5,
                  channels: int = 64, n_blocks: int = 2, n_blocks_out: int = 2,
-                 classifier: str = "softmax"):
+                 classifier: str = "softmax", dropout: float = 0.0,
+                 fused_pool: bool = False):
         super().__init__()
         self.n_blocks = n_blocks
         self.classifier = classifier
-        self.cls_net = Backbone(in_channels, channels, n_blocks, n_blocks_out)
+        self.cls_net = Backbone(in_channels, channels, n_blocks, n_blocks_out,
+                                fused_pool)
         fusion_out = self.cls_net.fusion_dims + FUSION
         self.prediction_cls = nn.ModuleList([
             MLP([fusion_out * 2, 512]),
-            MLP([512, 256]),
+            MLP([512, 256], drop=dropout),
             MLP([256, n_classes], bare=True),
         ])
 
-    def forward(self, batch: dict):
-        """Finalized tensor batch -> (logits [P, n_classes], boxes [P, 4])."""
+    def forward(self, batch: dict, generator=None):
+        """Finalized tensor batch -> (logits [P, n_classes], boxes [P, 4]).
+        `generator` draws the dropout masks in train mode."""
         parts, out_super = self.cls_net(batch)
-        pooled = segment_max_concat(parts, batch["bbox_idx"],
-                                    batch["labels"].shape[0],
-                                    mask=batch["node_mask"],
-                                    plan=plan_of(batch))
+        if isinstance(parts, tuple):
+            pooled = segment_max_concat(parts, batch["bbox_idx"],
+                                        batch["labels"].shape[0],
+                                        mask=batch["node_mask"],
+                                        plan=plan_of(batch))
+        else:  # the fused head pooled already
+            pooled = parts
         h = torch.cat([pooled, out_super], dim=1)
-        for mlp in self.prediction_cls:
-            h = mlp(h)
+        pm = batch["proposal_mask"]
+        h = self.prediction_cls[0](h, pm)
+        h = self.prediction_cls[1](h, pm, generator)
+        h = self.prediction_cls[2](h)
         if self.classifier != "softmax":
             h = torch.sigmoid(h)
         return h, batch["bbox"]
 
 
+def detection_loss(pred_cls, labels, proposal_mask, classifier: str = "softmax",
+                   label_iou=None, pos_weight: float = 1.0) -> dict:
+    """Masked classification loss over proposals (`yolat_tpu/nn/model.py:
+    237-288`, the reference's DetectionLoss): {'loss', 'loss_cls'}, logits
+    upcast to f32. label_iou gives positives the soft target {class: q,
+    background: 1 - q}; pos_weight multiplies positive rows' loss in a
+    weighted mean."""
+    pred_cls = pred_cls.float()
+    k = pred_cls.shape[-1]
+    background = k - 1
+    labels = labels.long()
+    m = proposal_mask.float()
+    if pos_weight != 1.0:
+        m = m * torch.where(labels != background,
+                            torch.full_like(m, pos_weight), torch.ones_like(m))
+    denom = torch.clamp(m.sum(), min=1.0)
+    onehot = torch.nn.functional.one_hot(labels, k).float()
+    if label_iou is not None:
+        q = torch.where(labels == background, torch.ones_like(m),
+                        label_iou.float())[:, None]
+        bg = torch.zeros_like(onehot)
+        bg[:, background] = 1.0
+        target = onehot * q + bg * (1.0 - q)
+    else:
+        target = onehot
+    if classifier == "softmax":
+        logp = torch.log_softmax(pred_cls, dim=-1)
+        loss = (-(target * logp).sum(dim=-1) * m).sum() / denom
+    else:
+        p = torch.clamp(pred_cls, 1e-7, 1 - 1e-7)
+        bce = -(target * torch.log(p)
+                + (1 - target) * torch.log(1 - p)).mean(dim=-1)
+        loss = (bce * m).sum() / denom
+    return {"loss": loss, "loss_cls": loss}
+
+
 def build_model(cfg) -> SparseCADGCN:
     """The canonical detector from a `yolat_tpu_torch.config.Config`
-    (yolat_tpu/train/loop.py:47)."""
+    (yolat_tpu/train/loop.py:47-81)."""
     if cfg.arch != "centernet3cc_rpn_gp_iter2" or cfg.conv != "attr_edge_gp2":
         raise NotImplementedError(
-            f"arch {cfg.arch!r} / conv {cfg.conv!r}: this port serves the "
+            f"arch {cfg.arch!r} / conv {cfg.conv!r}: this port runs the "
             "canonical centernet3cc_rpn_gp_iter2 + attr_edge_gp2 detector")
     return SparseCADGCN(cfg.n_classes, cfg.in_channels, cfg.n_filters,
-                        cfg.n_blocks, cfg.n_blocks_out, cfg.classifier)
+                        cfg.n_blocks, cfg.n_blocks_out, cfg.classifier,
+                        cfg.dropout, cfg.fused_head_train)
 
 
 @torch.no_grad()

@@ -1,13 +1,15 @@
 """Build, load and count the port's CUDA kernels.
 
 `yolat_tpu_torch/csrc/*.cu` (plain C entry points, no PyTorch headers) are
-compiled by nvcc into one shared library at first use:
+compiled at first use by one nvcc per source, all started together,
 
-  nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-       -Xcompiler -fPIC -o build/yolat_tpu_torch/<hash>/libyolat_kernels.so
+  nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler
+       -fPIC -Xptxas -v -c <source>.cu -o <source>.o
 
-keyed on a hash of the sources and flags (`build/` is git-ignored), and
-loaded with ctypes. A build failure raises; nothing falls back. The
+and linked (`nvcc -shared`) into build/yolat_tpu_torch/<hash>/
+libyolat_kernels.so, keyed on a hash of the sources and flags (`build/`
+is git-ignored); ptxas's register and spill report is kept beside it in
+ptxas.log. The library is loaded with ctypes. A build failure raises; nothing falls back. The
 launch counters are plain integers the kernel wrappers bump where they
 launch (and nowhere else), so a run can show its path went through them.
 """
@@ -26,15 +28,16 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "yolat_tpu_torch")
-SOURCES = ("edge_window.cu", "block_max.cu")
+SOURCES = ("edge_window.cu", "block_max.cu", "fused_pool_train.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 # dynamic shared memory one block can opt into on sm_90 (bytes)
 SMEM_LIMIT = 232448
 
-launch_counts = {"edge_window_message_sum": 0, "folded_mlp_block_max2": 0}
+launch_counts = {"edge_window_message_sum": 0, "folded_mlp_block_max2": 0,
+                 "folded_mlp_block_max": 0, "fused_pool_train_bwd": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -67,14 +70,34 @@ def library_path() -> str:
 
 
 def _compile(so: str) -> None:
-    os.makedirs(os.path.dirname(so), exist_ok=True)
-    tmp = f"{so}.tmp.{os.getpid()}"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[os.path.join(CSRC, s) for s in SOURCES]]
+    out = os.path.dirname(so)
+    os.makedirs(out, exist_ok=True)
+    tag = f"tmp.{os.getpid()}"
+    nvcc = _nvcc()
+    procs = []
+    for src in SOURCES:
+        obj = os.path.join(out, f"{src}.{tag}.o")
+        cmd = [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c",
+               os.path.join(CSRC, src), "-o", obj]
+        procs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    logs = []
+    for cmd, _, p in procs:
+        log = p.communicate()[0]
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n"
+                               f"{' '.join(cmd)}\n{log}")
+        logs.append(log)
+    tmp = f"{so}.{tag}"
+    cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *[o for _, o, _ in procs]]
     r = subprocess.run(cmd, capture_output=True, text=True)
     if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{' '.join(cmd)}\n"
-                           f"{r.stdout}{r.stderr}")
+        raise RuntimeError(f"nvcc link failed ({r.returncode}):\n"
+                           f"{' '.join(cmd)}\n{r.stdout}{r.stderr}")
+    for _, obj, _ in procs:
+        os.remove(obj)
+    with open(os.path.join(out, "ptxas.log"), "w") as f:
+        f.write("".join(logs))
     os.replace(tmp, so)
 
 
@@ -95,6 +118,12 @@ def library() -> ctypes.CDLL:
         lib.yk_edge_window_smem_bytes.restype = ctypes.c_long
         lib.yk_folded_mlp_block_max2.argtypes = [p] * 6 + [i] * 4 + [p]
         lib.yk_folded_mlp_block_max2.restype = i
+        lib.yk_folded_mlp_block_max.argtypes = [p] * 5 + [i] * 4 + [p]
+        lib.yk_folded_mlp_block_max.restype = i
+        lib.yk_fused_pool_train_bwd.argtypes = [p] * 11 + [i] * 5 + [p]
+        lib.yk_fused_pool_train_bwd.restype = i
+        lib.yk_fused_pool_train_smem_bytes.argtypes = [i]
+        lib.yk_fused_pool_train_smem_bytes.restype = ctypes.c_long
         lib.yk_block_max_smem_bytes.argtypes = [i]
         lib.yk_block_max_smem_bytes.restype = ctypes.c_long
         lib.yk_error_string.argtypes = [i]
