@@ -32,13 +32,50 @@ no jax. Phases, each of which raises on failure (non-zero exit):
      batch 4, full width) for a few steps; losses finite, kernels 3 and
      11 launched once per step, a checkpoint and an evaluation written;
      the trained weights exported as a reference .pth and served through
-     `cli.infer`, one record per SVG.
+     `cli.infer`, one record per SVG;
+  7. window kernels: on the bench batch packed with the edge-window plan's
+     transpose, kernels 9 and 10, forward and backward, against their
+     plain versions at C 5 and C 64 (the gathers exact; the sums within
+     |err| <= 1e-5 + 1e-5|ref| at f32 and, where the result is rounded to
+     bf16, one ulp, with at most 1e-3 of the elements differing at all,
+     beside the reading of a planted fault), each twice, bit-identical;
+     paired median times and the library call's time
+     (`index_select`, `index_add_`);
+  8. window conv: the second conv layer (64 -> 64) in the window layout
+     against the sparse layout on the same weights and the first layer's
+     real activations: eval-mode outputs, train-mode outputs and BN
+     statistics, and the gradients of x and of every parameter under a
+     fixed random cotangent (relative Frobenius error: forward values
+     and statistics 1e-5 at f32 and 1e-4 at bf16; gradients, which a
+     flipped ReLU gate moves, 5e-3 and 2e-2); the ReLU gates that differ
+     between the layouts are counted, and at f32 the second BN shift's
+     gradient must agree to 1e-5 once their cotangents are taken out;
+     two planted faults in the window backward must read above the limit;
+  9. dense route: kernel 4 against its plain version at both conv shapes,
+     f32 and bf16, twice, bit-identical, with times; the engine's dense
+     route (kernel 4) against its edge-window route (kernel 1) on batches
+     of the same files (f32 logits within 1e-4 of their scale);
+ 10. window train and dense test: a few bf16 steps through
+     `cli.train --train_layout window` on the SVGs of phase 6, finite
+     losses, with the CLI's own launch counts equal to: kernel 9 and
+     kernel 10 forward n_blocks per step and per evaluated batch, kernel
+     10 backward n_blocks per step, kernel 9 backward n_blocks - 1 per step
+     (the first layer's input needs no gradient); then that checkpoint
+     through `cli.test --serve_mode fast --dense_layout true
+     --nms_algorithm classfix`, kernel 4 launched n_blocks times per batch.
 Everything it runs comes from yolat_tpu_torch, the synthetic SVG writer
 included: it imports neither jax nor the JAX package yolat_tpu.
 The kernels line (a JSON object describing each kernel; launches are
-counted over the path that runs it: phase 4 for the serving kernels,
-phase 6 for the training kernels) comes before the nvidia-smi line; the
-last line is {"ok": true, "device": {...}}.
+counted over the path that runs it, with the counts set to 0 just before:
+phase 4 for the serving kernels, phase 6 for the fused head's, phase 10 for
+kernels 9, 10 and 4) comes before the nvidia-smi line; the last line is
+{"ok": true, "device": {...}}. Each kernel's bound_ms is the larger of its
+bytes (each input read once, each output written once) over 3.35 TB/s and
+its operations over the H100 SXM data-sheet peak for its type (989 TFLOP/s
+on the bf16 tensor cores for the MLP kernels, whose times are taken at
+bf16; 67 TFLOP/s in float32 for the gathers' and sums' additions), from
+this run's shapes and data; library_ms is one PyTorch call of the same
+function where there is one, timed here and used nowhere in the port.
 """
 
 from __future__ import annotations
@@ -59,6 +96,13 @@ TRAIN_STEPS = 8
 # by dtype name, and the f32 kernel route vs the unfused composition
 HEAD_TOL = {"f32": 1e-5, "bf16": 5e-4}
 UNFUSED_TOL = 1e-5
+WINDOW_STEPS = 4
+N_BLOCKS = 2
+# relative Frobenius limits, window conv layer vs sparse conv layer:
+# (forward values and BN statistics, gradients)
+CONV_TOL = {"f32": (1e-5, 5e-3), "bf16": (1e-4, 2e-2)}
+# the H100 SXM data sheet's peaks: HBM bytes/s, float32 and dense bf16 FLOP/s
+PEAK_BYTES, PEAK_F32, PEAK_BF16 = 3.35e12, 67e12, 989e12
 
 
 def nvidia_smi() -> str:
@@ -95,6 +139,22 @@ def paired_ms(kernel_fn, plain_fn) -> tuple:
     k += time_ms(kernel_fn)
     p += time_ms(plain_fn)
     return statistics.median(k), statistics.median(p)
+
+
+def bound(nbytes: float, ops: float, peak_ops: float) -> dict:
+    """The least time the card could take: bytes over the memory rate or
+    operations over their peak rate, whichever is larger."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / peak_ops * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def add_bound(entry: dict, b: dict) -> None:
+    """Add one call's bound to a kernel's entry (times are summed over a
+    kernel's calls in one step); the larger share names what binds."""
+    if b["bound_ms"] > entry.get("_largest", 0.0):
+        entry["_largest"], entry["bound_by"] = b["bound_ms"], b["bound_by"]
+    entry["bound_ms"] = entry.get("bound_ms", 0.0) + b["bound_ms"]
 
 
 def check(cond: bool, what: str) -> None:
@@ -151,6 +211,12 @@ def kernel_phase(folded, batch, dev_line):
             if dt == torch.bfloat16:
                 r["ms"] += ms
                 r["plain_ms"] += pms
+                n, ci = f.shape
+                e, h = ew[0].shape[0], c["w2"].shape[0]
+                add_bound(r, bound(
+                    2 * (n * ci + (2 * ci + 4) * h + h * h) + e * (8 + 16)
+                    + 4 * (ew[3].shape[0] + 4 * h + n * h),
+                    e * (2 * (2 * ci + 4) * h + 2 * h * h), PEAK_BF16))
             f = ((got / cnt).to(dt) + f @ c["wr"] + c["br"].reshape(1, -1))
             feats.append(f)
         cat = torch.cat(feats, dim=1)
@@ -176,6 +242,11 @@ def kernel_phase(folded, batch, dev_line):
         r["max_abs_err"] = max(r["max_abs_err"], err)
         if dt == torch.bfloat16:
             r["ms"], r["plain_ms"] = ms, pms
+            n, ci = cat.shape
+            h = w.shape[1]
+            add_bound(r, bound(
+                2 * (n * ci + ci * h + n // 8 * (h + ci)) + 4 * (n + 2 * h),
+                2 * n * ci * h, PEAK_BF16))
     return res
 
 
@@ -355,6 +426,18 @@ def train_kernel_phase(model, batch, dev_line):
         r["max_abs_err"] = max(r["max_abs_err"], err)
         if dt == torch.bfloat16:
             r["ms"], r["plain_ms"] = ms, pms
+            n, ci = x.shape
+            add_bound(r, bound(
+                2 * (n * ci + ci * h + n // 8 * h) + 4 * (n + 2 * h),
+                2 * n * ci * h, PEAK_BF16))
+            # kernel 11: x, mask, W, scale/shift, the pooled maxima and
+            # their cotangent in; dW, dx and two column sums out, each
+            # once; the function needs three products of the forward's
+            # size (z = x W to find the winners, dW = x^T s, dx = s W^T)
+            add_bound(res["fused_pool_train_bwd"], bound(
+                2 * (n * ci + ci * h + n // 8 * h) + 4 * (n + 2 * h)
+                + 4 * n // 8 * h + 4 * ci * h + 2 * n * ci + 8 * h,
+                3 * 2 * n * ci * h, PEAK_BF16))
 
         # the whole fused head: kernel route vs plain route
         kv, kg = _head_run(cat, maskf, lin, bn, blk_first, n_prop, cot, dt,
@@ -485,6 +568,468 @@ def train_phase(work, dev_line):
           f"{len(recs)} records for {N_SVGS} trained-on SVGs")
     print(f"served the trained checkpoint (epoch {epoch}): {len(recs)} "
           f"records, {sum(len(r['detections']) for r in recs)} detections")
+    return counts, root
+
+
+def _library_ms(fn) -> float:
+    return statistics.median(time_ms(fn) + time_ms(fn))
+
+
+def window_kernel_phase(model, batch, dev_line):
+    """Kernels 9 and 10, forward and backward, against their plain versions
+    at the window train step's shapes; returns {kernel name: entry} (ms at
+    bf16, summed over the kernel's calls in one step)."""
+    import torch
+
+    from yolat_tpu_torch.ops import edge_window_train as ewt
+    from yolat_tpu_torch.ops.plans import ew_train_of
+
+    plan = ew_train_of(batch)
+    check(plan is not None, "the batch carries the transposed plan")
+    src, dst, dptr, sperm, sptr = plan
+    srcl, dstl = src.long(), dst.long()
+    n, e = batch["x"].shape[0], src.shape[0]
+    with torch.no_grad():
+        f1, _ = model.cls_net.head.gconv(
+            batch["x"], batch["x"], batch["edge"], batch["e_attr"],
+            batch["edge_mask"], batch["node_mask"],
+            dst_count=batch["dst_count"])
+    gen = torch.Generator(device=f1.device).manual_seed(9)
+    names = ("ew_pair_features", "ew_pair_features_bwd",
+             "ew_window_segment_sum", "ew_window_segment_sum_bwd")
+    res = {k: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0)
+           for k in names}
+    # calls per step: kernel 9 forward at C 5 and 64, its backward at C 64
+    # (the first layer's input needs no gradient); kernel 10 forward and
+    # backward at C 64, once per layer
+    calls = {"ew_pair_features": {5: 1, 64: 1}, "ew_pair_features_bwd": {64: 1},
+             "ew_window_segment_sum": {64: N_BLOCKS},
+             "ew_window_segment_sum_bwd": {64: N_BLOCKS}}
+
+    def note(name, c, dt, err, ok, limit, ms, pms, lms, b):
+        tag = "f32" if dt == torch.float32 else "bf16"
+        print(f"kernel {name} {tag} C={c} N={n} E={e}: max_abs_err={err:.3e} "
+              f"({limit}) {'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms, plain "
+              f"{pms:.4f} ms, library {lms:.4f} ms, bound "
+              f"{b['bound_ms']:.4f} ms ({b['bound_by']}) [{dev_line}]")
+        check(ok, f"{name} {tag} C={c} disagrees with its plain version")
+        r = res[name]
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        k = calls[name].get(c, 0)
+        if dt == torch.bfloat16 and k:
+            r["ms"] += k * ms
+            r["plain_ms"] += k * pms
+            r["library_ms"] += k * lms
+            for _ in range(k):
+                add_bound(r, b)
+
+    for dt in (torch.float32, torch.bfloat16):
+        s = 4 if dt == torch.float32 else 2
+        for x in (batch["x"].to(dt), f1.to(dt)):
+            c = x.shape[1]
+            # kernel 9 forward: copies and one rounded difference, exact
+            g = ewt.pair_fwd(x, src, dst)
+            g2 = ewt.pair_fwd(x, src, dst)
+            want = ewt.pair_fwd_plain(x, src, dst)
+            torch.cuda.synchronize()
+            ok = torch.equal(g, want) and torch.equal(g, g2)
+            err = (g.float() - want.float()).abs().max().item()
+            ms, pms = paired_ms(lambda: ewt.pair_fwd(x, src, dst),
+                                lambda: ewt.pair_fwd_plain(x, src, dst))
+            lms = _library_ms(lambda: (x.index_select(0, dstl),
+                                       x.index_select(0, srcl)))
+            note("ew_pair_features", c, dt, err, ok,
+                 "exact, two runs bit-identical", ms, pms, lms,
+                 bound(s * (n * c + 2 * e * c) + 8 * e, e * c, PEAK_F32))
+
+            # kernel 9 backward: sums in the plan's order, rounded to dt
+            dg = torch.randn(e, 2 * c, device=x.device, generator=gen).to(dt)
+            dx = ewt.pair_bwd(dg, src, dst, dptr, sperm, sptr, n)
+            dx2 = ewt.pair_bwd(dg, src, dst, dptr, sperm, sptr, n)
+            want = ewt.pair_bwd_plain(dg, src, dst, n)
+            # a planted fault for the limit: dg0 - dg1 kept in f32
+            acc = torch.zeros(n, c, device=x.device)
+            acc.index_add_(0, dstl, dg[:, :c].float() - dg[:, c:].float())
+            planted = acc.index_add_(0, srcl, dg[:, c:].float()).to(dt)
+            torch.cuda.synchronize()
+            diff = (dx.float() - want.float()).abs()
+            err = diff.max().item()
+            frac = (diff > 0).float().mean().item()
+            pfrac = (planted != want).float().mean().item()
+            if dt == torch.float32:
+                ok = bool((diff <= 1e-5 + 1e-5 * want.abs()).all())
+                limit = "|err| <= 1e-5 + 1e-5|ref|"
+            else:
+                ok = bool((diff <= 1e-5 + 2.0 ** -7 * want.float().abs()
+                           ).all()) and frac <= 1e-3
+                limit = (f"one bf16 ulp, {frac:.2e} of the elements differ "
+                         f"(<= 1e-3; the planted fault reads {pfrac:.2e})")
+            ok = ok and torch.equal(dx, dx2)
+            ms, pms = paired_ms(
+                lambda: ewt.pair_bwd(dg, src, dst, dptr, sperm, sptr, n),
+                lambda: ewt.pair_bwd_plain(dg, src, dst, n))
+            d_xi, d_xj = dg[:, :c].float(), dg[:, c:].float()
+            lms = _library_ms(lambda: torch.zeros(
+                n, c, device=x.device).index_add_(0, dstl, d_xi
+                                                  ).index_add_(0, srcl, d_xj))
+            note("ew_pair_features_bwd", c, dt, err, ok, limit, ms, pms, lms,
+                 bound(s * (2 * e * c + n * c) + 4 * (2 * n + 2 + e),
+                       3 * e * c, PEAK_F32))
+
+        # kernel 10 at C 64 (messages) and C 1 (edge counts)
+        for c in (64, 1):
+            h = torch.randn(e, c, device=f1.device, generator=gen).to(dt)
+            out = ewt.wsum_fwd(h, dst, dptr, n)
+            out2 = ewt.wsum_fwd(h, dst, dptr, n)
+            want = ewt.wsum_fwd_plain(h, dst, n)
+            torch.cuda.synchronize()
+            diff = (out - want).abs()
+            ok = bool((diff <= 1e-5 + 1e-5 * want.abs()).all()) \
+                and torch.equal(out, out2)
+            ms, pms = paired_ms(lambda: ewt.wsum_fwd(h, dst, dptr, n),
+                                lambda: ewt.wsum_fwd_plain(h, dst, n))
+            hf = h.float()
+            lms = _library_ms(lambda: torch.zeros(
+                n, c, device=h.device).index_add_(0, dstl, hf))
+            note("ew_window_segment_sum", c, dt, diff.max().item(), ok,
+                 "|err| <= 1e-5 + 1e-5|ref|, two runs bit-identical", ms, pms,
+                 lms, bound(s * e * c + 4 * (n + 1) + 4 * n * c, e * c,
+                            PEAK_F32))
+
+            g = torch.randn(n, c, device=f1.device, generator=gen)
+            dh = ewt.wsum_bwd(g, dst, dt)
+            dh2 = ewt.wsum_bwd(g, dst, dt)
+            want = ewt.wsum_bwd_plain(g, dst, dt)
+            torch.cuda.synchronize()
+            ok = torch.equal(dh, want) and torch.equal(dh, dh2)
+            err = (dh.float() - want.float()).abs().max().item()
+            ms, pms = paired_ms(lambda: ewt.wsum_bwd(g, dst, dt),
+                                lambda: ewt.wsum_bwd_plain(g, dst, dt))
+            lms = _library_ms(lambda: g.index_select(0, dstl))
+            note("ew_window_segment_sum_bwd", c, dt, err, ok,
+                 "exact, two runs bit-identical", ms, pms, lms,
+                 bound(4 * n * c + 4 * e + s * e * c, 0.0, PEAK_F32))
+    return res
+
+
+def window_conv_phase(model, batch, dev_line):
+    """The second conv layer in the window layout against the sparse
+    layout: the same weights, the first layer's real activations."""
+    import copy
+
+    import torch
+
+    from yolat_tpu_torch.nn import conv as conv_mod
+    from yolat_tpu_torch.ops import edge_window_train as ewt
+    from yolat_tpu_torch.ops.plans import ew_train_of
+
+    with torch.no_grad():
+        f1, s1 = model.cls_net.head.gconv(
+            batch["x"], batch["x"], batch["edge"], batch["e_attr"],
+            batch["edge_mask"], batch["node_mask"],
+            dst_count=batch["dst_count"])
+    base = model.cls_net.backbone[0].body.gconv
+    maskf = batch["node_mask"].float()[:, None]
+    args = (batch["edge"], batch["e_attr"], batch["edge_mask"],
+            batch["node_mask"])
+    plan = ew_train_of(batch)
+    window = dict(ew=plan, ew_attr=batch["ew_attr"])
+    layouts = {"sparse": {}, "window": window, "no_src_sum": window,
+               "sum_bwd_by_src": window}
+    # window row e is sparse row order[e]: the real edges, stably by dst
+    real = batch["edge_mask"].nonzero()[:, 0]
+    order = real[torch.argsort(batch["edge"][real, 1], stable=True)]
+    check(torch.equal(batch["edge"][order, 0], plan[0])
+          and torch.equal(batch["edge"][order, 1], plan[1]),
+          "the plan's rows are the sparse rows in dst order")
+
+    # two planted faults in the window layout's backward, for the limit:
+    # kernel 9's backward without its sum over out-edges (moves dx), and
+    # kernel 10's backward reading the cotangent at the source node (moves
+    # the message MLP's gradients and dx)
+    class NoSrcSum(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x):
+            ctx.n = x.shape[0]
+            return ewt.pair_fwd(x, plan[0], plan[1])
+
+        @staticmethod
+        def backward(ctx, dg):
+            c = dg.shape[1] // 2
+            dx = torch.zeros(ctx.n, c, device=dg.device)
+            dx.index_add_(0, plan[1].long(), (dg[:, :c] - dg[:, c:]).float())
+            return dx.to(dg.dtype)
+
+    class SumBwdBySrc(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, h, n):
+            ctx.dtype = h.dtype
+            return ewt.wsum_fwd(h, plan[1], plan[2], n)
+
+        @staticmethod
+        def backward(ctx, g):
+            return ewt.wsum_bwd(g.float(), plan[0], ctx.dtype), None
+
+    faults = {"no_src_sum": ("ew_pair_features",
+                             lambda x, ew: NoSrcSum.apply(x)),
+              "sum_bwd_by_src": ("ew_window_segment_sum_n",
+                                 lambda h, ew, n: SumBwdBySrc.apply(h, n))}
+    # a fixed random cotangent on the real nodes. The layouts' forward
+    # values differ by summation order in the BN statistics (46102 real rows
+    # against 56320 padded ones), which can flip a ReLU gate of the message
+    # MLP; one flip moves a gradient sum by a whole cotangent, so the
+    # gradients are held looser than the forward. At bf16 the sparse
+    # layout also sums its index_select backward and its weight gradients
+    # over other rows in another order, with bf16 rounding between. The
+    # phase counts the flipped gates, shows what they alone do to one
+    # gradient, and reads both planted faults beside the limit.
+    cot = torch.randn(2, *f1.shape, generator=torch.Generator().manual_seed(3)
+                      ).to(f1.device) * maskf
+
+    for dt in (torch.float32, torch.bfloat16):
+        name = "f32" if dt == torch.float32 else "bf16"
+        runs, gates = {}, {}
+        for layout, kw in layouts.items():
+            conv = copy.deepcopy(base).eval()
+            cast = {k: (p.to(dt) if p.dtype == torch.float32 else p)
+                    for k, p in conv.named_parameters()}
+            e_args = (args[0], args[1].to(dt)) + args[2:]
+            kw = {k: (v.to(dt) if k == "ew_attr" else v) for k, v in kw.items()}
+            with torch.no_grad():
+                ev, _ = torch.func.functional_call(
+                    conv, cast, (f1.to(dt), s1.to(dt)) + e_args,
+                    dict(dst_count=batch["dst_count"], **kw))
+            conv.train()
+            gates[layout] = []
+            hooks = [conv.nn[i].register_forward_hook(
+                lambda m, a, out, g=gates[layout]: g.append(out.detach() > 0))
+                for i in (2, 5)]
+            x = f1.clone().requires_grad_(True)
+            leaves = {k: p.detach().clone().requires_grad_(True)
+                      for k, p in conv.named_parameters()}
+            if layout in faults:
+                attr, fn = faults[layout]
+                sound = getattr(conv_mod, attr)
+                setattr(conv_mod, attr, fn)
+            try:
+                out, out_node = torch.func.functional_call(
+                    conv, {k: p.to(dt) for k, p in leaves.items()},
+                    (x.to(dt), s1.to(dt)) + e_args,
+                    dict(dst_count=batch["dst_count"], **kw))
+            finally:
+                if layout in faults:
+                    setattr(conv_mod, attr, sound)
+            ((out.float() * cot[0]).sum()
+             + (out_node.float() * cot[1]).sum()).backward()
+            torch.cuda.synchronize()
+            for hk in hooks:
+                hk.remove()
+            r = {"eval_out": ev, "train_out": out.detach(), "dx": x.grad}
+            for i in (1, 4):
+                r[f"nn.{i}.running_mean"] = conv.nn[i].running_mean
+                r[f"nn.{i}.running_var"] = conv.nn[i].running_var
+            r.update({f"d {k}": p.grad for k, p in leaves.items()})
+            runs[layout] = r
+        zero = {"d nn.0.bias": "d nn.1.bias", "d nn.3.bias": "d nn.4.bias",
+                "d mlp_node.0.bias": "d mlp_node.1.bias"}
+
+        def rel_to_sparse(layout):
+            return {k: _rel(v, runs["sparse"][k],
+                            runs["sparse"].get(zero.get(k)))
+                    for k, v in runs[layout].items()}
+
+        errs = rel_to_sparse("window")
+        flips = [int((gs[order] != gw).sum())
+                 for gs, gw in zip(gates["sparse"], gates["window"])]
+        n_gates = gates["window"][0].numel()
+        check(all(torch.isfinite(v.float()).all()
+                  for v in runs["window"].values()), "finite conv outputs")
+        check(runs["window"]["dx"].abs().max().item() > 0, "dx is nonzero")
+        tol_fwd, tol_grad = CONV_TOL[name]
+        print(f"window conv vs sparse conv {name} (64 -> 64, N="
+              f"{f1.shape[0]}), relative Frobenius error (Dense biases "
+              f"feeding a BN against the BN shift's gradient; forward and "
+              f"statistics <= {tol_fwd:g}, gradients <= {tol_grad:g}): "
+              + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+              + f"; ReLU gates that differ between the layouts: {flips[0]} "
+              f"and {flips[1]} of {n_gates} after the message MLP's first "
+              f"and second stage [{dev_line}]")
+        check(all(v <= (tol_grad if k.startswith("d") else tol_fwd)
+                  for k, v in errs.items()),
+              f"window conv {name} disagrees with the sparse conv")
+        # what the flipped gates alone do to the second BN shift's gradient:
+        # a stage-2 gate open in one layout only lets that element's
+        # cotangent, cot / count at its dst, through to the sum
+        key = "d nn.4.bias"
+        c = (cot[0] / batch["dst_count"].float().clamp(min=1.0)[:, None]
+             )[plan[1].long()]
+        pred = ((gates["window"][1].float() - gates["sparse"][1][order].float())
+                * c).sum(0)
+        meas = runs["window"][key].float() - runs["sparse"][key].float()
+        den = runs["sparse"][key].float().norm()
+        rest = ((meas - pred).norm() / den).item()
+        print(f"window conv {name}: the {flips[1]} flipped stage-2 gates alone "
+              f"move {key} by {(pred.norm() / den).item():.2e} of its norm "
+              f"(read {errs[key]:.2e}); without them the layouts differ by "
+              f"{rest:.2e}" + (" (<= 1e-5)" if dt == torch.float32 else ""))
+        check(dt != torch.float32 or rest <= 1e-5,
+              f"window conv {name}: {key} differs by more than the flipped "
+              f"gates explain")
+        # the planted faults: each must read above the gradient limit in
+        # every gradient it reaches
+        p_dx = rel_to_sparse("no_src_sum")["dx"]
+        p_sum = rel_to_sparse("sum_bwd_by_src")
+        reached = {k: v for k, v in p_sum.items()
+                   if k == "dx" or (k.startswith("d nn.") and k not in zero)}
+        print(f"window conv {name}, planted faults against the gradient "
+              f"limit {tol_grad:g}: kernel 9's backward without the sum over "
+              f"out-edges reads dx {p_dx:.2e}; kernel 10's backward reading "
+              f"the source's cotangent reads "
+              + ", ".join(f"{k} {v:.2e}" for k, v in reached.items()))
+        check(p_dx > tol_grad and all(v > tol_grad for v in reached.values()),
+              f"window conv {name}: a planted fault passes the limit")
+
+
+def dense_phase(folded, batch, dense_batch, dev_line):
+    """Kernel 4 against its plain version at both conv shapes, and the
+    engine's dense route against its edge-window route; returns kernel
+    4's entry (ms at bf16, summed over both conv layers)."""
+    import torch
+
+    from yolat_tpu_torch.eval.fast_forward import fast_forward
+    from yolat_tpu_torch.ops.dense_message import (fused_dense_message,
+                                                   fused_dense_message_plain)
+
+    nbr = (dense_batch["nbr_idx"], dense_batch["nbr_attr"],
+           dense_batch["nbr_mask"])
+    n, d = nbr[0].shape
+    used = int(nbr[2].sum())
+    check(used == int(batch["edge_mask"].sum()),
+          "the table holds every real edge")
+    r = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=None)
+    for dt in (torch.float32, torch.bfloat16):
+        name = "f32" if dt == torch.float32 else "bf16"
+        f = dense_batch["x"].to(dt)
+        for i, c in enumerate(folded["convs"]):
+            args = (f, *nbr, c["w1"], c["sc1"], c["w2"], c["sc2"], c["wr"],
+                    c["br"])
+            got = fused_dense_message(*args)
+            again = fused_dense_message(*args)
+            want = fused_dense_message_plain(*args)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            scale = want.abs().max().item()
+            if dt == torch.float32:
+                ok = bool(((got - want).abs() <= 1e-4 + 1e-4 * want.abs()).all())
+                tol = "|err| <= 1e-4 + 1e-4|ref|"
+            else:
+                ok = err <= 5e-3 * scale
+                tol = "max|err| <= 5e-3 max|ref|"
+            ok = ok and torch.equal(got, again)
+            ms, pms = paired_ms(lambda: fused_dense_message(*args),
+                                lambda: fused_dense_message_plain(*args))
+            ci, h = f.shape[1], c["w2"].shape[0]
+            b = bound((2 if dt == torch.bfloat16 else 4)
+                      * (n * ci + (3 * ci + 4) * h + h * h)
+                      + n * d * (4 + 16 + 1) + 4 * (5 * h + n * h),
+                      n * 4 * ci * h + used * (2 * (ci + 4) * h + 2 * h * h),
+                      PEAK_BF16 if dt == torch.bfloat16 else PEAK_F32)
+            print(f"kernel fused_dense_message conv{i} {name} x"
+                  f"{tuple(f.shape)} D={d}, {used} of {n * d} slots used: "
+                  f"max_abs_err={err:.3e} of max|ref|={scale:.3e} ({tol}, "
+                  f"two runs bit-identical) {'ok' if ok else 'FAIL'}; kernel "
+                  f"{ms:.4f} ms, plain {pms:.4f} ms, bound "
+                  f"{b['bound_ms']:.4f} ms ({b['bound_by']}) [{dev_line}]")
+            check(ok, f"fused_dense_message conv{i} {name} disagrees")
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+            if dt == torch.bfloat16:
+                r["ms"] += ms
+                r["plain_ms"] += pms
+                add_bound(r, b)
+            f = got.to(dt)
+
+    with torch.no_grad():
+        dense32, _ = fast_forward(folded, dense_batch)
+        window32, _ = fast_forward(folded, batch)
+        dense16, _ = fast_forward(folded, dense_batch, bf16=True)
+        plain16, _ = fast_forward(folded, dense_batch, bf16=True, plain=True)
+    torch.cuda.synchronize()
+    m = batch["proposal_mask"]
+    scale = max(1.0, window32[m].abs().max().item())
+    e32 = (dense32 - window32)[m].abs().max().item()
+    e16 = (dense16 - plain16)[m].abs().max().item()
+    print(f"dense route logits {tuple(dense32.shape)} (max|ref|={scale:.3e}): "
+          f"f32 dense route vs edge-window route {e32:.3e} (<= 1e-4 scale), "
+          f"bf16 kernel vs plain route {e16:.3e} (<= 3e-2 scale) [{dev_line}]")
+    check(bool(torch.isfinite(dense32).all() and torch.isfinite(dense16).all()),
+          "finite logits on the dense route")
+    check(e32 <= 1e-4 * scale, "the dense route disagrees with the edge-window route")
+    check(e16 <= 3e-2 * scale, "bf16 dense route disagrees with its plain route")
+    return {"fused_dense_message": r}
+
+
+def window_train_phase(root, work, dev_line):
+    """cli.train --train_layout window on the SVGs of the train phase,
+    then its checkpoint through cli.test on the dense route with classfix
+    NMS; returns the launch counts of kernels 9, 10 and 4."""
+    from yolat_tpu_torch.cli import test as test_cli
+    from yolat_tpu_torch.cli import train as train_cli
+    from yolat_tpu_torch.ops import _build
+
+    _build.reset_launch_counts()
+    res = train_cli.main([
+        "--data_dir", root, "--device", "cuda", "--dtype", "bfloat16",
+        "--train_layout", "window", "--data_aug", "true", "--batch_size",
+        str(BATCH), "--n_filters", "64", "--n_blocks", str(N_BLOCKS),
+        "--max_steps", str(WINDOW_STEPS), "--root_dir",
+        os.path.join(work, "log_window"), "--print_freq", "1"])
+    counts = res["launches"]
+    check(counts == {k: v for k, v in _build.launch_counts.items()},
+          "the CLI's launch counts are the counters' rise")
+    steps, evals = res["steps"], res["eval_batches"]
+    check(steps == WINDOW_STEPS and evals >= 1, f"{steps} steps, {evals} "
+          "evaluated batches")
+    check(len(res["losses"]) == steps and all(map(_finite, res["losses"])),
+          f"finite losses {res['losses']}")
+    want = {"ew_pair_features": N_BLOCKS * (steps + evals),
+            "ew_window_segment_sum": N_BLOCKS * (steps + evals),
+            "ew_window_segment_sum_bwd": N_BLOCKS * steps,
+            "ew_pair_features_bwd": (N_BLOCKS - 1) * steps}
+    got = {k: counts[k] for k in want}
+    check(got == want, f"window kernels launched {got}, the code implies {want}")
+    secs = res["train_seconds"]
+    print(f"window train: {steps} bf16 steps (train_layout window, "
+          f"augmentation on, batch {BATCH}, 64 channels) in {secs:.3f} s = "
+          f"{steps / secs:.3f} steps/s (first steps included), {evals} "
+          f"evaluated batches; losses {[round(v, 4) for v in res['losses']]}; "
+          f"launches {got} = per step {N_BLOCKS} / {N_BLOCKS - 1} / {N_BLOCKS}"
+          f" / {N_BLOCKS} (kernel 9 forward / backward, kernel 10 forward / "
+          f"backward) plus {N_BLOCKS} forward launches of each per evaluated "
+          f"batch [{dev_line}]")
+
+    _build.reset_launch_counts()
+    table = test_cli.main([
+        "--data_dir", root, "--phase", "test", "--device", "cuda",
+        "--batch_size", str(BATCH), "--n_filters", "64", "--n_blocks",
+        str(N_BLOCKS), "--pretrained_model",
+        os.path.join(res["exp_dir"], "checkpoint"), "--serve_mode", "fast",
+        "--dense_layout", "true", "--nms_algorithm", "classfix"])
+    tcounts = table["launches"]
+    n_batches = 1  # 2 test SVGs in one batch of BATCH
+    check(tcounts["fused_dense_message"] == N_BLOCKS * n_batches
+          and tcounts["edge_window_message_sum"] == 0
+          and tcounts["folded_mlp_block_max2"] == n_batches,
+          f"test CLI launches {tcounts}")
+    check(len(table["map_per_th"]) == 10 and _finite(table["map_all"])
+          and _finite(table["top1_acc"]), "the test CLI's AP table")
+    print(f"dense test: cli.test --serve_mode fast --dense_layout true "
+          f"--nms_algorithm classfix on the window-trained checkpoint: "
+          f"MAP@0.5 {table['map_50']:.4f}, top1 {table['top1_acc']:.4f}; "
+          f"kernel 4 launched {tcounts['fused_dense_message']} times in "
+          f"{n_batches} batch, kernel 1 {tcounts['edge_window_message_sum']} "
+          f"[{dev_line}]")
+    counts = dict(got)
+    counts["fused_dense_message"] = tcounts["fused_dense_message"]
     return counts
 
 
@@ -503,7 +1048,10 @@ def main() -> int:
     from yolat_tpu_torch.config import Config
     from yolat_tpu_torch.data.dataset import SESYDDataset
     from yolat_tpu_torch.data.loader import PackedLoader
-    from yolat_tpu_torch.data.packing import finalize_batch, to_device
+    from yolat_tpu_torch.data.packing import (CompactFile,
+                                              add_dense_neighbors,
+                                              finalize_batch, pack_files,
+                                              to_device)
     from yolat_tpu_torch.eval.fast_forward import fold_params
     from yolat_tpu_torch.nn.model import seeded_model
     from yolat_tpu_torch.ops import _build
@@ -533,7 +1081,8 @@ def main() -> int:
         t0 = time.perf_counter()
         write_bench_svgs(root, N_SVGS)
         ds = SESYDDataset(root, "train", bbox_sampling_step=10)
-        batches = list(PackedLoader(ds, batch_size=BATCH))
+        loader = PackedLoader(ds, batch_size=BATCH)
+        batches = list(loader)
         check(all(ew_of(b) is not None for b in batches),
               "every packed batch carries an edge-window plan")
         print(f"data: {N_SVGS} SVGs -> {len(batches)} batches, N="
@@ -560,11 +1109,29 @@ def main() -> int:
         res.update(train_kernel_phase(model, batch, dev_line))
 
         # 6. train
-        counts.update({k: v for k, v in train_phase(work, dev_line).items()
-                       if k in ("folded_mlp_block_max",
-                                "fused_pool_train_bwd")})
+        train_counts, train_root = train_phase(work, dev_line)
+        counts.update({k: train_counts[k] for k in (
+            "folded_mlp_block_max", "fused_pool_train_bwd")})
 
-    # 7. kernels line
+        # 7-9. the window and dense layouts on the bench batch
+        loads = [ds.load(i) for i in range(BATCH)]
+        files = [CompactFile(f, n_classes=ds.n_classes) for f, _, _ in loads]
+        packed = (files, [g for _, g, _ in loads], [w for _, _, w in loads],
+                  loader.pad)
+        wbatch = finalize_batch(to_device(
+            pack_files(*packed, ew_transpose=True), dev))
+        check(all(torch.equal(wbatch[k], batch[k]) for k in ("pos", "edge")),
+              "the same bench batch")
+        dbatch = finalize_batch(to_device(add_dense_neighbors(
+            pack_files(*packed, edge_window=False)), dev))
+        res.update(window_kernel_phase(model, wbatch, dev_line))
+        window_conv_phase(model, wbatch, dev_line)
+        res.update(dense_phase(folded, batch, dbatch, dev_line))
+
+        # 10. window train, dense test
+        counts.update(window_train_phase(train_root, work, dev_line))
+
+    # 11. kernels line
     sources = {"edge_window_message_sum": (
                    "yolat_tpu_torch/csrc/edge_window.cu",
                    "yolat_tpu/ops/edge_window.py:185"),
@@ -576,11 +1143,30 @@ def main() -> int:
                    "yolat_tpu/ops/pallas_kernels.py:213"),
                "fused_pool_train_bwd": (
                    "yolat_tpu_torch/csrc/fused_pool_train.cu",
-                   "yolat_tpu/ops/fused_pool_train.py:198")}
+                   "yolat_tpu/ops/fused_pool_train.py:198"),
+               "fused_dense_message": (
+                   "yolat_tpu_torch/csrc/dense_message.cu",
+                   "yolat_tpu/ops/pallas_kernels.py:82"),
+               "ew_pair_features": (
+                   "yolat_tpu_torch/csrc/edge_window_train.cu",
+                   "yolat_tpu/ops/edge_window_train.py:127"),
+               "ew_pair_features_bwd": (
+                   "yolat_tpu_torch/csrc/edge_window_train.cu",
+                   "yolat_tpu/ops/edge_window_train.py:153"),
+               "ew_window_segment_sum": (
+                   "yolat_tpu_torch/csrc/edge_window_train.cu",
+                   "yolat_tpu/ops/edge_window_train.py:245"),
+               "ew_window_segment_sum_bwd": (
+                   "yolat_tpu_torch/csrc/edge_window_train.cu",
+                   "yolat_tpu/ops/edge_window_train.py:270")}
+    check(all(counts[k] > 0 for k in sources),
+          f"every kernel was launched on its path: {counts}")
     kernels = [{"name": k, "route": "cuda", "source": sources[k][0],
                 "replaces": sources[k][1], "launches": counts[k],
                 "max_abs_err": res[k]["max_abs_err"], "ms": res[k]["ms"],
-                "plain_ms": res[k]["plain_ms"]} for k in sources]
+                "plain_ms": res[k]["plain_ms"],
+                "bound_ms": res[k]["bound_ms"], "bound_by": res[k]["bound_by"],
+                "library_ms": res[k].get("library_ms")} for k in sources]
     print(json.dumps({"kernels": kernels}))
     print(dev_line)
     print(json.dumps({"ok": True, "device": {

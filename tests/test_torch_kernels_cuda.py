@@ -17,6 +17,13 @@ Tolerances, kernel vs plain version on the same card and inputs:
     H100), while a kernel 11 that keeps s = u*sc0 in f32 instead of
     rounding it to bf16 reads 2.6e-3 in dx and dW (a planted fault, run
     once on the same card).
+  * kernels 9 and 10: the gathers (9 forward, 10 backward) are copies and
+    one rounded difference — exact. The sums (9 backward, 10 forward) add
+    a node's few terms in f32 in the plan's order, the plain versions with
+    float atomics in any order: f32 rtol/atol 1e-5; at bf16 (9 backward
+    rounds its f32 sum to bf16) one output ulp, rtol 2^-7 over atol 1e-5.
+  * kernel 4: f32 rtol/atol 1e-4; bf16 max error <= 5e-3 * max|out| (a
+    flipped bf16 rounding of s_i, h1 or h2, as for the edge window).
 """
 
 import numpy as np
@@ -24,15 +31,19 @@ import pytest
 import torch
 
 from yolat_tpu_torch.ops import _build
+from yolat_tpu_torch.ops import edge_window_train as ewt
 from yolat_tpu_torch.ops.block_max import (folded_mlp_block_max,
                                            folded_mlp_block_max2,
                                            folded_mlp_block_max2_plain,
                                            folded_mlp_block_max_plain)
+from yolat_tpu_torch.ops.dense_message import (fused_dense_message,
+                                               fused_dense_message_plain)
 from yolat_tpu_torch.ops.edge_window import (edge_window_message_sum,
                                              edge_window_message_sum_plain)
 from yolat_tpu_torch.ops.fused_pool_train import (fused_pool_train,
                                                   fused_pool_train_bwd)
-from yolat_tpu_torch.ops.plans import EW_KEYS, edge_window_plan, pool_plan
+from yolat_tpu_torch.ops.plans import (EW_KEYS, EW_TRAIN_KEYS,
+                                       edge_window_plan, pool_plan)
 
 
 @pytest.fixture
@@ -255,3 +266,122 @@ def test_fused_head_backward_kernel_is_deterministic(cuda_device, dtype):
         assert torch.equal(a, b)
     # the block maxima are their own pooled values: every block has winners
     assert (first[2] > 0).any() or (first[2] < 0).any()
+
+
+def _train_plan(seed, dev, n=4096, e=3500, wide=False):
+    """(src, dst, dptr, sperm, sptr) on `dev`: sources near their dst, or
+    anywhere with 900 more edges into 256 nodes (long out- and in-runs)."""
+    rng = np.random.default_rng(seed)
+    dst = np.sort(rng.integers(0, n, e)).astype(np.int32)
+    if wide:
+        dst = np.concatenate([dst, rng.integers(256, 512, 900)]).astype(np.int32)
+        src = rng.integers(0, n // 8, len(dst))
+    else:
+        src = np.clip(dst + rng.integers(-40, 41, len(dst)), 0, n - 1)
+    edge = np.stack([src.astype(np.int32), dst], axis=1)
+    mask = rng.random(len(dst)) < 0.85
+    attr = np.zeros((len(dst), 4), np.float32)
+    plan = edge_window_plan(edge, mask, attr, n, transpose=True)
+    return n, tuple(torch.from_numpy(plan[k]).to(dev)
+                    for k in ("ew_src", "ew_dst") + EW_TRAIN_KEYS)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,wide", [(5, False), (64, False), (64, True)])
+def test_pair_features_kernels_match_plain(cuda_device, c, wide, dtype):
+    n, plan = _train_plan(c, cuda_device, wide=wide)
+    e = plan[0].shape[0]
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    x = torch.randn(n, c, device=cuda_device, generator=gen).to(dtype)
+    dg = torch.randn(e, 2 * c, device=cuda_device, generator=gen).to(dtype)
+    _build.reset_launch_counts()
+    outs = []
+    for _ in range(2):
+        xt = x.clone().requires_grad_(True)
+        g = ewt.ew_pair_features(xt, plan)
+        g.backward(dg)
+        outs.append((g.detach(), xt.grad))
+    outs.append((ewt.pair_fwd_plain(x, plan[0], plan[1]),
+                 ewt.pair_bwd_plain(dg, plan[0], plan[1], n)))
+    torch.cuda.synchronize()
+    assert _build.launch_counts["ew_pair_features"] == 2
+    assert _build.launch_counts["ew_pair_features_bwd"] == 2
+    (g1, dx1), (g2, dx2), (gp, dxp) = outs
+    assert g1.dtype == dx1.dtype == dtype and g1.shape == (e, 2 * c)
+    assert torch.equal(g1, g2) and torch.equal(dx1, dx2)  # no atomics
+    assert torch.equal(g1, gp)
+    rtol = 1e-5 if dtype == torch.float32 else 2.0 ** -7
+    torch.testing.assert_close(dx1.float(), dxp.float(), rtol=rtol, atol=1e-5)
+    assert dx1.float().abs().max() > 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,wide", [(1, False), (64, False), (64, True)])
+def test_window_segment_sum_kernels_match_plain(cuda_device, c, wide, dtype):
+    n, plan = _train_plan(c + 1, cuda_device, wide=wide)
+    e = plan[0].shape[0]
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    h = torch.randn(e, c, device=cuda_device, generator=gen).to(dtype)
+    cot = torch.randn(n, c, device=cuda_device, generator=gen)
+    _build.reset_launch_counts()
+    outs = []
+    for _ in range(2):
+        ht = h.clone().requires_grad_(True)
+        s = ewt.ew_window_segment_sum_n(ht, plan, n)
+        s.backward(cot)
+        outs.append((s.detach(), ht.grad))
+    outs.append((ewt.wsum_fwd_plain(h, plan[1], n),
+                 ewt.wsum_bwd_plain(cot, plan[1], dtype)))
+    torch.cuda.synchronize()
+    assert _build.launch_counts["ew_window_segment_sum"] == 2
+    assert _build.launch_counts["ew_window_segment_sum_bwd"] == 2
+    (s1, dh1), (s2, dh2), (sp, dhp) = outs
+    assert s1.dtype == torch.float32 and dh1.dtype == dtype
+    assert torch.equal(s1, s2) and torch.equal(dh1, dh2)
+    assert torch.equal(dh1, dhp)
+    torch.testing.assert_close(s1, sp, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ci,n", [(5, 4096), (64, 4096), (64, 1000)])
+def test_dense_message_kernel_matches_plain(cuda_device, ci, n, dtype):
+    rng = np.random.default_rng(ci + n)
+    d, h, dev = 4, 64, cuda_device
+    deg = rng.integers(0, d + 1, n)
+    deg[-40:] = 0  # padding nodes
+    deg[64:96] = np.minimum(deg[64:96], 2)  # a tile with unused slots
+    mask = np.arange(d)[None, :] < deg[:, None]
+    idx = np.where(mask, rng.integers(0, n, (n, d)), 0).astype(np.int32)
+    attr = np.where(mask[..., None], rng.normal(size=(n, d, 4)), 0.0)
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+    sc = lambda: t(np.stack([rng.uniform(0.5, 1.5, h),
+                             rng.normal(size=h) * 0.1]))
+    args = (t(rng.normal(size=(n, ci))).to(dtype),
+            torch.from_numpy(idx).to(dev), t(attr),
+            torch.from_numpy(mask).to(dev), t(rng.normal(size=(2 * ci + 4, h)) * 0.3),
+            sc(), t(rng.normal(size=(h, h)) * 0.3), sc(),
+            t(rng.normal(size=(ci, h)) * 0.3), t(rng.normal(size=h) * 0.1))
+    _build.reset_launch_counts()
+    got = fused_dense_message(*args)
+    again = fused_dense_message(*args)
+    want = fused_dense_message_plain(*args)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["fused_dense_message"] == 2
+    assert got.dtype == torch.float32 and got.shape == (n, h)
+    assert torch.equal(got, again)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    else:
+        err = (got - want).abs().max().item()
+        assert err <= 5e-3 * want.abs().max().item(), err
+    with pytest.raises(TypeError):
+        fused_dense_message(args[0], args[1].long(), *args[2:])
+    with pytest.raises(ValueError):
+        fused_dense_message(*args[:4], args[4][:, :32], *args[5:])
+    with pytest.raises(TypeError):
+        ewt.pair_fwd(args[0].half(), args[1][:, 0], args[1][:, 0])
+    with pytest.raises(TypeError):
+        ewt.pair_fwd(args[0], args[1][:, 0].long(), args[1][:, 0])

@@ -174,7 +174,7 @@ def test_cpu_tensors_take_the_plain_versions():
     for a, b in zip(fused_pool_train_bwd(bx, bm, bw, bsc, bh, gp_b),
                     fused_pool_train_bwd_plain(bx, bm, bw, bsc, bh, gp_b)):
         assert torch.equal(a, b)
-    assert _build.launch_counts == {"edge_window_message_sum": 0,
-                                    "folded_mlp_block_max2": 0,
-                                    "folded_mlp_block_max": 0,
-                                    "fused_pool_train_bwd": 0}
+    assert {"edge_window_message_sum", "folded_mlp_block_max2",
+            "folded_mlp_block_max", "fused_pool_train_bwd"
+            } <= set(_build.launch_counts)
+    assert not any(_build.launch_counts.values())

@@ -2,9 +2,10 @@
 card has none) and without the JAX package beside it: in a subprocess
 whose import system refuses jax, jaxlib, flax, optax, orbax and yolat_tpu,
 import every module of the port, write and pack synthetic files, serve
-them on the CPU (predict core and CLI), train one step with the fused
-pool head on through the train CLI, and check that none of those modules
-was loaded. Plus a source check: no import of any of them
+them on the CPU (predict core, on the edge-window and on the dense route,
+and CLI), train one step with the fused pool head on and one in the window
+layout through the train CLI, evaluate that checkpoint through the test CLI
+on the dense route, and check that none of those modules was loaded. Plus a source check: no import of any of them
 anywhere in the package or in chip_smoke.py."""
 
 import os
@@ -56,6 +57,12 @@ SCRIPT = textwrap.dedent("""
         det = make_predict_core(cfg, folded=fold_params(model),
                                 detections_only=True)(to_device(batch, "cpu"))
         assert det["boxes"].shape == (1, 300, 4)
+        dense = next(iter(PackedLoader(ds, batch_size=1, edge_window=False,
+                                       dense=True)))
+        assert "nbr_idx" in dense and "ew_src" not in dense
+        det2 = make_predict_core(cfg, folded=fold_params(model),
+                                 detections_only=True)(to_device(dense, "cpu"))
+        assert (det2["valid"] == det["valid"]).all()
         ckpt = os.path.join(d, "m.pth")
         torch.save({"state_dict": model.state_dict()}, ckpt)
         out = os.path.join(d, "det.jsonl")
@@ -69,6 +76,18 @@ SCRIPT = textwrap.dedent("""
                               "--max_steps", "1", "--fused_head_train", "true",
                               "--root_dir", os.path.join(d, "log")])
         assert res["steps"] == 1 and res["losses"][0] == res["losses"][0]
+        res = train_cli.main(["--data_dir", d, "--device", "cpu",
+                              "--n_filters", "8", "--batch_size", "1",
+                              "--max_steps", "1", "--train_layout", "window",
+                              "--root_dir", os.path.join(d, "log_w")])
+        assert res["steps"] == 1 and res["losses"][0] == res["losses"][0]
+        from yolat_tpu_torch.cli import test as test_cli
+        table = test_cli.main([
+            "--data_dir", d, "--phase", "test", "--device", "cpu",
+            "--n_filters", "8", "--batch_size", "1", "--pretrained_model",
+            os.path.join(res["exp_dir"], "checkpoint"), "--serve_mode",
+            "fast", "--dense_layout", "true", "--nms_algorithm", "classfix"])
+        assert len(table["map_per_th"]) == 10
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     assert not loaded, loaded
     print("NOJAX-OK", len(mods))

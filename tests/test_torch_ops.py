@@ -95,7 +95,7 @@ def _nms_case(seed, m=60, k=4, ties=False):
     return boxes, cls, obj, valid
 
 
-@pytest.mark.parametrize("algorithm", ["fixpoint", "loop"])
+@pytest.mark.parametrize("algorithm", ["fixpoint", "loop", "classfix"])
 @pytest.mark.parametrize("ties", [False, True])
 def test_nms_matches_jax(algorithm, ties):
     boxes, cls, obj, valid = _nms_case(3, ties=ties)
@@ -110,15 +110,52 @@ def test_nms_matches_jax(algorithm, ties):
     assert int(got["valid"].sum()) > 5
 
 
-def test_nms_batched_equals_per_image():
+@pytest.mark.parametrize("m,k,max_det", [(6, 2, 40), (60, 4, 500)])
+def test_classfix_pads_past_its_candidates(m, k, max_det):
+    """max_det above the M * K candidates (padded slots) or above the
+    kept count (invalid tail), ties included: identical to JAX."""
+    boxes, cls, obj, valid = _nms_case(8, m=m, k=k, ties=True)
+    kw = dict(iou_thres=0.5, conf_thres=0.05, max_det=max_det,
+              algorithm="classfix")
+    want = jax_nms(*(jnp.asarray(a) for a in (boxes, cls, obj, valid)), **kw)
+    got = single_image_nms(*(torch.from_numpy(a) for a in (boxes, cls, obj,
+                                                          valid)), **kw)
+    for key in ("boxes", "scores", "classes", "valid"):
+        np.testing.assert_array_equal(got[key].numpy(), np.asarray(want[key]),
+                                      err_msg=key)
+    assert 0 < int(got["valid"].sum()) < max_det
+
+
+def test_classfix_keeps_what_the_loop_keeps():
+    """Both are exact over all candidates: the same detections as sets
+    (the loop orders equal scores by candidate index, classfix by class)."""
+    boxes, cls, obj, valid = _nms_case(9)
+    args = [torch.from_numpy(a) for a in (boxes, cls, obj, valid)]
+    kw = dict(iou_thres=0.5, conf_thres=0.05, max_det=240)
+    a = single_image_nms(*args, algorithm="classfix", **kw)
+    b = single_image_nms(*args, algorithm="loop", **kw)
+    assert int(a["valid"].sum()) == int(b["valid"].sum()) > 20
+    for out in (a, b):
+        out["key"] = sorted(zip(out["scores"][out["valid"]].tolist(),
+                                out["classes"][out["valid"]].tolist()))
+    assert a["key"] == b["key"]
+    with pytest.raises(ValueError, match="classfix"):
+        single_image_nms(*args, algorithm="greedy")
+
+
+def test_nms_batched_equals_per_image(algorithm="fixpoint"):
     cases = [_nms_case(s) for s in (4, 5, 6)]
     stacked = [torch.from_numpy(np.stack(a)) for a in zip(*cases)]
-    kw = dict(iou_thres=0.45, max_det=30, topk=256)
+    kw = dict(iou_thres=0.45, max_det=30, topk=256, algorithm=algorithm)
     out = batched_nms(*stacked, **kw)
     for i, case in enumerate(cases):
         one = single_image_nms(*(torch.from_numpy(a) for a in case), **kw)
         for key in one:
             assert torch.equal(out[key][i], one[key]), key
+
+
+def test_classfix_batched_equals_per_image():
+    test_nms_batched_equals_per_image("classfix")
 
 
 def test_iou_and_inflation_match_jax():

@@ -6,7 +6,10 @@ bitwise equal. The edge-window plan has another layout (the CUDA kernel's:
 a flat dst-sorted list of the real edges with window offsets, where the
 TPU's pads windows to a capacity and addresses a 3-window band), so it is
 held equal to the JAX plan's real edges read back from the TPU layout,
-and it exists for every edge list, where the JAX plan gives up.
+and it exists for every edge list, where the JAX plan gives up. Its
+transposed part (per-node offsets and the source-sorted order, for the
+trainable window ops) is held to its definition. The dense neighbour table
+is bitwise equal to the JAX package's, per file and per batch.
 
 Both loaders run their host stage with the numpy paths (the JAX package's
 optional native helper is switched off and caches are off), so the
@@ -15,18 +18,22 @@ proposal sets, and so the packed batches, are bitwise equal.
 
 import numpy as np
 import pytest
+import torch
 
 import yolat_tpu.geom._native as jax_native
 from yolat_tpu.data.dataset import PackedLoader as JaxLoader
 from yolat_tpu.data.dataset import SESYDDataset as JaxDataset
+from yolat_tpu.data.packing import add_dense_neighbors as jax_add_dense
 from yolat_tpu.ops.edge_window import edge_window_plan as jax_ew_plan
 from yolat_tpu.ops.segment import pool_plan as jax_pool_plan
 from yolat_tpu_torch.data.dataset import SESYDDataset
 from yolat_tpu_torch.data.loader import PackedLoader
-from yolat_tpu_torch.data.packing import (CompactFile, PadSizes, pack_files,
-                                          round_up)
-from yolat_tpu_torch.ops.plans import (EW_BATCH_KEYS, edge_window_plan,
-                                       ew_of, plan_of, pool_plan)
+from yolat_tpu_torch.data.packing import (CompactFile, PadSizes,
+                                          add_dense_neighbors, finalize_batch,
+                                          pack_files, round_up, to_device)
+from yolat_tpu_torch.ops.plans import (EW_BATCH_KEYS, EW_TRAIN_KEYS,
+                                       edge_window_plan, ew_of, ew_train_of,
+                                       plan_of, pool_plan)
 
 
 @pytest.fixture
@@ -81,7 +88,7 @@ def _jax_plan_edges(plan, n):
 def _check_plan(got, edge, mask, attr, n, wn):
     """The plan holds exactly the real edges, stably dst-sorted, with
     window offsets ceil(n / wn) + 1 long."""
-    assert set(got) == set(EW_BATCH_KEYS)
+    assert set(got) == set(EW_BATCH_KEYS) - set(EW_TRAIN_KEYS)
     idx = np.nonzero(mask)[0]
     order = idx[np.argsort(edge[idx, 1], kind="stable")]
     np.testing.assert_array_equal(got["ew_src"], edge[order, 0])
@@ -138,6 +145,86 @@ def test_edge_window_plan_sorts_and_checks_edges(case):
     # an unsorted list gets the plan of its stable dst sort
     _check_plan(edge_window_plan(edge, mask, attr, 512, wn=128), edge, mask,
                 attr, 512, 128)
+
+
+@pytest.mark.parametrize("case", ["local", "wide", "empty"])
+def test_edge_window_plan_transpose(case):
+    """dptr: node v's in-edges are rows dptr[v]:dptr[v+1]; sperm/sptr: its
+    out-edges are the rows sperm[sptr[v]:sptr[v+1]], ascending (a stable
+    sort by source), every row once."""
+    edge, mask, attr = _local_graph(4, n=512, e=900,
+                                    span=30 if case == "local" else 400)
+    if case == "empty":
+        mask = np.zeros_like(mask)
+    n = 512
+    got = edge_window_plan(edge, mask, attr, n, wn=128, transpose=True)
+    assert set(got) == set(EW_BATCH_KEYS)
+    base = edge_window_plan(edge, mask, attr, n, wn=128)
+    _assert_same(base, got, list(base))
+    src, dst = got["ew_src"], got["ew_dst"]
+    e = len(src)
+    for k in EW_TRAIN_KEYS:
+        assert got[k].dtype == np.int32
+    dptr, sperm, sptr = (got[k] for k in EW_TRAIN_KEYS)
+    assert dptr.shape == sptr.shape == (n + 1,) and sperm.shape == (e,)
+    assert dptr[0] == sptr[0] == 0 and dptr[-1] == sptr[-1] == e
+    np.testing.assert_array_equal(np.diff(dptr), np.bincount(dst, minlength=n))
+    np.testing.assert_array_equal(np.diff(sptr), np.bincount(src, minlength=n))
+    np.testing.assert_array_equal(np.sort(sperm), np.arange(e))
+    np.testing.assert_array_equal(sperm, np.argsort(src, kind="stable"))
+    for v in np.unique(src)[:50]:
+        rows = sperm[sptr[v]:sptr[v + 1]]
+        assert (src[rows] == v).all() and (np.diff(rows) > 0).all()
+    batch = {"pos": np.zeros((n, 2), np.float32), **got}
+    assert ew_train_of(batch) is not None and ew_of(batch) is not None
+    assert ew_train_of({"pos": np.zeros((n, 2), np.float32), **base}) is None
+    assert ew_train_of({"pos": np.zeros((n + 8, 2), np.float32), **got}) is None
+
+
+@pytest.mark.parametrize("partition", ["train", "test"])
+def test_dense_tables_match_jax(synthetic_root, numpy_host_stage, partition):
+    """The loader's table (copied from per-file tables), the batch-level
+    build, and its width, against the JAX package's."""
+    ds = SESYDDataset(synthetic_root, partition, bbox_sampling_step=10,
+                      cache=False)
+    jds = JaxDataset(synthetic_root, partition, bbox_sampling_step=10,
+                     cache=False)
+    loader = PackedLoader(ds, batch_size=2, prefetch=0, dense=True,
+                          ew_transpose=True)
+    jax_loader = JaxLoader(jds, batch_size=2, shuffle=False, prefetch=0,
+                           dense=True)
+    assert loader.d_max == jax_loader.d_max >= 4
+    keys = ("nbr_idx", "nbr_attr", "nbr_mask")
+    n_batches = 0
+    for b, w in zip(loader, jax_loader):
+        w = {k: v[0] for k, v in w.items()}
+        _assert_same(b, w, keys)
+        assert b["nbr_idx"].dtype == np.int32 and b["nbr_mask"].dtype == bool
+        assert b["nbr_attr"].shape == b["nbr_idx"].shape + (4,)
+        # slots hold each node's in-edges; padding slots point at node 0
+        np.testing.assert_array_equal(b["nbr_mask"].sum(axis=1),
+                                      b["dst_count"].astype(np.int64))
+        assert (b["nbr_idx"][~b["nbr_mask"]] == 0).all()
+        assert ew_train_of(b) is not None
+        bare = {k: v for k, v in b.items() if k not in keys}
+        _assert_same(add_dense_neighbors(bare), jax_add_dense(bare), keys)
+        _assert_same(add_dense_neighbors(bare, d_max=loader.d_max), b, keys)
+        with pytest.raises(ValueError, match="in-degree"):
+            add_dense_neighbors(bare, d_max=1)
+        n_batches += 1
+    assert n_batches == len(loader) >= 1
+
+
+def test_drop_edge_edits_the_dense_mask(synthetic_root):
+    ds = SESYDDataset(synthetic_root, "test", bbox_sampling_step=10)
+    b = to_device(next(iter(PackedLoader(ds, batch_size=2, dense=True))), "cpu")
+    out = finalize_batch(b, generator=torch.Generator().manual_seed(0),
+                         drop_edge=0.5)
+    kept, full = int(out["nbr_mask"].sum()), int(b["nbr_mask"].sum())
+    assert 0 < kept < full
+    assert not (out["nbr_mask"] & ~b["nbr_mask"]).any()
+    same = finalize_batch(b)
+    assert torch.equal(same["nbr_mask"], b["nbr_mask"])
 
 
 @pytest.mark.parametrize("partition", ["train", "test"])

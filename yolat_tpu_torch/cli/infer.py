@@ -66,7 +66,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--n_blocks_out", default=d.n_blocks_out, type=int)
     p.add_argument("--classifier", default=d.classifier, type=str)
     p.add_argument("--nms_algorithm", default=d.nms_algorithm, type=str,
-                   choices=("fixpoint", "loop"))
+                   choices=("fixpoint", "loop", "classfix"))
     p.add_argument("--nms_topk", default=d.nms_topk, type=int)
     p.add_argument("--skip_errors", default=True,
                    action=argparse.BooleanOptionalAction,

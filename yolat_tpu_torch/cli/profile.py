@@ -1,7 +1,8 @@
 """Per-stage times of the serving and training paths on one CUDA device.
 
   python -m yolat_tpu_torch.cli.profile [--n_svgs 8] [--batch_size 4]
-      [--reps 20] [--stages serve,train] [--out profile.json]
+      [--reps 20] [--stages serve,serve_dense,train]
+      [--train_layout sparse|window|dense] [--out profile.json]
 
 Writes bench-scale synthetic floorplans (seed 7, 2000x1500, 6 rooms, 1-3
 symbols per room, sampling step 10; the batch of `bench.py:82-84`) into a
@@ -10,13 +11,15 @@ temporary directory under build/ and times each stage of the loop of
 
   host    cold load per image (parse, graph, proposals, cache write),
           cached load per image, CompactFile per image, pack_files per
-          batch (with and without the edge-window plan), to_device per batch;
+          batch (with the edge-window plan, with its transpose for the
+          window training layout, with the dense neighbour table, and with
+          none of them), to_device per batch;
   device  predict wall per batch for each serve mode (synchronised, the
           detections' copy to the host included) and the forward alone;
   trace   torch.profiler (CUDA activity) over `--reps` fast_bf16 predicts:
-          device kernel time per predict, the profiled wall per predict
-          and the top kernels. The profiler slows the host, so its wall is
-          not the serving wall; `idle_share_estimate` is 1 - kernel time
+          device kernel time per predict, the profiled wall per predict,
+          the top kernels and the port's own kernels by name. The profiler
+          slows the host, so its wall is not the serving wall; `idle_share_estimate` is 1 - kernel time
           per predict / unprofiled predict wall, both from this run;
   train   the train step (`train/loop.make_train_step`, Adam, augmentation
           on) on the packed batch already on the device, from the
@@ -24,7 +27,13 @@ temporary directory under build/ and times each stage of the loop of
           the fused pool head (kernels 3 and 11), bf16 unfused and f32
           fused; then torch.profiler over `--reps` bf16 fused steps, as
           for predict (host packing is not in these numbers: `cli.train`'s
-          rate includes it).
+          rate includes it). With `--train_layout window` (or dense) the
+          arms are that layout and the sparse one, unfused head, bf16 and
+          f32, in turns, and both bf16 arms are traced;
+  serve_dense  predict and forward on the dense route (the batch carries
+          the neighbour table and no edge-window plan, so the convs take
+          kernel 4), fast_bf16 and fast, beside the edge-window route in
+          the same call.
 
 It has no JAX counterpart module: the JAX package timed its stages in
 `bench.py`, whose batch this is. Host times are medians of `--reps`
@@ -38,6 +47,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import statistics
 import subprocess
 import tempfile
@@ -48,8 +58,9 @@ import torch
 from yolat_tpu_torch.config import Config
 from yolat_tpu_torch.data.dataset import SESYDDataset
 from yolat_tpu_torch.data.loader import PackedLoader
-from yolat_tpu_torch.data.packing import (CompactFile, finalize_batch,
-                                          pack_files, to_device)
+from yolat_tpu_torch.data.packing import (CompactFile, add_dense_neighbors,
+                                          finalize_batch, pack_files,
+                                          to_device)
 from yolat_tpu_torch.data.synthetic import write_dataset
 from yolat_tpu_torch.eval.fast_forward import fast_forward, fold_params
 from yolat_tpu_torch.eval.predict import img_slot_cap, make_predict_core
@@ -60,6 +71,13 @@ from yolat_tpu_torch.train.trainer import init_model
 
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
+
+
+# the __global__ functions of yolat_tpu_torch/csrc/*.cu
+_OWN_KERNEL_RE = re.compile(
+    r"\b(edge_window_kernel|block_max_kernel|bwd_rows_kernel|bwd_dw_kernel"
+    r"|sum_parts_kernel|dense_message_kernel|pair_fwd_kernel|pair_bwd_kernel"
+    r"|wsum_fwd_kernel|wsum_bwd_kernel)(<[^>(]*>)?")
 
 
 def nvidia_smi() -> str:
@@ -104,7 +122,17 @@ def _host_stages(root: str, batch_size: int, reps: int, res: dict):
     res["pack_ms_per_batch"] = _median_ms(lambda: pack_files(*args), reps)
     res["pack_no_ew_plan_ms_per_batch"] = _median_ms(
         lambda: pack_files(*args, edge_window=False), reps)
-    return ds, pack_files(*args)
+    res["pack_ew_transpose_ms_per_batch"] = _median_ms(
+        lambda: pack_files(*args, ew_transpose=True), reps)
+
+    def dense():
+        return add_dense_neighbors(pack_files(*args, edge_window=False),
+                                   d_max=loader.d_max, files=cfs)
+
+    res["pack_dense_ms_per_batch"] = _median_ms(dense, reps)
+    return ds, {"sparse": pack_files(*args),
+                "window": pack_files(*args, ew_transpose=True),
+                "dense": dense()}
 
 
 def _serve_stages(nb, n_classes: int, dev, reps: int, res: dict) -> None:
@@ -146,6 +174,47 @@ def _serve_stages(nb, n_classes: int, dev, reps: int, res: dict) -> None:
         else 1.0 - busy / res["predict_fast_bf16_ms_per_batch"])
 
 
+def _serve_dense_stage(packs, n_classes: int, dev, reps: int, res: dict) -> None:
+    """The dense route (kernel 4) beside the edge-window route (kernel 1),
+    in turns, on batches of the same files."""
+    cfg = Config(n_classes=n_classes)
+    model = seeded_model(cfg).to(dev)
+    folded = fold_params(model, dev)
+    cap = img_slot_cap(packs["sparse"])
+    runs = {}
+    for route, nb in (("window", packs["sparse"]), ("dense", packs["dense"])):
+        batch = to_device(nb, dev)
+        for mode in ("fast_bf16", "fast"):
+            predict = make_predict_core(cfg, folded=folded,
+                                        bf16=mode == "fast_bf16",
+                                        img_slots=cap, detections_only=True)
+
+            def run(predict=predict, batch=batch):
+                {k: v.cpu() for k, v in predict(batch).items()}
+
+            def fwd(batch=batch, bf16=mode == "fast_bf16"):
+                with torch.no_grad():
+                    return fast_forward(folded, finalize_batch(batch),
+                                        bf16=bf16)
+
+            for _ in range(3):
+                run()
+            runs[f"predict_{mode}_{route}_route"] = run
+            runs[f"forward_{mode}_{route}_route"] = fwd
+    names = list(runs)
+    times = {k: [] for k in names}
+    for order in (names, names[::-1]):  # each arm early and late once
+        for k in order:
+            times[k].append(_median_ms(runs[k], reps, True))
+    for k in names:
+        res[f"{k}_ms_per_batch"] = statistics.median(times[k])
+    res["dense_trace"] = _trace(runs["predict_fast_bf16_dense_route"], reps)
+    busy = res["dense_trace"]["device_busy_ms_per_call"]
+    res["dense_idle_share_estimate"] = (
+        None if busy is None
+        else 1.0 - busy / res["predict_fast_bf16_dense_route_ms_per_batch"])
+
+
 def _trace(fn, reps: int) -> dict:
     """torch.profiler (CPU + CUDA activity) over `reps` calls of fn: device
     kernel time per call, the profiled wall per call, the top kernels."""
@@ -166,38 +235,59 @@ def _trace(fn, reps: int) -> dict:
         per_name[e.name] = (per_name.get(e.name, 0.0)
                             + e.time_range.elapsed_us() / 1e3 / reps)
     busy = sum(per_name.values()) if kernels else None  # None: no device trace
-    top = sorted(per_name.items(), key=lambda kv: -kv[1])[:12]
+    ranked = sorted(per_name.items(), key=lambda kv: -kv[1])
+    own = [[m.group(0), v] for k, v in ranked
+           for m in [_OWN_KERNEL_RE.search(k)] if m]
     return {"device_kernels_per_call": len(kernels) / reps,
             "device_busy_ms_per_call": busy,
             "profiled_wall_ms_per_call": span,
-            "top_kernels_ms_per_call": [[k, v] for k, v in top]}
+            "top_kernels_ms_per_call": [[k, v] for k, v in ranked[:12]],
+            "own_kernels_ms_per_call": own}
 
 
-def _train_stage(nb, n_classes: int, dev, reps: int, res: dict) -> None:
-    batch = to_device(nb, dev)
-    arms = (("bf16_fused", dict(dtype="bfloat16", fused_head_train=True)),
-            ("bf16_unfused", dict(dtype="bfloat16")),
-            ("f32_fused", dict(fused_head_train=True)))
+def _train_stage(packs, n_classes: int, dev, reps: int, res: dict,
+                 layout: str = "sparse") -> None:
+    if layout == "sparse":
+        arms = (("bf16_fused", dict(dtype="bfloat16", fused_head_train=True)),
+                ("bf16_unfused", dict(dtype="bfloat16")),
+                ("f32_fused", dict(fused_head_train=True)))
+        traced = ("bf16_fused",)
+    else:
+        arms = tuple((f"{dt}_{lay}", dict(dtype=name, train_layout=lay))
+                     for dt, name in (("bf16", "bfloat16"), ("f32", "float32"))
+                     for lay in ("sparse", layout))
+        traced = ("bf16_sparse", f"bf16_{layout}")
     steps = {}
     for name, kw in arms:
         cfg = Config(n_classes=n_classes, data_aug=True, **kw)
+        batch = to_device(packs[cfg.train_layout], dev)
         model = init_model(cfg, dev)
         opt = make_optimizer(cfg.optimizer, model.parameters(), cfg.lr,
                              cfg.weight_decay)
         step = make_train_step(cfg, model, opt)
         gen = torch.Generator(device=dev).manual_seed(0)
 
-        def run(step=step, gen=gen):
+        def run(step=step, gen=gen, batch=batch):
             step(batch, gen)
 
         for _ in range(3):
             run()
         steps[name] = run
-        res[f"train_step_{name}_ms"] = _median_ms(run, reps, sync=True)
-    res["train_trace"] = _trace(steps["bf16_fused"], reps)
-    busy = res["train_trace"]["device_busy_ms_per_call"]
-    res["train_idle_share_estimate"] = (
-        None if busy is None else 1.0 - busy / res["train_step_bf16_fused_ms"])
+    times = {name: [] for name in steps}
+    names = list(steps)
+    # with more than one layout, every arm runs early and late once
+    for order in ((names,) if layout == "sparse" else (names, names[::-1])):
+        for name in order:
+            times[name].append(_median_ms(steps[name], reps, sync=True))
+    for name in names:
+        res[f"train_step_{name}_ms"] = statistics.median(times[name])
+    for name in traced:
+        key = "train_trace" if name == traced[-1] else f"train_trace_{name}"
+        res[key] = _trace(steps[name], reps)
+        busy = res[key]["device_busy_ms_per_call"]
+        res[key.replace("trace", "idle_share_estimate")] = (
+            None if busy is None
+            else 1.0 - busy / res[f"train_step_{name}_ms"])
 
 
 def _print_trace(name: str, t: dict) -> None:
@@ -206,6 +296,8 @@ def _print_trace(name: str, t: dict) -> None:
           f"{t['profiled_wall_ms_per_call']} ms per call")
     for kname, ms in t["top_kernels_ms_per_call"]:
         print(f"  {ms:9.4f} ms/call  {kname[:100]}")
+    print("  own kernels: " + ", ".join(
+        f"{kname} {ms:.4f}" for kname, ms in t["own_kernels_ms_per_call"]))
 
 
 def main(argv=None) -> dict:
@@ -214,6 +306,8 @@ def main(argv=None) -> dict:
     p.add_argument("--batch_size", type=int, default=4)
     p.add_argument("--reps", type=int, default=20)
     p.add_argument("--stages", default="serve,train")
+    p.add_argument("--train_layout", default="sparse",
+                   choices=("sparse", "window", "dense"))
     p.add_argument("--out", default="")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
@@ -228,21 +322,27 @@ def main(argv=None) -> dict:
     with tempfile.TemporaryDirectory(dir=os.path.join(_REPO, "build")) as work:
         root = os.path.join(work, "svgs")
         write_bench_svgs(root, args.n_svgs)
-        ds, nb = _host_stages(root, args.batch_size, args.reps, res)
+        ds, packs = _host_stages(root, args.batch_size, args.reps, res)
+    nb = packs["sparse"]
     res["shapes"] = {"N": int(nb["pos"].shape[0]),
                      "E": int(nb["edge_mask"].sum()),
+                     "E_padded": int(nb["edge"].shape[0]),
+                     "D": int(packs["dense"]["nbr_idx"].shape[1]),
                      "P": int(nb["labels"].shape[0])}
     if "serve" in stages:
         _serve_stages(nb, ds.n_classes, dev, args.reps, res)
+    if "serve_dense" in stages:
+        _serve_dense_stage(packs, ds.n_classes, dev, args.reps, res)
     if "train" in stages:
-        _train_stage(nb, ds.n_classes, dev, args.reps, res)
+        _train_stage(packs, ds.n_classes, dev, args.reps, res,
+                     args.train_layout)
 
+    traces = [k for k in res if "trace" in k]
     for k, v in res.items():
-        if k not in ("trace", "train_trace"):
+        if k not in traces:
             print(f"{k}: {v}")
-    for name in ("trace", "train_trace"):
-        if name in res:
-            _print_trace(name, res[name])
+    for name in traces:
+        _print_trace(name, res[name])
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

@@ -1,0 +1,101 @@
+"""Test CLI: restore a checkpoint and run the eval protocol on a partition.
+
+Counterpart of `yolat_tpu/cli/test.py` (the reference's
+cad_recognition/test.py), on one device, with the flags of the train CLI
+plus:
+
+  python -m yolat_tpu_torch.cli.test --data_dir DIR --phase test
+      --pretrained_model ckpt_dir|ckpt_dir/ckpt_<tag>|ref.pth
+      [--serve_mode flax|fast|fast_bf16] [--dense_layout true|false]
+      [--nms_algorithm fixpoint|loop|classfix] [--device cuda]
+
+`--serve_mode flax` runs the eval-mode module (the parity route; the name
+is the JAX package's), `fast` / `fast_bf16` the folded-BN engine with its
+kernels. `--dense_layout true` packs the dense neighbour table and no
+edge-window plan, so the engine's convs take the fused dense message
+(kernel 4) instead of the edge-window message sum (kernel 1); the module
+route then takes the conv's dense branch. The checkpoint's training layout
+does not matter: all layouts share their parameters. `--device` defaults to
+cuda and raises when CUDA is absent; the CLI never moves to the CPU on its
+own. Prints the AP table, the confusion matrix,
+`checkpoint epoch=.. best=..`, and last the launch counts of the serving
+kernels.
+"""
+
+from __future__ import annotations
+
+from yolat_tpu_torch.cli.train import (_bool, build_parser, config_from_args,
+                                       device_from_arg, device_name)
+from yolat_tpu_torch.data.dataset import SESYDDataset
+from yolat_tpu_torch.data.loader import PackedLoader
+from yolat_tpu_torch.eval.metrics import format_confusion
+from yolat_tpu_torch.eval.runner import evaluate
+from yolat_tpu_torch.nn.model import build_model
+from yolat_tpu_torch.ops import _build
+from yolat_tpu_torch.train.checkpoint import (CheckpointManager,
+                                              load_train_state,
+                                              split_checkpoint_path,
+                                              state_from_pth)
+
+
+def load_checkpoint(cfg, device):
+    """-> (eval-mode model on `device`, epoch, best value) from
+    cfg.pretrained_model: a reference `.pth` (epoch 0, best nan), a
+    checkpoint dir (tag 'best') or `<dir>/ckpt_<tag>`."""
+    if not cfg.pretrained_model:
+        raise SystemExit("--pretrained_model is required for evaluation")
+    model = build_model(cfg)
+    path = cfg.pretrained_model.rstrip("/")
+    if path.endswith(".pth"):
+        state_from_pth(model, path)
+        epoch, best = 0, float("nan")
+    else:
+        ckpt_dir, tag = split_checkpoint_path(path)
+        state, epoch, best = CheckpointManager(ckpt_dir).restore(tag)
+        load_train_state(state, model)
+    return model.to(device).eval(), epoch, best
+
+
+def main(argv=None) -> dict:
+    p = build_parser()
+    p.description = "yolat_tpu_torch evaluation"
+    p.add_argument("--serve_mode", default="flax",
+                   choices=("flax", "fast", "fast_bf16"),
+                   help="flax = the eval-mode module; fast / fast_bf16 = the "
+                        "folded-BN serving engine")
+    p.add_argument("--dense_layout", default=False, type=_bool,
+                   help="pack the dense neighbour table instead of the "
+                        "edge-window plan (the engine takes kernel 4)")
+    args = p.parse_args(argv)
+    device = device_from_arg(args.device)
+    cfg = config_from_args(args)
+    partition = cfg.phase if cfg.phase in ("train", "test", "val") else "test"
+    ds = SESYDDataset(cfg.data_dir, partition,
+                      bbox_sampling_step=cfg.bbox_sampling_step)
+    # the layout under test is the batch's: the model takes no window branch
+    cfg = cfg.replace(n_classes=ds.n_classes, train_layout="sparse")
+    loader = PackedLoader(ds, batch_size=cfg.batch_size,
+                          edge_window=not cfg.dense_layout,
+                          dense=cfg.dense_layout)
+    model, epoch, best = load_checkpoint(cfg, device)
+    if device.type == "cuda" and args.serve_mode != "flax":
+        _build.library()  # build the kernels before the evaluation loop
+    launched = dict(_build.launch_counts)
+    results = evaluate(cfg, model, loader, max_det=cfg.max_det, verbose=True,
+                       serve=args.serve_mode, device=device)
+    counts = {k: v - launched[k] for k, v in _build.launch_counts.items()}
+    results["launches"] = counts
+    print(format_confusion(results["confusion"], ds.class_dict))
+    print(f"checkpoint epoch={epoch} best={best:.4f}")
+    print(f"{len(ds)} images in {len(loader)} batches on "
+          f"{device_name(device)} ({args.serve_mode}, "
+          f"{'dense table' if cfg.dense_layout else 'edge window'}, "
+          f"{cfg.nms_algorithm}); kernel launches: "
+          + ", ".join(f"{k}={counts[k]}" for k in (
+              "edge_window_message_sum", "folded_mlp_block_max2",
+              "fused_dense_message")))
+    return results
+
+
+if __name__ == "__main__":
+    main()

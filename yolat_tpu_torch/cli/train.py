@@ -6,7 +6,8 @@ the same names:
 
   python -m yolat_tpu_torch.cli.train --data_dir DIR [--batch_size 4]
       [--total_epochs 200] [--lr 2.5e-4] [--dtype float32|bfloat16]
-      [--fused_head_train true] [--eval_start 20] [--root_dir log]
+      [--fused_head_train true] [--train_layout sparse|window|dense]
+      [--eval_start 20] [--root_dir log]
       [--pretrained_model ckpt_dir|ckpt_dir/ckpt_<tag>|ref.pth]
       [--max_steps N] [--device cuda]
 
@@ -14,7 +15,9 @@ the same names:
 moves to the CPU on its own. `--max_steps` ends the run after N train
 steps (evaluating and checkpointing that epoch). The last line prints the
 train rate (steps/s and images/s over the synchronised train-step wall
-time) and the launch counts of the fused pool head's kernels.
+time) and the launch counts of the fused pool head's kernels and of the
+window layout's kernels 9 and 10, forward and backward apart (they count
+the evaluation's forward passes too).
 """
 
 from __future__ import annotations
@@ -68,7 +71,7 @@ def build_parser() -> argparse.ArgumentParser:
     add("--eval_start", default=d.eval_start, type=int)
     add("--map_step", default=d.map_step, type=int)
     add("--nms_algorithm", default=d.nms_algorithm, type=str,
-        choices=("fixpoint", "loop"))
+        choices=("fixpoint", "loop", "classfix"))
     add("--nms_topk", default=d.nms_topk, type=int)
     add("--dtype", default=d.dtype, type=str,
         choices=("float32", "bfloat16", "bf16"),
@@ -76,6 +79,10 @@ def build_parser() -> argparse.ArgumentParser:
              "weights, f32 BN statistics")
     add("--fused_head_train", default=d.fused_head_train, type=_bool,
         help="train-mode fused pool head (kernels 3 and 11)")
+    add("--train_layout", default=d.train_layout, type=str,
+        choices=("sparse", "window", "dense"),
+        help="conv layout: the padded edge list, the edge-window plan "
+             "(kernels 9 and 10) or the dense neighbour table")
     add("--iou_aware_loss", default=d.iou_aware_loss, type=_bool)
     add("--pos_class_weight", default=d.pos_class_weight, type=float)
     add("--iou_aware_mode", default=d.iou_aware_mode, type=str,
@@ -93,27 +100,40 @@ def config_from_args(args) -> Config:
     return Config(**kw)
 
 
-def main(argv=None) -> dict:
-    args = build_parser().parse_args(argv)
-    device = torch.device(args.device)
+def device_from_arg(name: str) -> torch.device:
+    """The asked device; cuda without CUDA raises instead of moving on."""
+    device = torch.device(name)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: CUDA is not available "
-                           "(pass --device cpu to train on the CPU)")
+                           "(pass --device cpu to run on the CPU)")
+    return device
+
+
+def device_name(device) -> str:
+    return (torch.cuda.get_device_name(device) if device.type == "cuda"
+            else "cpu")
+
+
+def main(argv=None) -> dict:
+    args = build_parser().parse_args(argv)
+    device = device_from_arg(args.device)
     cfg = config_from_args(args).replace(phase="train")
     launched = dict(_build.launch_counts)  # this run's launches are the rise
     _, results = run_training(cfg, device, max_steps=args.max_steps or None)
     counts = {k: v - launched[k] for k, v in _build.launch_counts.items()}
+    results["launches"] = counts
     secs = max(results["train_seconds"], 1e-9)
-    name = (torch.cuda.get_device_name(device) if device.type == "cuda"
-            else "cpu")
     print(f"best test_value={results.get('best_value', 0):.4f} "
           f"MAP@0.5={results.get('map_50', 0):.4f} "
           f"exp_dir={results.get('exp_dir')}")
     print(f"{results['steps']} steps, {results['images']} images in "
           f"{secs:.3f} s: {results['steps'] / secs:.3f} steps/s, "
-          f"{results['images'] / secs:.3f} images/s on {name}; kernel "
-          f"launches: folded_mlp_block_max={counts['folded_mlp_block_max']}, "
-          f"fused_pool_train_bwd={counts['fused_pool_train_bwd']}")
+          f"{results['images'] / secs:.3f} images/s on "
+          f"{device_name(device)}; kernel launches: "
+          + ", ".join(f"{k}={counts[k]}" for k in (
+              "folded_mlp_block_max", "fused_pool_train_bwd",
+              "ew_pair_features", "ew_pair_features_bwd",
+              "ew_window_segment_sum", "ew_window_segment_sum_bwd")))
     return results
 
 

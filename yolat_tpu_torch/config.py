@@ -4,6 +4,12 @@ Counterpart of `yolat_tpu/train/config.py:16-168` (`Config`), restricted
 to the fields the port's serving and training paths read, with the same
 names and defaults (the canonical README command: centernet3cc_rpn_gp_iter2,
 5 input channels, 64 filters, 2 blocks, 17 floorplan classes).
+
+One default differs: `dense_layout` is False here and True in the JAX
+package. There the dense neighbour table is the serving layout; the port
+serves over the edge-window plan, which exists for every batch, and packs
+the table only when asked (`cli/test --dense_layout true`, or
+`train_layout='dense'`).
 """
 
 from __future__ import annotations
@@ -52,11 +58,18 @@ class Config:
     max_det: int = 300
     nms_iou: float = 0.5
     nms_conf: float = 0.0
-    nms_algorithm: str = "fixpoint"  # or 'loop', the sequential oracle
+    nms_algorithm: str = "fixpoint"  # 'loop': the sequential oracle;
+                                     # 'classfix': per class, all candidates
     nms_topk: int = 1024             # fixpoint-NMS candidate cap
 
     # execution
     dtype: str = "float32"          # or bfloat16: bf16 compute, f32 master
+    dense_layout: bool = False      # pack the dense neighbour table for
+                                    # serving (the engine then takes kernel 4)
+    train_layout: str = "sparse"    # conv layout in training: 'sparse' (padded
+                                    # dst-sorted edge list), 'window' (kernels
+                                    # 9 and 10 over the edge-window plan) or
+                                    # 'dense' (the neighbour table)
     fused_head_train: bool = False  # the fused pool head (kernels 3 and 11)
     iou_aware_loss: bool = False    # soft {class: q, background: 1-q} targets
     iou_aware_mode: str = "abs"     # q = IoU ('abs') or IoU / best sibling

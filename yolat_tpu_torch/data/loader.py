@@ -18,8 +18,9 @@ import threading
 
 import numpy as np
 
-from yolat_tpu_torch.data.packing import (CompactFile, PadSizes, pack_files,
-                                          round_up)
+from yolat_tpu_torch.data.packing import (CompactFile, PadSizes,
+                                          add_dense_neighbors, dense_width,
+                                          pack_files, round_up)
 
 
 class PackedLoader:
@@ -30,11 +31,17 @@ class PackedLoader:
     consumer runs the current one; prefetch=0 packs inline.
     cache_files keeps the CompactFiles of the pad pass in memory, so the
     iteration does not load them again (off for large manifests).
+    ew_transpose adds the transposed part of the edge-window plan (the
+    window training layout reads it); dense adds the dense neighbour table,
+    D slots wide for the manifest's largest in-degree
+    (`packing.dense_width`) unless d_max is given.
     """
 
     def __init__(self, dataset, batch_size: int = 4, prefetch: int = 1,
                  edge_window: bool = True, cache_files: bool = True,
-                 shuffle: bool = False, seed: int = 0):
+                 shuffle: bool = False, seed: int = 0,
+                 ew_transpose: bool = False, dense: bool = False,
+                 d_max: int | None = None):
         if prefetch not in (0, 1):
             raise ValueError("prefetch is 0 or 1")
         self.ds = dataset
@@ -44,9 +51,14 @@ class PackedLoader:
         self.epoch = 0
         self.prefetch = prefetch
         self.edge_window = edge_window
+        self.ew_transpose = ew_transpose
+        self.dense = dense
         self.cache_files = cache_files
         self._compact: dict = {}
+        self._max_indegree = 0
         self.pad = self.compute_pad()
+        self.d_max = d_max if d_max is not None else dense_width(
+            self._max_indegree)
 
     def _load(self, i: int):
         hit = self._compact.get(i)
@@ -67,6 +79,9 @@ class PackedLoader:
             edges.append(len(f.edge))
             props.append(f.n_proposals)
             gts.append(len(gt))
+            if len(f.edge):
+                self._max_indegree = max(self._max_indegree,
+                                         int(f.dst_count.max()))
 
         def topsum(vals, mult):
             return round_up(sum(sorted(vals)[-self.batch_size:]), mult)
@@ -92,9 +107,15 @@ class PackedLoader:
         for start in range(0, len(order), self.batch_size):
             loads = [self._load(int(i))
                      for i in order[start:start + self.batch_size]]
-            yield pack_files([l[0] for l in loads], [l[1] for l in loads],
-                             [l[2] for l in loads], self.pad,
-                             edge_window=self.edge_window)
+            files = [l[0] for l in loads]
+            batch = pack_files(files, [l[1] for l in loads],
+                               [l[2] for l in loads], self.pad,
+                               edge_window=self.edge_window,
+                               ew_transpose=self.ew_transpose)
+            if self.dense:
+                batch = add_dense_neighbors(batch, d_max=self.d_max,
+                                            files=files)
+            yield batch
 
     def __iter__(self):
         if self.prefetch == 0:

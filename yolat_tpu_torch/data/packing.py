@@ -3,7 +3,8 @@
 Counterpart of `yolat_tpu/data/packing.py`: `PadSizes` (:53-79),
 `CompactFile` (:98-289), `pack_files` (:362-579), `finalize_batch`
 (:587-670, with the train-time augmentation and edge dropout) and
-`_seg_min` (:747). That module reaches `yolat_tpu.ops.segment`
+`_seg_min` (:747), and the dense neighbour table (`CompactFile.dense_table`
+:291-314, `add_dense_neighbors` :673-744). That module reaches `yolat_tpu.ops.segment`
 (and so jax) inside `CompactFile` and `pack_files`, so the port carries
 its own jax-free copy, restricted to the keys the canonical detector reads:
 
@@ -14,11 +15,13 @@ its own jax-free copy, restricted to the keys the canonical detector reads:
   image_id [P] i32, is_root [P] bool, root_slot [P] i32,
   gt_bbox [B,G,4], gt_labels [B,G], gt_mask [B,G], wh [B,2], n_images,
   dst_count [N] f32, prop_count [P] f32, pool_* (aligned pool plan),
-  ew_* (edge-window plan, in the CUDA kernel's layout).
+  ew_* (edge-window plan, in the CUDA kernels' layout), and, on request,
+  nbr_idx [N, D] i32, nbr_attr [N, D, 4] f32, nbr_mask [N, D] bool (the
+  dense neighbour table: slot k of node i holds the source of its k-th
+  in-edge; unused slots point at node 0 with mask False).
 
-For those keys other than ew_* `pack_files` is bitwise equal to
-`yolat_tpu`'s (tests/test_torch_packing.py). No dense neighbour table:
-the port's conv route (the edge-window message sum) does not read one.
+For those keys other than ew_* `pack_files` and `add_dense_neighbors` are
+bitwise equal to `yolat_tpu`'s (tests/test_torch_packing.py).
 """
 
 from __future__ import annotations
@@ -55,7 +58,7 @@ class CompactFile:
     __slots__ = ("pos", "node_mask", "bbox_idx", "edge", "e_attr",
                  "dst_count", "prop_count", "labels", "bbox", "label_iou",
                  "label_iou_rel", "is_root_mask", "root_slot_local",
-                 "n_proposals")
+                 "n_proposals", "_dense")
 
     def __init__(self, f, n_classes=None):
         bbox_idx = np.asarray(f.bbox_idx, np.int64)
@@ -93,6 +96,30 @@ class CompactFile:
         self.is_root_mask[np.asarray(f.root_of_cc, np.int64)] = True
         self.root_slot_local = np.repeat(
             np.asarray(f.root_of_cc, np.int32), np.diff(np.asarray(f.cc_slice)))
+        self._dense = None
+
+    def dense_table(self, d_max: int):
+        """The file's dense neighbour table (nbr_idx, nbr_attr, nbr_mask)
+        with file-local rows, kept for the next epoch. The edges are
+        dst-sorted, so an edge's slot is its position in its dst run."""
+        if self._dense is not None and self._dense[0] == d_max:
+            return self._dense[1]
+        e, n = len(self.edge), len(self.pos)
+        dst = self.edge[:, 1].astype(np.int64)
+        indeg = self.dst_count.astype(np.int64)
+        need = int(indeg.max()) if e else 1
+        if need > d_max:
+            raise ValueError(f"d_max={d_max} < max in-degree {need}")
+        run_start = np.concatenate([[0], np.cumsum(indeg)[:-1]])
+        pos_in_run = np.arange(e) - run_start[dst]
+        nbr_idx = np.zeros((n, d_max), np.int32)
+        nbr_attr = np.zeros((n, d_max, self.e_attr.shape[1]), np.float32)
+        nbr_mask = np.zeros((n, d_max), bool)
+        nbr_idx[dst, pos_in_run] = self.edge[:, 0]
+        nbr_attr[dst, pos_in_run] = self.e_attr
+        nbr_mask[dst, pos_in_run] = True
+        self._dense = (d_max, (nbr_idx, nbr_attr, nbr_mask))
+        return self._dense[1]
 
 
 def _label_quality(f, labels, n_classes):
@@ -130,13 +157,14 @@ def _label_quality(f, labels, n_classes):
 
 
 def pack_files(files: list, gts: list, whs: list, pad: PadSizes,
-               edge_window: bool = True) -> dict:
+               edge_window: bool = True, ew_transpose: bool = False) -> dict:
     """Concatenate CompactFiles into one padded flat batch (numpy).
 
     Real edge rows fill the END of the edge buffer (padding rows keep dst 0
     at the front), so per-file dst-sorted lists concatenate into a globally
     dst-sorted batch. Attaches the aligned pool plan and, with
-    `edge_window`, the edge-window plan.
+    `edge_window`, the edge-window plan; `ew_transpose` adds the part of it
+    that the trainable window ops read (`ops.plans.EW_TRAIN_KEYS`).
     """
     B = pad.n_images
     if len(files) > B:
@@ -207,8 +235,68 @@ def pack_files(files: list, gts: list, whs: list, pad: PadSizes,
     batch.update(pool_plan(batch["bbox_idx"], pad.n_proposals, cap=0))
     if edge_window:
         batch.update(edge_window_plan(batch["edge"], batch["edge_mask"],
-                                      batch["e_attr"], pad.n_nodes))
+                                      batch["e_attr"], pad.n_nodes,
+                                      transpose=ew_transpose))
     return batch
+
+
+def dense_width(max_indegree: int) -> int:
+    """Neighbour slots per node for a maximum in-degree: the next power of
+    two, at least 4 (`yolat_tpu/data/dataset.py:285-293`)."""
+    return max(4, int(2 ** np.ceil(np.log2(max(max_indegree, 1)))))
+
+
+def add_dense_neighbors(batch: dict, d_max: int | None = None,
+                        files: list | None = None) -> dict:
+    """The batch with its dense neighbour table: nbr_idx [N, D] i32 (the
+    sources j of node i's in-edges (j, i), in edge order), nbr_attr
+    [N, D, 4] f32, nbr_mask [N, D] bool; unused slots are 0 / False.
+
+    With `files` (the CompactFiles the batch was packed from, in pack
+    order) and `d_max`, the table is copied from the files' cached tables
+    with row offsets; otherwise it is built from the batch's real edges,
+    with D = `dense_width` of its largest in-degree unless `d_max` is given.
+    """
+    n_nodes = batch["pos"].shape[0]
+    if files is not None and d_max is not None and len(files):
+        nbr_idx = np.zeros((n_nodes, d_max), np.int32)
+        nbr_attr = np.zeros((n_nodes, d_max, batch["e_attr"].shape[1]),
+                            np.float32)
+        nbr_mask = np.zeros((n_nodes, d_max), bool)
+        n_off = 0
+        for f in files:
+            n = len(f.pos)
+            ti, ta, tm = f.dense_table(d_max)
+            # masked slots stay 0, as in the batch-level build
+            np.multiply(ti + np.int32(n_off), tm,
+                        out=nbr_idx[n_off:n_off + n], casting="unsafe")
+            nbr_attr[n_off:n_off + n] = ta
+            nbr_mask[n_off:n_off + n] = tm
+            n_off += n
+        return {**batch, "nbr_idx": nbr_idx, "nbr_attr": nbr_attr,
+                "nbr_mask": nbr_mask}
+
+    emask = np.asarray(batch["edge_mask"], bool)
+    src, dst = batch["edge"][emask][:, 0], batch["edge"][emask][:, 1]
+    attr = batch["e_attr"][emask]
+    indeg = np.bincount(dst, minlength=n_nodes)
+    need = int(indeg.max()) if len(dst) else 1
+    if d_max is None:
+        d_max = dense_width(need)
+    elif need > d_max:
+        raise ValueError(f"d_max={d_max} < max in-degree {need}")
+    order = np.argsort(dst, kind="stable")
+    dst_s, src_s, attr_s = dst[order], src[order], attr[order]
+    starts = np.concatenate([[0], np.cumsum(indeg)[:-1]])
+    pos_in_run = np.arange(len(dst_s)) - starts[dst_s]
+    nbr_idx = np.zeros((n_nodes, d_max), np.int32)
+    nbr_attr = np.zeros((n_nodes, d_max, attr.shape[1]), np.float32)
+    nbr_mask = np.zeros((n_nodes, d_max), bool)
+    nbr_idx[dst_s, pos_in_run] = src_s
+    nbr_attr[dst_s, pos_in_run] = attr_s
+    nbr_mask[dst_s, pos_in_run] = True
+    return {**batch, "nbr_idx": nbr_idx, "nbr_attr": nbr_attr,
+            "nbr_mask": nbr_mask}
 
 
 def to_device(batch: dict, device) -> dict:
@@ -257,13 +345,19 @@ def finalize_batch(batch: dict, generator: torch.Generator | None = None,
     `aug` = (scale [B], angle [B], translate [B, 2], flips [B, 2]) gives
     the parameters instead of drawing them from `generator` (tests feed
     both packages the same). drop_edge > 0 drops each real edge with that
-    probability; the caller removes the stale pack-time counts first.
+    probability, and each used slot of a dense neighbour table with a draw
+    of its own (packing.py:616-620); the caller removes the stale pack-time
+    counts and plans first.
     """
     pos = batch["pos"]
     if drop_edge > 0.0:
         keep = torch.rand(batch["edge_mask"].shape, generator=generator,
                           device=pos.device) >= drop_edge
         batch = {**batch, "edge_mask": batch["edge_mask"] & keep}
+        if "nbr_mask" in batch:
+            keep2 = torch.rand(batch["nbr_mask"].shape, generator=generator,
+                               device=pos.device) >= drop_edge
+            batch = {**batch, "nbr_mask": batch["nbr_mask"] & keep2}
     if data_aug:
         if aug is None:
             aug = draw_augmentation(batch["gt_bbox"].shape[0], generator,

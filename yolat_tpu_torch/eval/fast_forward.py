@@ -7,10 +7,14 @@ folded into per-channel scale/shift pairs; the result equals
 `SparseCADGCN(batch)` in eval mode to float tolerance.
 
 Routes:
-  * conv layers: the edge-window message sum (`ops/edge_window.py`) over
-    the batch's edge-window plan, which `pack_files` attaches to every
-    batch (the JAX engine's plain sparse route for plan-less batches,
-    :114-126, is not carried: a batch without a plan raises);
+  * conv layers, by what the batch carries (the JAX engine's rule,
+    :180-209): the edge-window message sum (`ops/edge_window.py`, kernel
+    1) when it has the edge-window plan and `dst_count`; else the fused
+    dense message (`ops/dense_message.py`, kernel 4) when it has the dense
+    neighbour table `nbr_idx`; else it raises (the JAX engine's plain
+    sparse route, :114-126, is not carried). On the dense route the JAX
+    engine prefers XLA to its kernel at bf16; here kernel 4 runs at both
+    types;
   * pool head: the fused fusion-MLP block max (`ops/block_max.py`); it
     needs the aligned pool plan and N % 512 == 0, which `pack_files`
     batches always have, and raises without them.
@@ -23,8 +27,12 @@ from __future__ import annotations
 
 import torch
 
-from yolat_tpu_torch.ops.block_max import folded_mlp_block_max2
-from yolat_tpu_torch.ops.edge_window import edge_window_message_sum
+from yolat_tpu_torch.ops.block_max import (folded_mlp_block_max2,
+                                           folded_mlp_block_max2_plain)
+from yolat_tpu_torch.ops.dense_message import (fused_dense_message,
+                                               fused_dense_message_plain)
+from yolat_tpu_torch.ops.edge_window import (edge_window_message_sum,
+                                             edge_window_message_sum_plain)
 from yolat_tpu_torch.ops.plans import POOL_BLOCK, ew_of, plan_aligned, plan_of
 from yolat_tpu_torch.ops.segment import segment_max, segment_mean
 
@@ -97,29 +105,43 @@ def fast_forward(folded: dict, batch: dict, bf16: bool = False, plain: bool = Fa
     """
     x = batch["x"]
     n_prop = batch["labels"].shape[0]
+    convs_f32 = folded["convs"]
     if bf16:
         folded = _map(folded, lambda t: t.to(torch.bfloat16)
                       if t.dtype == torch.float32 else t)
         x = x.to(torch.bfloat16)
     if plain:
-        from yolat_tpu_torch.ops.block_max import folded_mlp_block_max2_plain
-        from yolat_tpu_torch.ops.edge_window import edge_window_message_sum_plain
-
-        msg_sum, block_max = edge_window_message_sum_plain, folded_mlp_block_max2_plain
+        msg_sum, dense_msg, block_max = (
+            edge_window_message_sum_plain, fused_dense_message_plain,
+            folded_mlp_block_max2_plain)
     else:
-        msg_sum, block_max = edge_window_message_sum, folded_mlp_block_max2
+        msg_sum, dense_msg, block_max = (
+            edge_window_message_sum, fused_dense_message,
+            folded_mlp_block_max2)
 
     ew = ew_of(batch)
-    if ew is None or "dst_count" not in batch:
+    if ew is not None and "dst_count" in batch:
+        cnt = torch.clamp(batch["dst_count"].float(), min=1.0)[:, None]
+    elif "nbr_idx" in batch:
+        ew = None
+        nbr = (batch["nbr_idx"], batch["nbr_attr"], batch["nbr_mask"])
+    else:
         raise ValueError(
             "fast_forward needs the edge-window plan and in-degree counts "
-            "(batches from yolat_tpu_torch.data.packing.pack_files have both)")
-    cnt = torch.clamp(batch["dst_count"].float(), min=1.0)[:, None]
+            "(batches from yolat_tpu_torch.data.packing.pack_files have "
+            "both) or the dense neighbour table (add_dense_neighbors)")
     f, s = x, x
     feats, feats_super = [], []
-    for c in folded["convs"]:
-        agg = msg_sum(f, ew, c["w1"], c["sc1"], c["w2"], c["sc2"])
-        f = (agg / cnt).to(f.dtype) + f @ c["wr"] + c["br"].reshape(1, -1)
+    for c, c32 in zip(folded["convs"], convs_f32):
+        if ew is not None:
+            agg = msg_sum(f, ew, c["w1"], c["sc1"], c["w2"], c["sc2"])
+            f = (agg / cnt).to(f.dtype) + f @ c["wr"] + c["br"].reshape(1, -1)
+        else:
+            # mean, skip and bias are inside; the f32 parameters go in and
+            # are rounded there, as the JAX engine hands them to its kernel
+            # (fast_forward.py:200)
+            f = dense_msg(f, *nbr, c32["w1"], c32["sc1"], c32["w2"],
+                          c32["sc2"], c32["wr"], c32["br"]).to(f.dtype)
         s = _folded(s, (c["wn"], c["scn"]))
         feats.append(f)
         feats_super.append(s)

@@ -17,6 +17,14 @@ and N % 512 == 0, which `pack_files` batches always have; without them
 a CUDA batch raises, and a CPU batch takes the unfused route as the JAX
 package does, counted in `Backbone.fused_fallbacks`.
 
+The conv layout follows the batch and `window_edges`
+(`yolat_tpu/nn/model.py:176-193`, cfg.train_layout == 'window'): with
+`window_edges` the convs run the window branch over the batch's
+edge-window plan (kernels 9 and 10) and a batch without the plan raises —
+the JAX model falls to the sparse branch there, which would hide the
+kernels; otherwise a batch that carries the dense neighbour table
+(`nbr_idx`) takes the dense branch, and any other batch the sparse one.
+
 Submodules carry the reference's names — `cls_net.head.gconv`,
 `cls_net.backbone.{i}.body.gconv`, `cls_net.fusion_block[_super]`,
 `prediction_cls.{k}` — so a reference `.pth`, or JAX variables through
@@ -36,7 +44,7 @@ from yolat_tpu_torch.nn.layers import (MLP, FusedPoolFusion, MaskedBatchNorm,
 from yolat_tpu_torch.nn.state_dict import (export_state_dict,
                                            load_reference_state_dict)
 from yolat_tpu_torch.ops.fused_pool_train import fused_pool_available
-from yolat_tpu_torch.ops.plans import plan_of
+from yolat_tpu_torch.ops.plans import ew_train_of, plan_of
 from yolat_tpu_torch.ops.segment import (segment_max, segment_max_concat,
                                          segment_mean)
 
@@ -62,11 +70,12 @@ class _ResBlock(nn.Module):
 class Backbone(nn.Module):
     def __init__(self, in_channels: int = 5, channels: int = 64,
                  n_blocks: int = 2, n_blocks_out: int = 2,
-                 fused_pool: bool = False):
+                 fused_pool: bool = False, window_edges: bool = False):
         super().__init__()
         self.n_blocks, self.n_blocks_out = n_blocks, n_blocks_out
         self.fusion_dims = channels * n_blocks_out
         self.fused_pool = fused_pool
+        self.window_edges = window_edges
         # train-mode CPU batches that could not take the fused head
         self.fused_fallbacks = 0
         self.head = _GConv(in_channels, channels)
@@ -93,11 +102,22 @@ class Backbone(nn.Module):
         the last n_blocks_out conv outputs of both streams."""
         args = (batch["edge"], batch["e_attr"], batch["edge_mask"],
                 batch["node_mask"])
-        f, s = self.head.gconv(batch["x"], batch["x"], *args,
-                               dst_count=batch.get("dst_count"))
+        kw = {"dst_count": batch.get("dst_count")}
+        if self.window_edges:
+            kw["ew"] = ew_train_of(batch)
+            if kw["ew"] is None:
+                raise ValueError(
+                    "the window layout needs the edge-window plan with its "
+                    "transpose (yolat_tpu_torch.data.packing.pack_files("
+                    "ew_transpose=True)); edge dropout strips it")
+            kw["ew_attr"] = batch["ew_attr"]
+        elif "nbr_idx" in batch:
+            kw["nbr"] = (batch["nbr_idx"], batch["nbr_attr"],
+                         batch["nbr_mask"])
+        f, s = self.head.gconv(batch["x"], batch["x"], *args, **kw)
         feats, feats_super = [f], [s]
         for blk in self.backbone:
-            f, s = blk.body.gconv(f, s, *args, dst_count=batch.get("dst_count"))
+            f, s = blk.body.gconv(f, s, *args, **kw)
             feats.append(f)
             feats_super.append(s)
         lo = self.n_blocks - self.n_blocks_out
@@ -130,12 +150,12 @@ class SparseCADGCN(nn.Module):
     def __init__(self, n_classes: int, in_channels: int = 5,
                  channels: int = 64, n_blocks: int = 2, n_blocks_out: int = 2,
                  classifier: str = "softmax", dropout: float = 0.0,
-                 fused_pool: bool = False):
+                 fused_pool: bool = False, window_edges: bool = False):
         super().__init__()
         self.n_blocks = n_blocks
         self.classifier = classifier
         self.cls_net = Backbone(in_channels, channels, n_blocks, n_blocks_out,
-                                fused_pool)
+                                fused_pool, window_edges)
         fusion_out = self.cls_net.fusion_dims + FUSION
         self.prediction_cls = nn.ModuleList([
             MLP([fusion_out * 2, 512]),
@@ -207,9 +227,13 @@ def build_model(cfg) -> SparseCADGCN:
         raise NotImplementedError(
             f"arch {cfg.arch!r} / conv {cfg.conv!r}: this port runs the "
             "canonical centernet3cc_rpn_gp_iter2 + attr_edge_gp2 detector")
+    if cfg.train_layout not in ("sparse", "window", "dense"):
+        raise ValueError(f"train_layout {cfg.train_layout!r}: sparse, window "
+                         "or dense")
     return SparseCADGCN(cfg.n_classes, cfg.in_channels, cfg.n_filters,
                         cfg.n_blocks, cfg.n_blocks_out, cfg.classifier,
-                        cfg.dropout, cfg.fused_head_train)
+                        cfg.dropout, cfg.fused_head_train,
+                        window_edges=cfg.train_layout == "window")
 
 
 @torch.no_grad()

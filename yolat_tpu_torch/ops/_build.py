@@ -28,7 +28,8 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "yolat_tpu_torch")
-SOURCES = ("edge_window.cu", "block_max.cu", "fused_pool_train.cu")
+SOURCES = ("edge_window.cu", "block_max.cu", "fused_pool_train.cu",
+           "edge_window_train.cu", "dense_message.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
@@ -37,7 +38,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 SMEM_LIMIT = 232448
 
 launch_counts = {"edge_window_message_sum": 0, "folded_mlp_block_max2": 0,
-                 "folded_mlp_block_max": 0, "fused_pool_train_bwd": 0}
+                 "folded_mlp_block_max": 0, "fused_pool_train_bwd": 0,
+                 "fused_dense_message": 0, "ew_pair_features": 0,
+                 "ew_pair_features_bwd": 0, "ew_window_segment_sum": 0,
+                 "ew_window_segment_sum_bwd": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -126,6 +130,18 @@ def library() -> ctypes.CDLL:
         lib.yk_fused_pool_train_smem_bytes.restype = ctypes.c_long
         lib.yk_block_max_smem_bytes.argtypes = [i]
         lib.yk_block_max_smem_bytes.restype = ctypes.c_long
+        lib.yk_ew_pair_fwd.argtypes = [p] * 4 + [i] * 4 + [p]
+        lib.yk_ew_pair_fwd.restype = i
+        lib.yk_ew_pair_bwd.argtypes = [p] * 5 + [i] * 4 + [p]
+        lib.yk_ew_pair_bwd.restype = i
+        lib.yk_ew_wsum_fwd.argtypes = [p] * 3 + [i] * 4 + [p]
+        lib.yk_ew_wsum_fwd.restype = i
+        lib.yk_ew_wsum_bwd.argtypes = [p] * 3 + [i] * 4 + [p]
+        lib.yk_ew_wsum_bwd.restype = i
+        lib.yk_fused_dense_message.argtypes = [p] * 11 + [i] * 6 + [p]
+        lib.yk_fused_dense_message.restype = i
+        lib.yk_dense_message_smem_bytes.argtypes = [i] * 2
+        lib.yk_dense_message_smem_bytes.restype = ctypes.c_long
         lib.yk_error_string.argtypes = [i]
         lib.yk_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -1,7 +1,7 @@
 """Fixed-shape class-offset NMS over a batch of images.
 
-Counterpart of `yolat_tpu/ops/nms.py:31-229` (`single_image_nms` with the
-`fixpoint` default and the `loop` oracle; `classfix` arrives later):
+Counterpart of `yolat_tpu/ops/nms.py:31-316` (`single_image_nms` with the
+`fixpoint` default, the `loop` oracle and the per-class `classfix`):
 YOLOv5-style batched NMS with the class-offset trick (offset 4096) over
 multi-label candidates conf = objectness * class score > conf_thres,
 greedy suppression at IoU > iou_thres, at most max_det detections.
@@ -12,6 +12,13 @@ function's `lax.top_k` ranks equal scores lowest index first; torch.topk
 promises no order, so candidates are ranked with a stable sort of -score.
 Here the images of a batch run together ([B, ...] leading axis), one
 fixed-point loop for all of them.
+
+`classfix` is exact greedy NMS over all M x K candidates: classes never
+suppress each other under the class offset, so the [M, M] box IoU is
+formed once and the same recurrence runs per class, with "j outranks i"
+read off a rank from one stable sort of -score per class (equal scores:
+the lower box index first). The final max_det detections are the best
+kept scores over the class-major [K, M] layout, again by a stable sort.
 """
 
 from __future__ import annotations
@@ -41,7 +48,10 @@ def batched_nms(boxes, cls_scores, obj_scores, valid, iou_thres: float = 0.5,
         outs = [_loop_nms(boxes[b], conf[b], cand_valid[b], iou_thres,
                           max_det) for b in range(B)]
         return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
-    raise ValueError(f"nms algorithm {algorithm!r}: 'fixpoint' or 'loop'")
+    if algorithm == "classfix":
+        return _class_fixpoint_nms(boxes, conf, cand_valid, iou_thres, max_det)
+    raise ValueError(f"nms algorithm {algorithm!r}: 'fixpoint', 'loop' or "
+                     "'classfix'")
 
 
 def single_image_nms(boxes, cls_scores, obj_scores, valid, **kw) -> dict:
@@ -109,6 +119,56 @@ def _fixpoint_nms(flat_conf, cand_valid, boxes, K: int, iou_thres: float,
         "scores": place(top_scores, 0.0),
         "classes": torch.where(det_valid, det_classes,
                                torch.full_like(det_classes, -1)),
+        "valid": det_valid,
+    }
+
+
+def _class_fixpoint_nms(boxes, conf, cand_valid, iou_thres: float,
+                        max_det: int) -> dict:
+    """boxes [B, M, 4], conf / cand_valid [B, M, K]
+    (`yolat_tpu/ops/nms.py:232-316`)."""
+    B, M, K = conf.shape
+    dev = conf.device
+    overb = _pair_iou(boxes[:, :, None, :], boxes[:, None, :, :]) > iou_thres
+    s = conf.transpose(1, 2)                      # [B, K, M]
+    cand = cand_valid.transpose(1, 2)
+    order = torch.sort(-s, dim=2, stable=True).indices
+    rank = torch.empty_like(order).scatter_(
+        2, order, torch.arange(M, device=dev).expand(B, K, M)
+    ).to(torch.int32)  # the [B, K, M, M] sweep below is made of these
+    big = torch.full_like(rank[:, :, :, None], M)
+
+    def step(kept):
+        # the best (lowest) rank among the kept boxes j that overlap i; i
+        # itself contributes its own rank, never below it
+        kj = kept[:, :, :, None] & overb[:, None, :, :]   # [B, K, Mj, Mi]
+        mn = torch.where(kj, rank[:, :, :, None], big).amin(dim=2)
+        return cand & ~(mn < rank)
+
+    prev, kept = cand, step(cand)
+    while bool((kept != prev).any()):
+        prev, kept = kept, step(kept)
+
+    flat = torch.where(kept, s, torch.full_like(s, float("-inf"))
+                       ).reshape(B, K * M)
+    kk = min(max_det, K * M)
+    neg, flat_idx = torch.sort(-flat, dim=1, stable=True)
+    det_scores, flat_idx = -neg[:, :kk], flat_idx[:, :kk]
+    if kk < max_det:
+        det_scores = torch.cat([det_scores, det_scores.new_full(
+            (B, max_det - kk), float("-inf"))], dim=1)
+        flat_idx = torch.cat([flat_idx, flat_idx.new_zeros(
+            (B, max_det - kk))], dim=1)
+    det_valid = det_scores > float("-inf")
+    det_boxes = boxes.gather(1, (flat_idx % M)[..., None].expand(-1, -1, 4))
+    cls_idx = (flat_idx // M).to(torch.int32)
+    return {
+        "boxes": torch.where(det_valid[..., None], det_boxes,
+                             torch.zeros_like(det_boxes)),
+        "scores": torch.where(det_valid, det_scores,
+                              torch.zeros_like(det_scores)),
+        "classes": torch.where(det_valid, cls_idx,
+                               torch.full_like(cls_idx, -1)),
         "valid": det_valid,
     }
 

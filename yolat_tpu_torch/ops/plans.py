@@ -12,6 +12,12 @@ window to a fixed edge capacity EB and addresses sources inside a
 3-window band, because its kernel stages whole windows in VMEM; the CUDA
 kernel gathers rows from global memory and streams a window's edges in
 tiles, so neither limit exists and every edge list has a plan.
+
+With `transpose` the plan also carries what the trainable window ops
+(`ops/edge_window_train.py`, kernels 9 and 10) read: per-node offsets of
+the dst-sorted list, and the list's transpose by source (a stable argsort
+of the sources with per-node offsets), so that the backward of the pair
+gather sums each node's out-edges in a fixed order, without float atomics.
 """
 
 from __future__ import annotations
@@ -21,8 +27,10 @@ import numpy as np
 POOL_BLOCK = 8
 
 EW_KEYS = ("ew_src", "ew_dst", "ew_attr", "ew_wptr")
+# the transposed part, packed for the trainable window ops only
+EW_TRAIN_KEYS = ("ew_dptr", "ew_sperm", "ew_sptr")
 # ew_wn_tag is a zeros[(wn,)] marker whose shape records the window size
-EW_BATCH_KEYS = EW_KEYS + ("ew_wn_tag",)
+EW_BATCH_KEYS = EW_KEYS + EW_TRAIN_KEYS + ("ew_wn_tag",)
 WN_DEFAULT = 256
 
 
@@ -78,7 +86,7 @@ def plan_aligned(plan) -> bool:
 
 
 def edge_window_plan(edge, edge_mask, e_attr, n_nodes: int,
-                     wn: int = WN_DEFAULT) -> dict:
+                     wn: int = WN_DEFAULT, transpose: bool = False) -> dict:
     """The real edges of an edge list, stably sorted by dst, bucketed per
     window of `wn` destination nodes:
 
@@ -89,8 +97,14 @@ def edge_window_plan(edge, edge_mask, e_attr, n_nodes: int,
                            NW = ceil(n_nodes / wn)
 
     Each node's in-edges form one run in their list order, so a kernel
-    that sums runs in order sums in a fixed order. Raises ValueError on an
-    endpoint outside [0, n_nodes).
+    that sums runs in order sums in a fixed order. With `transpose`, also
+
+      ew_dptr  [N + 1] i32 node v's in-edges are ew_*[dptr[v]:dptr[v+1]]
+      ew_sperm [E] i32     the edge rows stably sorted by source
+      ew_sptr  [N + 1] i32 node v's out-edges are the rows
+                           ew_sperm[sptr[v]:sptr[v+1]], ascending
+
+    Raises ValueError on an endpoint outside [0, n_nodes).
     """
     edge = np.asarray(edge)
     idx = np.nonzero(np.asarray(edge_mask, bool))[0]
@@ -102,10 +116,19 @@ def edge_window_plan(edge, edge_mask, e_attr, n_nodes: int,
         raise ValueError(f"edge endpoints outside [0, {n_nodes})")
     nw = -(-n_nodes // wn)
     wptr = np.searchsorted(dst, np.arange(nw + 1, dtype=np.int64) * wn)
-    return {"ew_src": src.astype(np.int32), "ew_dst": dst.astype(np.int32),
+    plan = {"ew_src": src.astype(np.int32), "ew_dst": dst.astype(np.int32),
             "ew_attr": np.ascontiguousarray(np.asarray(e_attr, np.float32)[order]),
             "ew_wptr": wptr.astype(np.int32),
             "ew_wn_tag": np.zeros((wn,), np.int8)}
+    if transpose:
+        def offsets(ids):  # [N + 1] run starts of the sorted ids
+            counts = np.bincount(ids, minlength=n_nodes)
+            return np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+
+        plan.update(ew_dptr=offsets(dst),
+                    ew_sperm=np.argsort(src, kind="stable").astype(np.int32),
+                    ew_sptr=offsets(src))
+    return plan
 
 
 def ew_of(batch: dict):
@@ -118,3 +141,16 @@ def ew_of(batch: dict):
     if batch["ew_wptr"].shape[0] != -(-n // wn) + 1:
         return None
     return tuple(batch[k] for k in EW_KEYS) + (wn,)
+
+
+def ew_train_of(batch: dict):
+    """The trainable window ops' plan tuple (src, dst, dptr, sperm, sptr)
+    of a batch, or None when absent or stale (node count no longer the
+    offsets' length - 1)."""
+    if ew_of(batch) is None or any(k not in batch for k in EW_TRAIN_KEYS):
+        return None
+    n = batch["pos"].shape[0] if "pos" in batch else batch["x"].shape[0]
+    if batch["ew_dptr"].shape[0] != n + 1 or batch["ew_sptr"].shape[0] != n + 1:
+        return None
+    return (batch["ew_src"], batch["ew_dst"]) + tuple(
+        batch[k] for k in EW_TRAIN_KEYS)

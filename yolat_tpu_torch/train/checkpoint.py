@@ -86,6 +86,16 @@ class CheckpointManager:
         return state, meta["epoch"], meta["best_value"]
 
 
+def split_checkpoint_path(path: str) -> tuple:
+    """(checkpoint dir, tag) of a `--pretrained_model` path: the dir itself
+    (tag 'best') or `<dir>/ckpt_<tag>[.pt]`."""
+    path = path.rstrip("/")
+    name = os.path.basename(path)
+    if name.startswith("ckpt_"):
+        return os.path.dirname(path), name[len("ckpt_"):].removesuffix(".pt")
+    return path, "best"
+
+
 def save_reference_checkpoint(model, path: str, epoch: int = 0) -> None:
     """A reference-format `.pth` ({'state_dict': ...}), which
     `cli.infer --pretrained_model` and the reference's own scripts load."""

@@ -25,7 +25,9 @@ from yolat_tpu_torch.nn.model import detection_loss
 from yolat_tpu_torch.ops.plans import EW_BATCH_KEYS
 
 # float batch fields that feed matmuls: cast to the compute dtype
-_COMPUTE_KEYS = ("x", "pos", "e_attr")
+_COMPUTE_KEYS = ("x", "pos", "e_attr", "nbr_attr")
+# the dense neighbour table, read by train_layout='dense' only
+_DENSE_KEYS = ("nbr_idx", "nbr_attr", "nbr_mask")
 # pack-time edge populations and plans, stale once edges drop on device
 _EDGE_STALE_KEYS = ("dst_count",) + EW_BATCH_KEYS
 
@@ -66,8 +68,13 @@ def forward_loss(cfg, model, batch: dict, generator=None):
 
 
 def prepare_batch(cfg, batch: dict, generator=None, aug=None) -> dict:
-    """The step's epilogue on a tensor batch: drop the stale edge counts
-    under edge dropout, then augment and build x (`finalize_batch`)."""
+    """The step's epilogue on a tensor batch: drop the dense neighbour
+    table unless the layout reads it (`yolat_tpu/train/loop.py:136-143`:
+    a batch that carries one would take the conv's dense branch), drop the
+    stale edge counts and plans under edge dropout, then augment and build
+    x (`finalize_batch`)."""
+    if cfg.train_layout != "dense":
+        batch = {k: v for k, v in batch.items() if k not in _DENSE_KEYS}
     if cfg.drop_edge > 0.0:
         batch = {k: v for k, v in batch.items() if k not in _EDGE_STALE_KEYS}
     return finalize_batch(batch, generator=generator, data_aug=cfg.data_aug,

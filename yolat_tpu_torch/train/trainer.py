@@ -3,7 +3,9 @@
 Counterpart of `yolat_tpu/train/trainer.py:27-321` (`run_training`; the
 reference's cad_recognition/train.py:173-321) for a single process on one
 device: no mesh, no multi-host, no `scan_steps` chains, no buckets or
-mixup. Epoch loop over the shuffled train loader, evaluation every epoch
+mixup. The loaders pack what cfg.train_layout's conv branch reads
+('window' is refused together with edge dropout, which would leave its
+plan stale). Epoch loop over the shuffled train loader, evaluation every epoch
 from `eval_start` (and at the last epoch or when `max_steps` stops the
 run), per-epoch checkpoints with a best-by-`test_value` copy, a scalar
 log, and resume from a checkpoint directory, a `<dir>/ckpt_<tag>` path
@@ -31,8 +33,9 @@ from yolat_tpu_torch.nn.layers import init_weights
 from yolat_tpu_torch.nn.model import build_model
 from yolat_tpu_torch.ops import _build
 from yolat_tpu_torch.train.checkpoint import (CheckpointManager,
-                                              load_train_state, state_from_pth,
-                                              train_state)
+                                              load_train_state,
+                                              split_checkpoint_path,
+                                              state_from_pth, train_state)
 from yolat_tpu_torch.train.loop import make_train_step
 from yolat_tpu_torch.train.optim import make_optimizer, make_scheduler
 from yolat_tpu_torch.utils.experiment import (ScalarWriter, configure_logger,
@@ -57,9 +60,15 @@ def run_training(cfg, device, exp_dir: str | None = None,
                  max_steps: int | None = None):
     """Train per cfg on `device`; returns (model, results). results holds
     the last evaluation's table plus best_value, exp_dir, steps, images,
-    train_seconds (wall time of the train steps, synchronised) and losses
-    (every step's loss)."""
+    train_seconds (wall time of the train steps, synchronised), losses
+    (every step's loss) and eval_batches (batches evaluated in all)."""
     device = torch.device(device)
+    if cfg.train_layout == "window" and cfg.drop_edge > 0.0:
+        raise ValueError(
+            "train_layout 'window' with drop_edge > 0: the edge-window plan "
+            "is built at pack time from the full edge list, and edge dropout "
+            "on the device makes it stale; train with train_layout 'sparse' "
+            "or 'dense', or without edge dropout")
     train_ds = SESYDDataset(cfg.data_dir, "train",
                             bbox_sampling_step=cfg.bbox_sampling_step)
     test_ds = SESYDDataset(cfg.data_dir, "test",
@@ -74,11 +83,15 @@ def run_training(cfg, device, exp_dir: str | None = None,
     writer = ScalarWriter(exp_dir)
     ckpt = CheckpointManager(os.path.join(exp_dir, "checkpoint"))
 
+    # each layout packs what its conv branch reads: the edge-window plan
+    # with its transpose, the dense neighbour table, or neither
+    window = cfg.train_layout == "window"
+    layout_kw = dict(edge_window=window, ew_transpose=window,
+                     dense=cfg.train_layout == "dense")
     train_loader = PackedLoader(train_ds, batch_size=cfg.batch_size,
-                                shuffle=True, seed=cfg.seed,
-                                edge_window=False)
+                                shuffle=True, seed=cfg.seed, **layout_kw)
     test_loader = PackedLoader(test_ds, batch_size=cfg.batch_size * 2,
-                               edge_window=False)
+                               **layout_kw)
     steps_per_epoch = max(len(train_loader), 1)
 
     model = init_model(cfg, device)
@@ -93,12 +106,7 @@ def run_training(cfg, device, exp_dir: str | None = None,
             state_from_pth(model, path)
             logging.info("imported reference checkpoint %s", path)
         else:
-            name = os.path.basename(path)
-            if name.startswith("ckpt_"):
-                restore_dir = os.path.dirname(path)
-                tag = name[len("ckpt_"):].removesuffix(".pt")
-            else:
-                restore_dir, tag = path, "best"
+            restore_dir, tag = split_checkpoint_path(path)
             state, start_epoch, best_value = CheckpointManager(
                 restore_dir).restore(tag, map_location=device)
             it = load_train_state(state, model, optimizer, scheduler)
@@ -115,7 +123,7 @@ def run_training(cfg, device, exp_dir: str | None = None,
     losses = AverageMeter()
     test_value = 0.0
     results: dict = {}
-    n_steps = n_images = 0
+    n_steps = n_images = n_eval_batches = 0
     train_seconds = 0.0
     history: list = []
     done = False
@@ -154,6 +162,7 @@ def run_training(cfg, device, exp_dir: str | None = None,
             results = evaluate(cfg, model, test_loader, max_det=cfg.max_det,
                                device=device)
             test_value = results["test_value"]
+            n_eval_batches += len(test_loader)
             logging.info("Epoch:%d MAP@0.5:%.4f MAP@ALL:%.4f top1:%.4f (%.1fs)",
                          epoch, results["map_50"], results["map_all"],
                          results["top1_acc"], time.time() - t_epoch)
@@ -167,5 +176,5 @@ def run_training(cfg, device, exp_dir: str | None = None,
     writer.close()
     results.update(best_value=best_value, exp_dir=exp_dir, steps=n_steps,
                    images=n_images, train_seconds=train_seconds,
-                   losses=history)
+                   losses=history, eval_batches=n_eval_batches)
     return model, results
