@@ -63,12 +63,38 @@ no jax. Phases, each of which raises on failure (non-zero exit):
      (the first layer's input needs no gradient); then that checkpoint
      through `cli.test --serve_mode fast --dense_layout true
      --nms_algorithm classfix`, kernel 4 launched n_blocks times per batch.
+ 11. banded kernels: on the bench batch packed for YOLaT++ (the super-edge
+     family, its `sew_` plan, the edge-window plan's transpose) and the
+     conv stack's real activations, kernel 5 over the clique family
+     (single stage with W_own = Wa - Wb, and once with the second stage),
+     over the curve family sorted by dst and by src, and kernel 6 over the
+     curve family, f32 and bf16: each against its plain version (max|err|
+     <= 1e-5 max|ref| at f32, 5e-4 at bf16, beside the reading of a planted
+     fault: own and other weights swapped), each twice, bit-identical;
+     kernel 6's own-endpoint sum bit-equal to kernel 5's and its
+     other-endpoint sum within 1e-5 max|ref| of kernel 5 over the
+     src-sorted plan; the largest and median edge count per thread block;
+     paired median times and bounds (no PyTorch call computes either);
+ 12. pp route: `fast_forward_pp` with open gates against the eval-mode
+     module on the card at f32 (per-edge with the curve level fused and in
+     two passes, 2e-4 of scale, and factored), the kernel route against the
+     plain route at f32 and bf16, bf16 argmax agreement with f32 on valid
+     proposals (> 0.97), every gate closed in turn changes the logits, and
+     the factored level's f32 prefix mean against its float64 value (8 *
+     2^-24 of the largest prefix sum, printed as a share of the largest
+     feature; the factored module-to-engine limit is 1e-3 of scale for it);
+ 13. pp serve: seeded open-gate YOLaT++ checkpoints through
+     `cli.infer --arch yolat_pp` (kernels 1, 2, 5 and 6 launch) and
+     `cli.infer --profile yolat_pp_fast` (the factored checkpoint: kernel 6
+     and no launch of kernel 5) on the 8 SVGs, and `cli.test --arch
+     yolat_pp` on the train phase's test split (finite AP table).
 Everything it runs comes from yolat_tpu_torch, the synthetic SVG writer
 included: it imports neither jax nor the JAX package yolat_tpu.
 The kernels line (a JSON object describing each kernel; launches are
 counted over the path that runs it, with the counts set to 0 just before:
 phase 4 for the serving kernels, phase 6 for the fused head's, phase 10 for
-kernels 9, 10 and 4) comes before the nvidia-smi line; the last line is
+kernels 9, 10 and 4, phase 13's first `cli.infer` run for kernels 5 and 6)
+comes before the nvidia-smi line; the last line is
 {"ok": true, "device": {...}}. Each kernel's bound_ms is the larger of its
 bytes (each input read once, each output written once) over 3.35 TB/s and
 its operations over the H100 SXM data-sheet peak for its type (989 TFLOP/s
@@ -101,6 +127,8 @@ N_BLOCKS = 2
 # relative Frobenius limits, window conv layer vs sparse conv layer:
 # (forward values and BN statistics, gradients)
 CONV_TOL = {"f32": (1e-5, 5e-3), "bf16": (1e-4, 2e-2)}
+# max|err| / max|ref| of kernels 5 and 6 against their plain versions
+BANDED_TOL = {"f32": 1e-5, "bf16": 5e-4}
 # the H100 SXM data sheet's peaks: HBM bytes/s, float32 and dense bf16 FLOP/s
 PEAK_BYTES, PEAK_F32, PEAK_BF16 = 3.35e12, 67e12, 989e12
 
@@ -1033,6 +1061,299 @@ def window_train_phase(root, work, dev_line):
     return counts
 
 
+def _pp_activations(model, batch):
+    """The local stream after the conv stack: what the engine hands the
+    banded kernels."""
+    import torch
+
+    with torch.no_grad():
+        f = s = batch["x"]
+        for conv in model.convs:
+            f, s = conv(f, s, batch["edge"], batch["e_attr"],
+                        batch["edge_mask"], batch["node_mask"],
+                        dst_count=batch["dst_count"])
+    return f
+
+
+def banded_kernel_phase(model, folded, batch, dev_line):
+    """Kernels 5 and 6 against their plain versions at the YOLaT++ serving
+    shapes; returns {kernel name: entry} (ms at bf16 of the call the main
+    path makes: kernel 5 over the clique family, kernel 6 over the curve
+    family)."""
+    import torch
+
+    from yolat_tpu_torch.ops import banded_message as bmod
+    from yolat_tpu_torch.ops.plans import bm_of
+
+    sew, cwd, cws = (bm_of(batch, p) for p in ("sew_", "cwd_", "cws_"))
+    check(None not in (sew, cwd, cws), "the batch carries the banded plans")
+    check(sew.n_edges == int(batch["super_mask"].sum())
+          and cwd.n_edges == cws.n_edges == int(batch["edge_mask"].sum()),
+          "the plans hold the real edges")
+    s_f = _pp_activations(model, batch)
+    n, c = s_f.shape
+    na = batch["e_attr"].shape[1]
+
+    def blocks(bm):
+        """(thread blocks, largest and median edge count of one)."""
+        nptr = bm.nptr.long()
+        cuts = (bm.cnode.long() if bm.cnode is not None else torch.arange(
+            0, n + bm.wn, bm.wn, device=nptr.device).clamp(max=n))
+        per = (nptr[cuts[1:]] - nptr[cuts[:-1]]).float()
+        return per.numel(), int(per.max()), float(per.median())
+
+    for name, bm in (("sew_ (clique family)", sew), ("cwd_ (curve family)", cwd)):
+        nb, big, med = blocks(bm)
+        deg = (bm.nptr[1:] - bm.nptr[:-1]).max().item()
+        print(f"banded plan {name}: {bm.n_edges} edges over {n} nodes in {nb} "
+              f"thread blocks, largest {big} edges, median {med:.0f}; largest "
+              f"node {deg} edges")
+
+    res = {k: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=None)
+           for k in ("banded_message_sum", "banded_message_sum_both")}
+    for dt in (torch.float32, torch.bfloat16):
+        tag = "f32" if dt == torch.float32 else "bf16"
+        x = s_f.to(dt)
+        # as fast_forward_pp forms them: the folded tree in x's type, then
+        # the slices and Wa - Wb
+        cw, csc = (t.to(dt) for t in folded["curve_mlp"])
+        sw, ssc = (t.to(dt) for t in folded["super_edge_mlp"])
+        w_attr, w_src, w_dst = cw[:na], cw[na:na + c], cw[na + c:]
+        wa, wb, wc = sw[:c], sw[c:2 * c], sw[2 * c:]
+        w2, sc2 = (folded["convs"][1][k].to(dt) for k in ("w2", "sc2"))
+        cases = (
+            ("sew", "banded_message_sum", sew, (wa - wb, wb, wc, ssc), ()),
+            ("sew two-stage", "banded_message_sum", sew,
+             (wa - wb, wb, wc, ssc), (w2, sc2)),
+            ("cwd", "banded_message_sum", cwd, (w_dst, w_src, w_attr, csc), ()),
+            ("cws", "banded_message_sum", cws, (w_src, w_dst, w_attr, csc), ()),
+            ("cwd both", "banded_message_sum_both", cwd,
+             (w_dst, w_src, w_attr, csc), ()))
+        kept = {}
+        for label, kname, bm, w, second in cases:
+            both = kname.endswith("_both")
+            kernel = getattr(bmod, kname)
+            plain = getattr(bmod, kname + "_plain")
+
+            def cat(out):
+                return torch.cat(out, dim=1) if both else out
+
+            got = cat(kernel(x, bm, *w, *second))
+            again = cat(kernel(x, bm, *w, *second))
+            want = cat(plain(x, bm, *w, *second))
+            planted = cat(plain(x, bm, w[1], w[0], *w[2:], *second))
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            scale = want.abs().max().item()
+            limit = BANDED_TOL[tag] * scale
+            perr = (planted - want).abs().max().item()
+            same = torch.equal(got, again)
+            ok = err <= limit and same and bool(torch.isfinite(got).all())
+            ms, pms = paired_ms(lambda: kernel(x, bm, *w, *second),
+                                lambda: plain(x, bm, *w, *second))
+            e = bm.n_edges
+            sz = 2 if dt == torch.bfloat16 else 4
+            outs = 2 if both else 1
+            nbytes = (sz * (n * c + (2 * c + na) * 64 + (64 * 64 if second else 0))
+                      + e * (8 + 4 * na) + 4 * (n + 1) + 8 * 64 * (2 if second else 1)
+                      + (4 * blocks(bm)[0] if bm.cnode is not None else 0)
+                      + (4 * e if bm.perm is not None else 0)
+                      + (4 * e + 4 * (n + 1) if both else 0) + outs * 4 * n * 64)
+            ops = e * (2 * (2 * c + na) * 64 + (2 * 64 * 64 if second else 0)
+                       + outs * 64)
+            b = bound(nbytes, ops, PEAK_BF16 if dt == torch.bfloat16 else PEAK_F32)
+            print(f"kernel {kname} {label} {tag} x{tuple(x.shape)} E={e}: "
+                  f"max_abs_err={err:.3e} of max|ref|={scale:.3e} (limit "
+                  f"{limit:.3e} = {BANDED_TOL[tag]:g} max|ref|; own and other "
+                  f"weights swapped reads {perr:.3e}; two runs "
+                  f"{'bit-identical' if same else 'DIFFER'}) "
+                  f"{'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms, plain "
+                  f"{pms:.4f} ms, bound {b['bound_ms']:.4f} ms "
+                  f"({b['bound_by']}), library none [{dev_line}]")
+            check(ok, f"{kname} {label} {tag} disagrees with its plain version")
+            check(perr > limit, f"{kname} {label} {tag}: the planted fault "
+                  "passes the limit")
+            kept[label] = got
+            r = res[kname]
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+            if dt == torch.bfloat16 and label in ("sew", "cwd both"):
+                r["ms"], r["plain_ms"] = ms, pms
+                add_bound(r, b)
+        own, oth = kept["cwd both"][:, :64], kept["cwd both"][:, 64:]
+        own_same = torch.equal(own, kept["cwd"])
+        e_oth = (oth - kept["cws"]).abs().max().item()
+        lim = 1e-5 * kept["cws"].abs().max().item()
+        print(f"kernel 6 against kernel 5 {tag}: own-endpoint sum "
+              f"{'bit-equal' if own_same else 'DIFFERS'}; other-endpoint sum "
+              f"against kernel 5 over the src-sorted plan max_abs_err="
+              f"{e_oth:.3e} (limit {lim:.3e} = 1e-5 max|ref|, bit-equal: "
+              f"{torch.equal(oth, kept['cws'])})")
+        check(own_same, f"kernel 6's own sum is not kernel 5's ({tag})")
+        check(e_oth <= lim, f"kernel 6's other sum disagrees with kernel 5 "
+              f"over the transposed plan ({tag})")
+    return res
+
+
+def pp_route_phase(models, batch, dev_line):
+    """`fast_forward_pp` on the card against the eval-mode module, the
+    plain route and itself with each gate closed; `models` maps
+    'per_edge' / 'factored' to (model, folded)."""
+    import torch
+
+    from yolat_tpu_torch.config import PP_GATES
+    from yolat_tpu_torch.eval.fast_forward import fast_forward_pp
+    from yolat_tpu_torch.nn.yolat_pp import prefix_member_mean
+    from yolat_tpu_torch.ops.plans import plan_of
+
+    m = batch["proposal_mask"]
+    for variant, (model, folded) in models.items():
+        with torch.no_grad():
+            ref, _ = model(batch)
+            runs = {"f32": fast_forward_pp(folded, batch)[0],
+                    "f32 plain": fast_forward_pp(folded, batch, plain=True)[0],
+                    "bf16": fast_forward_pp(folded, batch, bf16=True)[0],
+                    "bf16 plain": fast_forward_pp(folded, batch, bf16=True,
+                                                  plain=True)[0]}
+            if variant == "per_edge":
+                runs["f32 two-pass"] = fast_forward_pp(
+                    folded, batch, curve_fused=False)[0]
+                runs["bf16 two-pass"] = fast_forward_pp(
+                    folded, batch, bf16=True, curve_fused=False)[0]
+        torch.cuda.synchronize()
+        check(all(v.shape == ref.shape and bool(torch.isfinite(v).all())
+                  for v in runs.values()), "finite logits of the right shape")
+        scale = max(1.0, ref[m].abs().max().item())
+
+        def gap(a, b):
+            return (a - b)[m].abs().max().item()
+
+        e_mod = gap(runs["f32"], ref)
+        e_32 = gap(runs["f32"], runs["f32 plain"])
+        e_16 = gap(runs["bf16"], runs["bf16 plain"])
+        e_16f = gap(runs["bf16"], ref)
+        agree = (runs["bf16"].argmax(1)[m] == ref.argmax(1)[m]).float().mean().item()
+        # the factored level's f32 prefix sum rounds at the magnitude of its
+        # largest partial sum (checked below); the module and the engine feed
+        # it inputs that differ in the last bits, so their roundings differ
+        mod_tol = 2e-4 if variant == "per_edge" else 1e-3
+        line = (f"pp route {variant} logits {tuple(ref.shape)} (max|ref|="
+                f"{scale:.3e}): f32 kernel route vs module {e_mod:.3e} (<= "
+                f"{mod_tol:g} scale), f32 kernel vs plain route {e_32:.3e} (<= 1e-4 scale), "
+                f"bf16 kernel vs plain route {e_16:.3e} (<= 3e-2 scale), bf16 "
+                f"vs f32 module {e_16f:.3e} (<= 5e-2 scale), bf16 argmax "
+                f"agreement on {int(m.sum())} valid proposals {agree:.4f} "
+                f"(> 0.97)")
+        check(e_mod <= mod_tol * scale, f"{variant}: f32 route vs module")
+        check(e_32 <= 1e-4 * scale, f"{variant}: f32 kernel vs plain route")
+        check(e_16 <= 3e-2 * scale, f"{variant}: bf16 kernel vs plain route")
+        check(e_16f <= 5e-2 * scale, f"{variant}: bf16 route vs f32 module")
+        check(agree > 0.97, f"{variant}: bf16 argmax agreement {agree}")
+        if variant == "per_edge":
+            e_two = gap(runs["f32 two-pass"], runs["f32"])
+            e_two16 = gap(runs["bf16 two-pass"], runs["bf16"])
+            line += (f"; two-pass curve route vs fused f32 {e_two:.3e} (<= "
+                     f"1e-4 scale), bf16 {e_two16:.3e} (<= 3e-2 scale)")
+            check(e_two <= 1e-4 * scale and e_two16 <= 3e-2 * scale,
+                  "the two-pass curve route disagrees with the fused one")
+        print(line + f" [{dev_line}]")
+        moved = {}
+        for g in PP_GATES:
+            closed = {**folded, "gates": {**folded["gates"],
+                                          g: torch.zeros_like(folded["gates"][g])}}
+            with torch.no_grad():
+                moved[g] = gap(fast_forward_pp(closed, batch)[0], runs["f32"])
+        print(f"pp route {variant}: closing a gate moves the f32 logits by "
+              + ", ".join(f"{g} {v:.3e}" for g, v in moved.items())
+              + f" (each > 1e-3 scale = {1e-3 * scale:.3e})")
+        check(all(v > 1e-3 * scale for v in moved.values()),
+              f"{variant}: a closed gate leaves the logits unmoved: {moved}")
+        if variant == "factored":
+            s_f = _pp_activations(model, batch)
+            pool = plan_of(batch)
+            got, valid = prefix_member_mean(s_f, batch, pool)
+            cpu = {k: batch[k].cpu() for k in (
+                "sup_member", "sup_rank", "prop_first_row", "bbox_idx")}
+            want, _ = prefix_member_mean(s_f.cpu().double(), cpu,
+                                         tuple(t.cpu() for t in pool))
+            torch.cuda.synchronize()
+            err = (got.cpu().double() - want)[valid.cpu()].abs().max().item()
+            feat = s_f.abs().max().item()
+            rows = torch.where(batch["sup_member"][:, None], s_f,
+                               torch.zeros_like(s_f)).double()
+            top = rows.cumsum(0).abs().max().item()
+            # m is a difference of two f32 prefix sums over its rank >= 1:
+            # a few roundings at the magnitude of the largest prefix sum
+            limit = 8 * 2.0 ** -24 * top
+            print(f"pp factored prefix mean: {int(valid.sum())} valid rows of "
+                  f"{s_f.shape[0]}, prefix sums up to {top:.3e}, f32 on the "
+                  f"card vs float64 max_abs_err={err:.3e} = {err / feat:.2e} of "
+                  f"the largest feature {feat:.3e} (limit {limit:.3e} = 8 * "
+                  f"2^-24 of the largest prefix sum) [{dev_line}]")
+            check(err <= limit, "the factored prefix mean drifts")
+
+
+def pp_serve_phase(root, test_root, ckpts, work, dev_line):
+    """cli.infer --arch yolat_pp and --profile yolat_pp_fast on the SVGs and
+    cli.test --arch yolat_pp on `test_root`; returns the launch counts of
+    the per-edge cli.infer run."""
+    from yolat_tpu_torch.cli import infer
+    from yolat_tpu_torch.cli import test as test_cli
+    from yolat_tpu_torch.ops import _build
+
+    served = ("edge_window_message_sum", "folded_mlp_block_max2",
+              "banded_message_sum", "banded_message_sum_both")
+    main_counts = None
+    for variant, flags in (("per_edge", ["--arch", "yolat_pp"]),
+                           ("factored", ["--profile", "yolat_pp_fast"])):
+        out = os.path.join(work, f"pp_{variant}.jsonl")
+        argv = ["--input_dir", root, "--pretrained_model", ckpts[variant],
+                "--out", out, "--serve_mode", "fast_bf16", "--device", "cuda",
+                "--conf_th", "0.0", "--batch_size", str(BATCH)] + flags
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        shown = infer.main(argv)
+        rate = N_SVGS / (time.perf_counter() - t0)
+        counts = dict(_build.launch_counts)
+        check(shown == counts, "the CLI's launch counts are the counters' rise")
+        with open(out) as f:
+            recs = [json.loads(line) for line in f]
+        check(len(recs) == N_SVGS and all(
+            "error" not in r and r["width"] > 0 for r in recs),
+            f"{len(recs)} records for {N_SVGS} SVGs")
+        for r in recs:
+            for d in r["detections"]:
+                check(len(d["box"]) == 4 and all(map(_finite, d["box"]))
+                      and 0.0 <= d["score"] <= 1.0, "bad detection")
+        n_batches = -(-N_SVGS // BATCH)
+        want = {"edge_window_message_sum": N_BLOCKS * n_batches,
+                "folded_mlp_block_max2": n_batches,
+                "banded_message_sum": n_batches if variant == "per_edge" else 0,
+                "banded_message_sum_both": n_batches}
+        got = {k: counts[k] for k in served}
+        check(got == want, f"pp {variant} launches {got}, the code implies {want}")
+        print(f"pp serve {variant} (cli.infer {' '.join(flags)}, fast_bf16): "
+              f"{N_SVGS} SVGs -> {len(recs)} records, "
+              f"{sum(len(r['detections']) for r in recs)} detections; launches "
+              f"{got}; {rate:.3f} SVGs/s end to end through the CLI, "
+              f"preprocessing caches warm [{dev_line}]")
+        if variant == "per_edge":
+            main_counts = counts
+
+    _build.reset_launch_counts()
+    table = test_cli.main([
+        "--data_dir", test_root, "--phase", "test", "--device", "cuda",
+        "--batch_size", str(BATCH), "--arch", "yolat_pp", "--pretrained_model",
+        ckpts["per_edge"], "--serve_mode", "fast_bf16"])
+    tcounts = table["launches"]
+    check(all(tcounts[k] > 0 for k in served), f"pp test CLI launches {tcounts}")
+    check(len(table["map_per_th"]) == 10 and _finite(table["map_all"])
+          and _finite(table["top1_acc"]), "the pp test CLI's AP table")
+    print(f"pp test: cli.test --arch yolat_pp --serve_mode fast_bf16: MAP@0.5 "
+          f"{table['map_50']:.4f}, top1 {table['top1_acc']:.4f}; launches "
+          f"{ {k: tcounts[k] for k in served} } [{dev_line}]")
+    return main_counts
+
+
 def _finite(v) -> bool:
     return v == v and abs(v) != float("inf")
 
@@ -1047,15 +1368,16 @@ def main() -> int:
     from yolat_tpu_torch.cli.profile import write_bench_svgs
     from yolat_tpu_torch.config import Config
     from yolat_tpu_torch.data.dataset import SESYDDataset
-    from yolat_tpu_torch.data.loader import PackedLoader
+    from yolat_tpu_torch.data.loader import PackedLoader, extra_plans_for
     from yolat_tpu_torch.data.packing import (CompactFile,
                                               add_dense_neighbors,
                                               finalize_batch, pack_files,
                                               to_device)
-    from yolat_tpu_torch.eval.fast_forward import fold_params
+    from yolat_tpu_torch.eval.fast_forward import fold_params, fold_params_pp
     from yolat_tpu_torch.nn.model import seeded_model
     from yolat_tpu_torch.ops import _build
     from yolat_tpu_torch.ops.plans import ew_of
+    from yolat_tpu_torch.train.checkpoint import save_reference_checkpoint
 
     # 1. device
     dev = torch.device("cuda")
@@ -1131,7 +1453,35 @@ def main() -> int:
         # 10. window train, dense test
         counts.update(window_train_phase(train_root, work, dev_line))
 
-    # 11. kernels line
+        # 11-13. YOLaT++ serving: the bench files packed with the super-edge
+        # family and the banded plans, seeded open-gate models
+        pp_cfg = Config(arch="yolat_pp", n_classes=ds.n_classes)
+        t0 = time.perf_counter()
+        pp_np = next(iter(PackedLoader(ds, batch_size=BATCH, prefetch=0,
+                                       **extra_plans_for(pp_cfg))))
+        pbatch = finalize_batch(to_device(pp_np, dev))
+        check(all(torch.equal(pbatch[k], batch[k]) for k in ("pos", "edge")),
+              "the same bench batch")
+        print(f"pp data: N={pbatch['pos'].shape[0]} nodes, "
+              f"{int(pbatch['edge_mask'].sum())} shape edges, "
+              f"{int(pbatch['super_mask'].sum())} super edges in "
+              f"{pbatch['edge_super'].shape[0]} rows, P="
+              f"{pbatch['labels'].shape[0]} proposals "
+              f"({time.perf_counter() - t0:.1f} s load and pack)")
+        models, ckpts = {}, {}
+        for variant, factored in (("per_edge", False), ("factored", True)):
+            vcfg = pp_cfg.replace(pp_factored_prim=factored)
+            pmodel = seeded_model(vcfg, seed=1).to(dev)
+            models[variant] = (pmodel, fold_params_pp(pmodel, dev))
+            ckpts[variant] = os.path.join(work, f"pp_{variant}.pth")
+            save_reference_checkpoint(pmodel, ckpts[variant])
+        res.update(banded_kernel_phase(*models["per_edge"], pbatch, dev_line))
+        pp_route_phase(models, pbatch, dev_line)
+        pp_counts = pp_serve_phase(root, train_root, ckpts, work, dev_line)
+        counts.update({k: pp_counts[k] for k in (
+            "banded_message_sum", "banded_message_sum_both")})
+
+    # 14. kernels line
     sources = {"edge_window_message_sum": (
                    "yolat_tpu_torch/csrc/edge_window.cu",
                    "yolat_tpu/ops/edge_window.py:185"),
@@ -1158,7 +1508,13 @@ def main() -> int:
                    "yolat_tpu/ops/edge_window_train.py:245"),
                "ew_window_segment_sum_bwd": (
                    "yolat_tpu_torch/csrc/edge_window_train.cu",
-                   "yolat_tpu/ops/edge_window_train.py:270")}
+                   "yolat_tpu/ops/edge_window_train.py:270"),
+               "banded_message_sum": (
+                   "yolat_tpu_torch/csrc/banded_message.cu",
+                   "yolat_tpu/ops/banded_message.py:262"),
+               "banded_message_sum_both": (
+                   "yolat_tpu_torch/csrc/banded_message.cu",
+                   "yolat_tpu/ops/banded_message.py:417")}
     check(all(counts[k] > 0 for k in sources),
           f"every kernel was launched on its path: {counts}")
     kernels = [{"name": k, "route": "cuda", "source": sources[k][0],

@@ -24,6 +24,12 @@ Tolerances, kernel vs plain version on the same card and inputs:
     rounds its f32 sum to bf16) one output ulp, rtol 2^-7 over atol 1e-5.
   * kernel 4: f32 rtol/atol 1e-4; bf16 max error <= 5e-3 * max|out| (a
     flipped bf16 rounding of s_i, h1 or h2, as for the edge window).
+  * kernels 5 and 6: the kernel adds a node's terms in the plan's order,
+    the plain version with float atomics in any order, and another order
+    of the products' f32 sums can flip a bf16 rounding of an endpoint
+    product or of h: max error <= 1e-5 * max|out| at f32, 5e-4 * max|out|
+    at bf16 (an H100 reads <= 2e-7 and <= 1e-4). Kernel 6's own-endpoint
+    sum is kernel 5's bit for bit.
 """
 
 import numpy as np
@@ -32,6 +38,11 @@ import torch
 
 from yolat_tpu_torch.ops import _build
 from yolat_tpu_torch.ops import edge_window_train as ewt
+from yolat_tpu_torch.ops.banded_message import (banded_message_sum,
+                                                banded_message_sum_both,
+                                                banded_message_sum_both_plain,
+                                                banded_message_sum_plain,
+                                                plan_tensors)
 from yolat_tpu_torch.ops.block_max import (folded_mlp_block_max,
                                            folded_mlp_block_max2,
                                            folded_mlp_block_max2_plain,
@@ -42,8 +53,8 @@ from yolat_tpu_torch.ops.edge_window import (edge_window_message_sum,
                                              edge_window_message_sum_plain)
 from yolat_tpu_torch.ops.fused_pool_train import (fused_pool_train,
                                                   fused_pool_train_bwd)
-from yolat_tpu_torch.ops.plans import (EW_KEYS, EW_TRAIN_KEYS,
-                                       edge_window_plan, pool_plan)
+from yolat_tpu_torch.ops.plans import (EW_KEYS, EW_TRAIN_KEYS, banded_plan,
+                                       bm_of, edge_window_plan, pool_plan)
 
 
 @pytest.fixture
@@ -385,3 +396,141 @@ def test_dense_message_kernel_matches_plain(cuda_device, ci, n, dtype):
         ewt.pair_fwd(args[0].half(), args[1][:, 0], args[1][:, 0])
     with pytest.raises(TypeError):
         ewt.pair_fwd(args[0], args[1][:, 0].long(), args[1][:, 0])
+
+
+def _banded_inputs(seed, dev, n=4096, layout="cliques"):
+    """layout 'cliques': all-pairs edges over short node runs, dense next
+    to empty stretches, and one node with 1500 edges (more than a thread
+    block's share); 'wide': endpoints anywhere; 'empty': no real edge.
+    -> (x f32, edge, mask, attr, weights tuple) with numpy edge arrays."""
+    rng = np.random.default_rng(seed)
+    if layout == "cliques":
+        edges, lo = [], 0
+        while lo < n - 600:
+            m = int(rng.integers(2, 24))
+            ids = np.arange(lo, lo + m)
+            a, b = np.meshgrid(ids, ids)
+            edges.append(np.stack([a[a != b], b[a != b]], axis=1))
+            lo += m + int(rng.integers(0, 60))
+        edges.append(np.stack([rng.integers(0, n, 1500),
+                               np.full(1500, n - 300)], axis=1))
+        edge = np.concatenate(edges).astype(np.int32)
+    else:
+        edge = rng.integers(0, n, (5000, 2)).astype(np.int32)
+    edge = edge[rng.permutation(len(edge))]
+    mask = rng.random(len(edge)) < (0.0 if layout == "empty" else 0.9)
+    attr = rng.normal(size=(len(edge), 4)).astype(np.float32)
+    c = h = 64
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+    sc = lambda: t(np.stack([rng.uniform(0.5, 1.5, h),
+                             rng.normal(size=h) * 0.1]))
+    w = (t(rng.normal(size=(c, h)) * 0.2), t(rng.normal(size=(c, h)) * 0.2),
+         t(rng.normal(size=(4, h)) * 0.2), sc(), t(rng.normal(size=(h, h)) * 0.2),
+         sc())
+    return t(rng.normal(size=(n, c))), edge, mask, attr, w
+
+
+def _banded_close(got, want, dtype):
+    tol = 1e-5 if dtype == torch.float32 else 5e-4
+    err = (got - want).abs().max().item()
+    assert err <= tol * max(want.abs().max().item(), 1e-30), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("two_stage", [False, True])
+@pytest.mark.parametrize("layout,sortby", [("cliques", 1), ("cliques", 0),
+                                           ("wide", 1), ("empty", 1)])
+def test_banded_kernel_matches_plain(cuda_device, layout, sortby, two_stage,
+                                     dtype):
+    dev = cuda_device
+    x, edge, mask, attr, w = _banded_inputs(3, dev, layout=layout)
+    n = x.shape[0]
+    bm = plan_tensors(banded_plan(edge, mask, attr, n, sortby=sortby), dev)
+    x = x.to(dtype)
+    args = w if two_stage else w[:4]
+    _build.reset_launch_counts()
+    got = banded_message_sum(x, bm, *args)
+    again = banded_message_sum(x, bm, *args)
+    want = banded_message_sum_plain(x, bm, *args)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["banded_message_sum"] == 2
+    assert _build.launch_counts["banded_message_sum_both"] == 0
+    assert got.dtype == torch.float32 and got.shape == (n, 64)
+    assert torch.equal(got, again)  # no atomics: bit-identical runs
+    deg = torch.bincount(bm.own.long(), minlength=n)
+    assert not got[deg == 0].any()  # every row is written, edge or not
+    if layout == "empty":
+        assert bm.n_edges == 0 and not got.any()
+    _banded_close(got, want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["cliques", "wide", "empty"])
+def test_banded_both_kernel_matches_plain_and_kernel5(cuda_device, layout,
+                                                      dtype):
+    dev = cuda_device
+    x, edge, mask, attr, w = _banded_inputs(5, dev, layout=layout)
+    n = x.shape[0]
+    bm = plan_tensors(banded_plan(edge, mask, attr, n), dev, transpose=True)
+    bm_t = plan_tensors(banded_plan(edge, mask, attr, n, sortby=0), dev)
+    x = x.to(dtype)
+    w = w[:4]
+    _build.reset_launch_counts()
+    own, oth = banded_message_sum_both(x, bm, *w)
+    own2, oth2 = banded_message_sum_both(x, bm, *w)
+    assert _build.launch_counts["banded_message_sum_both"] == 2
+    assert _build.launch_counts["banded_message_sum"] == 0
+    want_own, want_oth = banded_message_sum_both_plain(x, bm, *w)
+    k5 = banded_message_sum(x, bm, *w)
+    k5_t = banded_message_sum(x, bm_t, w[1], w[0], w[2], w[3])
+    torch.cuda.synchronize()
+    assert torch.equal(own, own2) and torch.equal(oth, oth2)
+    assert torch.equal(own, k5)
+    _banded_close(own, want_own, dtype)
+    _banded_close(oth, want_oth, dtype)
+    _banded_close(oth, k5_t, dtype)
+    with pytest.raises(ValueError, match="transpose"):
+        banded_message_sum_both(x, bm_t, *w)
+
+
+@pytest.mark.cuda
+def test_banded_kernels_read_the_edge_window_plan(cuda_device):
+    """The curve family's plans are the edge-window plan and its transpose
+    (`bm_of` 'cwd_' / 'cws_'): windows of wn nodes instead of node cuts,
+    and for the src-sorted side a row permutation."""
+    dev = cuda_device
+    x, edge, mask, attr, w = _banded_inputs(7, dev, layout="wide")
+    n = x.shape[0]
+    plan = edge_window_plan(edge, mask, attr, n, transpose=True)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in plan.items()}
+    batch["pos"] = torch.zeros(n, 2, device=dev)
+    cwd, cws = bm_of(batch, "cwd_"), bm_of(batch, "cws_")
+    assert cwd.cnode is None and cws.perm is not None
+    w = w[:4]
+    for bm, args in ((cwd, w), (cws, (w[1], w[0], w[2], w[3]))):
+        got = banded_message_sum(x, bm, *args)
+        _banded_close(got, banded_message_sum_plain(x, bm, *args),
+                      torch.float32)
+    own, oth = banded_message_sum_both(x, cwd, *w)
+    assert torch.equal(own, banded_message_sum(x, cwd, *w))
+    assert torch.equal(oth, banded_message_sum(x, cws, w[1], w[0], w[2], w[3]))
+
+
+@pytest.mark.cuda
+def test_banded_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
+    dev = cuda_device
+    x, edge, mask, attr, w = _banded_inputs(9, dev, layout="wide")
+    bm = plan_tensors(banded_plan(edge, mask, attr, x.shape[0]), dev)
+    w = w[:4]
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        banded_message_sum(x.half(), bm, *w)
+    with pytest.raises(ValueError, match="needs H == 64"):
+        banded_message_sum(x, bm, w[0][:, :32], w[1][:, :32], w[2][:, :32],
+                           w[3][:, :32])
+    with pytest.raises(TypeError, match="nptr"):
+        banded_message_sum(x[:-1], bm, *w)
+    cpu_plan = plan_tensors(banded_plan(edge, mask, attr, x.shape[0]))
+    with pytest.raises(TypeError, match="own"):
+        banded_message_sum(x, cpu_plan, *w)

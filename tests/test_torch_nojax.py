@@ -5,7 +5,8 @@ import every module of the port, write and pack synthetic files, serve
 them on the CPU (predict core, on the edge-window and on the dense route,
 and CLI), train one step with the fused pool head on and one in the window
 layout through the train CLI, evaluate that checkpoint through the test CLI
-on the dense route, and check that none of those modules was loaded. Plus a source check: no import of any of them
+on the dense route, serve YOLaT++ (predict core, both CLIs, the per-edge
+and the factored checkpoint), and check that none of those modules was loaded. Plus a source check: no import of any of them
 anywhere in the package or in chip_smoke.py."""
 
 import os
@@ -88,6 +89,35 @@ SCRIPT = textwrap.dedent("""
             os.path.join(res["exp_dir"], "checkpoint"), "--serve_mode",
             "fast", "--dense_layout", "true", "--nms_algorithm", "classfix"])
         assert len(table["map_per_th"]) == 10
+        # YOLaT++ serving: the super-edge family, the banded plans, both
+        # primitive levels
+        from yolat_tpu_torch.data.loader import extra_plans_for
+        from yolat_tpu_torch.eval.fast_forward import fold_params_for
+        from yolat_tpu_torch.train.checkpoint import save_reference_checkpoint
+        for factored in (False, True):
+            pcfg = Config(arch="yolat_pp", n_classes=ds.n_classes, n_filters=8,
+                          pp_factored_prim=factored)
+            pb = next(iter(PackedLoader(ds, batch_size=1,
+                                        **extra_plans_for(pcfg))))
+            assert "sew_own" in pb and "ew_sperm" in pb and "sup_rank" in pb
+            pmodel = seeded_model(pcfg)
+            det = make_predict_core(pcfg, folded=fold_params_for(pcfg, pmodel),
+                                    detections_only=True)(to_device(pb, "cpu"))
+            assert det["boxes"].shape == (1, 300, 4)
+            pth = os.path.join(d, f"pp{int(factored)}.pth")
+            save_reference_checkpoint(pmodel, pth)
+            flags = (["--profile", "yolat_pp_fast"] if factored
+                     else ["--arch", "yolat_pp"])
+            infer.main(["--input_dir", d, "--pretrained_model", pth, "--out",
+                        out, "--device", "cpu", "--n_filters", "8",
+                        "--conf_th", "0"] + flags)
+            with open(out) as f:
+                assert len(f.readlines()) == 2
+            table = test_cli.main([
+                "--data_dir", d, "--phase", "test", "--device", "cpu",
+                "--n_filters", "8", "--batch_size", "1", "--pretrained_model",
+                pth, "--serve_mode", "fast_bf16"] + flags)
+            assert len(table["map_per_th"]) == 10
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     assert not loaded, loaded
     print("NOJAX-OK", len(mods))
@@ -102,7 +132,7 @@ def test_port_runs_without_jax():
     assert r.returncode == 0, r.stdout + r.stderr
     assert "NOJAX-OK" in r.stdout
     n_mods = int(r.stdout.split("NOJAX-OK")[1].split()[0])
-    assert n_mods >= 35
+    assert n_mods >= 37
 
 
 def test_no_jax_import_in_port_sources():

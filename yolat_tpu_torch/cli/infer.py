@@ -5,16 +5,20 @@ Counterpart of `yolat_tpu/cli/infer.py`, on PyTorch and one CUDA device:
   python -m yolat_tpu_torch.cli.infer --input_dir DIR \
       --pretrained_model ckpt.pth [--out detections.jsonl] [--conf_th 0.5] \
       [--serve_mode fast|fast_bf16|module] [--device cuda]
+      [--arch yolat_pp [--pp_factored_prim true] | --profile yolat_pp_fast]
 
 Records are those of the JAX CLI:
   {"file": ..., "width": ..., "height": ...,
    "detections": [{"box": [x0, y0, x1, y1], "score": s, "class": name}]}
 (unparseable SVGs become {"file", "error", "detections": []} records with
 --skip_errors, the default). The checkpoint is a reference-format `.pth`
-({'state_dict': ...}, the keys of the reference SparseCADGCN). `--device`
-defaults to cuda and raises when CUDA is absent; the CLI never moves to
-the CPU on its own. The end line prints SVGs/s and the launch counts of
-both kernels.
+({'state_dict': ...}, the keys of the reference SparseCADGCN; for
+`--arch yolat_pp` the keys of `nn.yolat_pp.YOLaTPlusPlus`, with
+`super_edge_mlp`, or `super_fact_mlp` under `--pp_factored_prim true` /
+`--profile yolat_pp_fast`). `--device` defaults to cuda and raises when
+CUDA is absent; the CLI never moves to the CPU on its own. The end line
+prints SVGs/s and the launch counts of the serving kernels: 1 and 2, and
+for YOLaT++ also 5 and 6.
 Not ported here: Orbax checkpoints, the chunked single-buffer dispatch of
 `make_serving_fn` and the multi-process preprocessing pool.
 """
@@ -30,9 +34,10 @@ import time
 import numpy as np
 import torch
 
-from yolat_tpu_torch.config import Config
+from yolat_tpu_torch.cli.train import _bool, explicit_flags
+from yolat_tpu_torch.config import PP_ARCHS, PROFILES, Config, apply_profile
 from yolat_tpu_torch.data.dataset import SESYDDataset
-from yolat_tpu_torch.data.loader import PackedLoader
+from yolat_tpu_torch.data.loader import PackedLoader, extra_plans_for
 from yolat_tpu_torch.data.packing import to_device
 from yolat_tpu_torch.eval import fast_forward as ff
 from yolat_tpu_torch.eval.predict import img_slot_cap, make_predict_core
@@ -60,6 +65,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--bbox_sampling_step", default=d.bbox_sampling_step, type=int)
     p.add_argument("--arch", default=d.arch, type=str)
     p.add_argument("--conv", default=d.conv, type=str)
+    p.add_argument("--pp_factored_prim", default=d.pp_factored_prim,
+                   type=_bool,
+                   help="the YOLaT++ checkpoint holds super_fact_mlp (the "
+                        "primitive level as a prefix sum per proposal)")
+    p.add_argument("--profile", default=d.profile, type=str,
+                   choices=("",) + tuple(PROFILES),
+                   help="named flag bundle; flags typed beside it keep "
+                        "their values")
     p.add_argument("--in_channels", default=d.in_channels, type=int)
     p.add_argument("--n_filters", default=d.n_filters, type=int)
     p.add_argument("--n_blocks", default=d.n_blocks, type=int)
@@ -117,6 +130,8 @@ def main(argv=None):
                           bbox_sampling_step=args.bbox_sampling_step,
                           require_gt=False)
 
+    cfg = _config(args, explicit_flags(build_parser(), argv),
+                  ds.n_classes if ds is not None else 1)
     launched = dict(_build.launch_counts)  # this run's launches are the rise
     t_start = time.perf_counter()
     n_images = 0
@@ -125,24 +140,36 @@ def main(argv=None):
             out_f.write(json.dumps({"file": os.path.relpath(path, args.input_dir),
                                     "error": err, "detections": []}) + "\n")
         if ds is not None:
-            n_images = _serve(args, ds, device, out_f)
+            n_images = _serve(args, cfg, ds, device, out_f)
     wall = time.perf_counter() - t_start
     counts = {k: v - launched[k] for k, v in _build.launch_counts.items()}
     skipped = f", {len(bad)} skipped with errors" if bad else ""
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
+    shown = ("edge_window_message_sum", "folded_mlp_block_max2") + (
+        ("banded_message_sum", "banded_message_sum_both")
+        if cfg.arch in PP_ARCHS else ())
     print(f"{n_images} SVGs -> {args.out}: {n_images / wall:.2f} SVGs/sec "
           f"end-to-end on {name}{skipped}; kernel launches: "
-          f"edge_window_message_sum={counts['edge_window_message_sum']}, "
-          f"folded_mlp_block_max2={counts['folded_mlp_block_max2']}")
+          + ", ".join(f"{k}={counts[k]}" for k in shown))
+    return counts
 
 
-def _serve(args, ds, device, out_f) -> int:
-    cfg = Config(arch=args.arch, conv=args.conv, in_channels=args.in_channels,
-                 n_filters=args.n_filters, n_blocks=args.n_blocks,
-                 n_blocks_out=args.n_blocks_out, classifier=args.classifier,
-                 nms_algorithm=args.nms_algorithm, nms_topk=args.nms_topk,
-                 n_classes=ds.n_classes)
+def _config(args, explicit: set, n_classes: int) -> Config:
+    """The serving Config of the parsed flags; `explicit` (the flags the
+    user typed) keep their values under --profile."""
+    kw = dict(arch=args.arch, conv=args.conv, in_channels=args.in_channels,
+              n_filters=args.n_filters, n_blocks=args.n_blocks,
+              n_blocks_out=args.n_blocks_out, classifier=args.classifier,
+              nms_algorithm=args.nms_algorithm, nms_topk=args.nms_topk,
+              pp_factored_prim=args.pp_factored_prim, profile=args.profile,
+              data_dir=args.data_dir, n_classes=n_classes)
+    if args.profile:
+        kw = apply_profile(kw, args.profile, explicit)
+    return Config(**kw)
+
+
+def _serve(args, cfg, ds, device, out_f) -> int:
     id2name = [""] * (ds.n_classes - 1)
     for cname, cid in ds.class_dict.items():
         if cid < len(id2name):
@@ -150,10 +177,10 @@ def _serve(args, ds, device, out_f) -> int:
     model = load_reference_checkpoint(build_model(cfg), args.pretrained_model)
     model = model.to(device).eval()
     fast = args.serve_mode != "module"
-    folded = ff.fold_params(model, device) if fast else None
-    # the plan is built whenever the kernel route reads it
+    folded = ff.fold_params_for(cfg, model, device) if fast else None
+    # the plans are built whenever the kernel route reads them
     loader = PackedLoader(ds, batch_size=args.batch_size, edge_window=fast,
-                          cache_files=False)
+                          cache_files=False, **extra_plans_for(cfg))
     n = 0
     for batch in loader:
         # the exact per-image NMS slot cap of this batch (eval/runner.py:40)

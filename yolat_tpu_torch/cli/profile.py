@@ -1,7 +1,7 @@
 """Per-stage times of the serving and training paths on one CUDA device.
 
   python -m yolat_tpu_torch.cli.profile [--n_svgs 8] [--batch_size 4]
-      [--reps 20] [--stages serve,serve_dense,train]
+      [--reps 20] [--stages serve,serve_dense,serve_pp,train]
       [--train_layout sparse|window|dense] [--out profile.json]
 
 Writes bench-scale synthetic floorplans (seed 7, 2000x1500, 6 rooms, 1-3
@@ -33,7 +33,14 @@ temporary directory under build/ and times each stage of the loop of
   serve_dense  predict and forward on the dense route (the batch carries
           the neighbour table and no edge-window plan, so the convs take
           kernel 4), fast_bf16 and fast, beside the edge-window route in
-          the same call.
+          the same call;
+  serve_pp  YOLaT++ serving (`fast_forward_pp`, seeded open-gate models):
+          CompactFile and pack_files with the super-edge family and the
+          banded plans; predict and forward for the per-edge checkpoint
+          (kernels 1, 2, 5, 6), its two-pass curve route (kernel 5 three
+          times, no kernel 6) and the factored checkpoint (kernels 1, 2,
+          6), fast_bf16 and fast, in turns; a trace of the per-edge and of
+          the factored fast_bf16 predict.
 
 It has no JAX counterpart module: the JAX package timed its stages in
 `bench.py`, whose batch this is. Host times are medians of `--reps`
@@ -57,12 +64,13 @@ import torch
 
 from yolat_tpu_torch.config import Config
 from yolat_tpu_torch.data.dataset import SESYDDataset
-from yolat_tpu_torch.data.loader import PackedLoader
+from yolat_tpu_torch.data.loader import PackedLoader, extra_plans_for
 from yolat_tpu_torch.data.packing import (CompactFile, add_dense_neighbors,
                                           finalize_batch, pack_files,
                                           to_device)
 from yolat_tpu_torch.data.synthetic import write_dataset
-from yolat_tpu_torch.eval.fast_forward import fast_forward, fold_params
+from yolat_tpu_torch.eval.fast_forward import (fast_forward, fast_forward_pp,
+                                               fold_params, fold_params_pp)
 from yolat_tpu_torch.eval.predict import img_slot_cap, make_predict_core
 from yolat_tpu_torch.nn.model import seeded_model
 from yolat_tpu_torch.train.loop import make_train_step
@@ -77,7 +85,8 @@ _REPO = os.path.dirname(os.path.dirname(os.path.dirname(
 _OWN_KERNEL_RE = re.compile(
     r"\b(edge_window_kernel|block_max_kernel|bwd_rows_kernel|bwd_dw_kernel"
     r"|sum_parts_kernel|dense_message_kernel|pair_fwd_kernel|pair_bwd_kernel"
-    r"|wsum_fwd_kernel|wsum_bwd_kernel)(<[^>(]*>)?")
+    r"|wsum_fwd_kernel|wsum_bwd_kernel|banded_kernel|sum_rows_by_perm_kernel)"
+    r"(<[^>(]*>)?")
 
 
 def nvidia_smi() -> str:
@@ -103,7 +112,8 @@ def write_bench_svgs(root: str, n: int) -> None:
                   height=1500.0, n_rooms=6, symbols_per_room=(1, 3))
 
 
-def _host_stages(root: str, batch_size: int, reps: int, res: dict):
+def _host_stages(root: str, batch_size: int, reps: int, res: dict,
+                 pp: bool = False):
     ds = SESYDDataset(root, "train", bbox_sampling_step=10)
     cold = []
     for i in range(len(ds)):
@@ -130,9 +140,21 @@ def _host_stages(root: str, batch_size: int, reps: int, res: dict):
                                    d_max=loader.d_max, files=cfs)
 
     res["pack_dense_ms_per_batch"] = _median_ms(dense, reps)
-    return ds, {"sparse": pack_files(*args),
-                "window": pack_files(*args, ew_transpose=True),
-                "dense": dense()}
+    packs = {"sparse": pack_files(*args),
+             "window": pack_files(*args, ew_transpose=True),
+             "dense": dense()}
+    if pp:  # what a YOLaT++ arch asks of the loader
+        opts = extra_plans_for(Config(arch="yolat_pp"))
+        res["compact_file_pp_ms_per_image"] = statistics.median(
+            [_median_ms(lambda: CompactFile(f, super_family=True), 3)
+             for f, _, _ in loads])
+        pp_loader = PackedLoader(ds, batch_size=batch_size, prefetch=0, **opts)
+        pp_args = ([CompactFile(f, super_family=True) for f, _, _ in loads],
+                   ) + args[1:3] + (pp_loader.pad,)
+        res["pack_pp_ms_per_batch"] = _median_ms(
+            lambda: pack_files(*pp_args, **opts), reps)
+        packs["pp"] = pack_files(*pp_args, **opts)
+    return ds, packs
 
 
 def _serve_stages(nb, n_classes: int, dev, reps: int, res: dict) -> None:
@@ -213,6 +235,57 @@ def _serve_dense_stage(packs, n_classes: int, dev, reps: int, res: dict) -> None
     res["dense_idle_share_estimate"] = (
         None if busy is None
         else 1.0 - busy / res["predict_fast_bf16_dense_route_ms_per_batch"])
+
+
+def _serve_pp_stage(nb, n_classes: int, dev, reps: int, res: dict) -> None:
+    """YOLaT++ serving: the per-edge checkpoint (curve level fused and in
+    two passes) and the factored one, in turns, on one packed batch."""
+    batch = to_device(nb, dev)
+    cap = img_slot_cap(nb)
+    res["pp_shapes"] = {"E_super": int(nb["super_mask"].sum()),
+                        "E_super_padded": int(nb["edge_super"].shape[0]),
+                        "sew_blocks": int(nb["sew_cnode"].shape[0]) - 1}
+    res["pp_batch_bytes"] = int(sum(getattr(v, "nbytes", 0)
+                                    for v in nb.values()))
+    runs = {}
+    for variant, factored in (("per_edge", False), ("factored", True)):
+        cfg = Config(arch="yolat_pp", n_classes=n_classes,
+                     pp_factored_prim=factored)
+        folded = fold_params_pp(seeded_model(cfg).to(dev), dev)
+        for mode in ("fast_bf16", "fast"):
+            bf16 = mode == "fast_bf16"
+            predict = make_predict_core(cfg, folded=folded, bf16=bf16,
+                                        img_slots=cap, detections_only=True)
+
+            def run(predict=predict):
+                {k: v.cpu() for k, v in predict(batch).items()}
+
+            def fwd(folded=folded, bf16=bf16, fused=True):
+                with torch.no_grad():
+                    return fast_forward_pp(folded, finalize_batch(batch),
+                                           bf16=bf16, curve_fused=fused)
+
+            for _ in range(3):
+                run()
+            runs[f"predict_pp_{variant}_{mode}"] = run
+            runs[f"forward_pp_{variant}_{mode}"] = fwd
+            if not factored:
+                runs[f"forward_pp_two_pass_{mode}"] = (
+                    lambda fwd=fwd: fwd(fused=False))
+    names = list(runs)
+    times = {k: [] for k in names}
+    for order in (names, names[::-1]):  # each arm early and late once
+        for k in order:
+            times[k].append(_median_ms(runs[k], reps, True))
+    for k in names:
+        res[f"{k}_ms_per_batch"] = statistics.median(times[k])
+    for variant in ("per_edge", "factored"):
+        key = f"pp_{variant}_trace"
+        res[key] = _trace(runs[f"predict_pp_{variant}_fast_bf16"], reps)
+        busy = res[key]["device_busy_ms_per_call"]
+        res[f"pp_{variant}_idle_share_estimate"] = (
+            None if busy is None else 1.0 - busy / res[
+                f"predict_pp_{variant}_fast_bf16_ms_per_batch"])
 
 
 def _trace(fn, reps: int) -> dict:
@@ -322,7 +395,8 @@ def main(argv=None) -> dict:
     with tempfile.TemporaryDirectory(dir=os.path.join(_REPO, "build")) as work:
         root = os.path.join(work, "svgs")
         write_bench_svgs(root, args.n_svgs)
-        ds, packs = _host_stages(root, args.batch_size, args.reps, res)
+        ds, packs = _host_stages(root, args.batch_size, args.reps, res,
+                                 pp="serve_pp" in stages)
     nb = packs["sparse"]
     res["shapes"] = {"N": int(nb["pos"].shape[0]),
                      "E": int(nb["edge_mask"].sum()),
@@ -333,6 +407,8 @@ def main(argv=None) -> dict:
         _serve_stages(nb, ds.n_classes, dev, args.reps, res)
     if "serve_dense" in stages:
         _serve_dense_stage(packs, ds.n_classes, dev, args.reps, res)
+    if "serve_pp" in stages:
+        _serve_pp_stage(packs["pp"], ds.n_classes, dev, args.reps, res)
     if "train" in stages:
         _train_stage(packs, ds.n_classes, dev, args.reps, res,
                      args.train_layout)

@@ -8,6 +8,7 @@ plus:
       --pretrained_model ckpt_dir|ckpt_dir/ckpt_<tag>|ref.pth
       [--serve_mode flax|fast|fast_bf16] [--dense_layout true|false]
       [--nms_algorithm fixpoint|loop|classfix] [--device cuda]
+      [--arch yolat_pp [--pp_factored_prim true] | --profile yolat_pp_fast]
 
 `--serve_mode flax` runs the eval-mode module (the parity route; the name
 is the JAX package's), `fast` / `fast_bf16` the folded-BN engine with its
@@ -15,7 +16,12 @@ kernels. `--dense_layout true` packs the dense neighbour table and no
 edge-window plan, so the engine's convs take the fused dense message
 (kernel 4) instead of the edge-window message sum (kernel 1); the module
 route then takes the conv's dense branch. The checkpoint's training layout
-does not matter: all layouts share their parameters. `--device` defaults to
+does not matter: all layouts share their parameters. `--arch yolat_pp`
+evaluates a YOLaT++ checkpoint (a `.pth` of the port module's own state
+dict, or a checkpoint dir): the loader packs the super-edge family and the
+banded plans, and the engine runs kernels 5 and 6 beside 1 and 2
+(`--profile yolat_pp_fast`, the factored checkpoint: kernel 6 and no
+launch of kernel 5); it has no dense route. `--device` defaults to
 cuda and raises when CUDA is absent; the CLI never moves to the CPU on its
 own. Prints the AP table, the confusion matrix,
 `checkpoint epoch=.. best=..`, and last the launch counts of the serving
@@ -26,8 +32,9 @@ from __future__ import annotations
 
 from yolat_tpu_torch.cli.train import (_bool, build_parser, config_from_args,
                                        device_from_arg, device_name)
+from yolat_tpu_torch.config import PP_ARCHS
 from yolat_tpu_torch.data.dataset import SESYDDataset
-from yolat_tpu_torch.data.loader import PackedLoader
+from yolat_tpu_torch.data.loader import PackedLoader, extra_plans_for
 from yolat_tpu_torch.eval.metrics import format_confusion
 from yolat_tpu_torch.eval.runner import evaluate
 from yolat_tpu_torch.nn.model import build_model
@@ -68,15 +75,19 @@ def main(argv=None) -> dict:
                         "edge-window plan (the engine takes kernel 4)")
     args = p.parse_args(argv)
     device = device_from_arg(args.device)
-    cfg = config_from_args(args)
+    cfg = config_from_args(args, argv)
     partition = cfg.phase if cfg.phase in ("train", "test", "val") else "test"
     ds = SESYDDataset(cfg.data_dir, partition,
                       bbox_sampling_step=cfg.bbox_sampling_step)
     # the layout under test is the batch's: the model takes no window branch
     cfg = cfg.replace(n_classes=ds.n_classes, train_layout="sparse")
+    is_pp = cfg.arch in PP_ARCHS
+    if is_pp and cfg.dense_layout and args.serve_mode != "flax":
+        raise ValueError("--dense_layout true: the YOLaT++ engine has no "
+                         "dense route (its convs run the edge-window kernel)")
     loader = PackedLoader(ds, batch_size=cfg.batch_size,
                           edge_window=not cfg.dense_layout,
-                          dense=cfg.dense_layout)
+                          dense=cfg.dense_layout, **extra_plans_for(cfg))
     model, epoch, best = load_checkpoint(cfg, device)
     if device.type == "cuda" and args.serve_mode != "flax":
         _build.library()  # build the kernels before the evaluation loop
@@ -93,7 +104,9 @@ def main(argv=None) -> dict:
           f"{cfg.nms_algorithm}); kernel launches: "
           + ", ".join(f"{k}={counts[k]}" for k in (
               "edge_window_message_sum", "folded_mlp_block_max2",
-              "fused_dense_message")))
+              "fused_dense_message") + (
+                  ("banded_message_sum", "banded_message_sum_both")
+                  if is_pp else ())))
     return results
 
 

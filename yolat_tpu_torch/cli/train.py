@@ -26,7 +26,7 @@ import argparse
 
 import torch
 
-from yolat_tpu_torch.config import Config
+from yolat_tpu_torch.config import PROFILES, Config, apply_profile
 from yolat_tpu_torch.ops import _build
 from yolat_tpu_torch.train.trainer import run_training
 
@@ -87,16 +87,37 @@ def build_parser() -> argparse.ArgumentParser:
     add("--pos_class_weight", default=d.pos_class_weight, type=float)
     add("--iou_aware_mode", default=d.iou_aware_mode, type=str,
         choices=("abs", "rel"))
+    add("--pp_factored_prim", default=d.pp_factored_prim, type=_bool,
+        help="YOLaT++ primitive level as a prefix sum per proposal "
+             "(a super_fact_mlp checkpoint) instead of per super edge")
+    add("--profile", default=d.profile, type=str,
+        choices=("",) + tuple(PROFILES),
+        help="named flag bundle; flags typed beside it keep their values")
     add("--max_steps", default=0, type=int,
         help="stop after this many train steps (0: run every epoch)")
     add("--device", default="cuda", type=str)
     return p
 
 
-def config_from_args(args) -> Config:
+def explicit_flags(parser: argparse.ArgumentParser, argv=None) -> set:
+    """The dests of the flags the user typed: `argv` parsed again by a
+    fresh `parser` whose defaults are suppressed, so that only given flags
+    land in the namespace (`yolat_tpu/cli/common.py:47-54`)."""
+    for a in parser._actions:
+        a.default = argparse.SUPPRESS
+    ns, _ = parser.parse_known_args(argv)
+    return set(vars(ns))
+
+
+def config_from_args(args, argv=None) -> Config:
+    """The Config of parsed flags; a `--profile` bundle is laid over it,
+    except for the flags typed in `argv` (None: the process's own)."""
     fields = set(Config.__dataclass_fields__)
     kw = {k: v for k, v in vars(args).items() if k in fields}
     kw["lr_adjust_freq"] = int(min(args.lr_adjust_freq, 10 ** 9))
+    if kw.get("profile"):
+        kw = apply_profile(kw, kw["profile"],
+                           explicit_flags(build_parser(), argv))
     return Config(**kw)
 
 
@@ -117,7 +138,7 @@ def device_name(device) -> str:
 def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
     device = device_from_arg(args.device)
-    cfg = config_from_args(args).replace(phase="train")
+    cfg = config_from_args(args, argv).replace(phase="train")
     launched = dict(_build.launch_counts)  # this run's launches are the rise
     _, results = run_training(cfg, device, max_steps=args.max_steps or None)
     counts = {k: v - launched[k] for k, v in _build.launch_counts.items()}

@@ -1,9 +1,12 @@
-"""Serving and training configuration of the canonical detector.
+"""Serving and training configuration of the detectors.
 
 Counterpart of `yolat_tpu/train/config.py:16-168` (`Config`), restricted
 to the fields the port's serving and training paths read, with the same
 names and defaults (the canonical README command: centernet3cc_rpn_gp_iter2,
-5 input channels, 64 filters, 2 blocks, 17 floorplan classes).
+5 input channels, 64 filters, 2 blocks, 17 floorplan classes), and of the
+named flag bundles of `yolat_tpu/cli/common.py:23-80` (`PROFILES`,
+`apply_profile`). `arch` is the canonical detector or one of `PP_ARCHS`
+(YOLaT++, `yolat_tpu/eval/fast_forward.py:245`, with `PP_GATES` :246).
 
 One default differs: `dense_layout` is False here and True in the JAX
 package. There the dense neighbour table is the serving layout; the port
@@ -15,6 +18,42 @@ the table only when asked (`cli/test --dense_layout true`, or
 from __future__ import annotations
 
 import dataclasses
+import os
+
+CANONICAL_ARCH = "centernet3cc_rpn_gp_iter2"
+PP_ARCHS = ("yolat_pp", "yolat++", "hierarchical")
+# YOLaT++'s four 0-d gates, in the order the hierarchy levels inject
+PP_GATES = ("gate_point", "gate_curve", "gate_prim", "gate_super")
+
+# Named flag bundles: Config fields by when they apply. "unless_chart" /
+# "when_chart" key on the data directory's NAME, the reference's own
+# convention for class dictionaries (graph_dict3.py:57).
+PROFILES = {
+    "yolat_pp_fast": {
+        "always": {"arch": "yolat_pp", "pp_factored_prim": True},
+        "unless_chart": {"iou_aware_loss": True, "iou_aware_mode": "rel"},
+        "when_chart": {"pos_class_weight": 16.0, "iou_aware_loss": True,
+                       "iou_aware_mode": "rel"},
+    },
+}
+
+
+def apply_profile(kw: dict, profile: str, explicit: set) -> dict:
+    """Overlay a PROFILES bundle onto Config keyword arguments; the fields
+    named in `explicit` (flags the user typed) keep their values."""
+    bundle = PROFILES[profile]
+    base = os.path.basename(os.path.normpath(str(kw.get("data_dir", ""))))
+    is_chart = "chart" in base.lower()
+    if is_chart and bundle.get("when_chart"):
+        print(f"--profile {profile}: chart dataset detected ({base!r}): "
+              f"applying the chart recipe {bundle['when_chart']}")
+    overrides = dict(bundle["always"])
+    overrides.update(bundle.get("when_chart" if is_chart else "unless_chart",
+                                {}))
+    for field, value in overrides.items():
+        if field not in explicit:
+            kw[field] = value
+    return kw
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,7 +82,7 @@ class Config:
     optimizer: str = "adam"         # adam | adamw | radam
 
     # model
-    arch: str = "centernet3cc_rpn_gp_iter2"
+    arch: str = CANONICAL_ARCH      # or one of PP_ARCHS (YOLaT++)
     conv: str = "attr_edge_gp2"
     n_filters: int = 64
     n_blocks: int = 2
@@ -74,6 +113,10 @@ class Config:
     iou_aware_loss: bool = False    # soft {class: q, background: 1-q} targets
     iou_aware_mode: str = "abs"     # q = IoU ('abs') or IoU / best sibling
     pos_class_weight: float = 1.0   # positive rows' loss weight
+    pp_factored_prim: bool = False  # YOLaT++ primitive level as a prefix
+                                    # sum per proposal (super_fact_mlp)
+                                    # instead of the per-edge clique level
+    profile: str = ""               # named flag bundle applied at parse time
     pretrained_model: str = ""
 
     def replace(self, **kw) -> "Config":

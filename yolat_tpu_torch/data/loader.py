@@ -8,7 +8,9 @@ batch sequence. Pad sizes follow
 `PackedLoader.compute_pad` (:402-454): the sum of the `batch_size` largest
 per-file counts per dimension, rounded up as `PadSizes` does
 (`yolat_tpu/data/packing.py:53-79`), computed from this port's own
-CompactFiles.
+CompactFiles. `extra_plans_for` is
+`yolat_tpu/eval/fast_forward.py:303-309`: what a YOLaT++ arch asks of the
+loader.
 """
 
 from __future__ import annotations
@@ -18,9 +20,20 @@ import threading
 
 import numpy as np
 
+from yolat_tpu_torch.config import PP_ARCHS
 from yolat_tpu_torch.data.packing import (CompactFile, PadSizes,
                                           add_dense_neighbors, dense_width,
                                           pack_files, round_up)
+
+
+def extra_plans_for(cfg) -> dict:
+    """The loader options an arch's serving path needs: YOLaT++ reads the
+    super-edge family, which comes with its banded plan (kernel 5), and
+    the edge-window plan's transpose (its curve level, kernels 5 and 6);
+    the canonical detector nothing."""
+    if getattr(cfg, "arch", "") in PP_ARCHS:
+        return {"super_family": True, "ew_transpose": True}
+    return {}
 
 
 class PackedLoader:
@@ -34,14 +47,16 @@ class PackedLoader:
     ew_transpose adds the transposed part of the edge-window plan (the
     window training layout reads it); dense adds the dense neighbour table,
     D slots wide for the manifest's largest in-degree
-    (`packing.dense_width`) unless d_max is given.
+    (`packing.dense_width`) unless d_max is given. super_family packs the
+    super-edge clique family and the factored fields (YOLaT++), sized by
+    `PadSizes.n_super`, with that family's banded plan `sew_*`.
     """
 
     def __init__(self, dataset, batch_size: int = 4, prefetch: int = 1,
                  edge_window: bool = True, cache_files: bool = True,
                  shuffle: bool = False, seed: int = 0,
                  ew_transpose: bool = False, dense: bool = False,
-                 d_max: int | None = None):
+                 d_max: int | None = None, super_family: bool = False):
         if prefetch not in (0, 1):
             raise ValueError("prefetch is 0 or 1")
         self.ds = dataset
@@ -53,6 +68,7 @@ class PackedLoader:
         self.edge_window = edge_window
         self.ew_transpose = ew_transpose
         self.dense = dense
+        self.super_family = super_family
         self.cache_files = cache_files
         self._compact: dict = {}
         self._max_indegree = 0
@@ -65,18 +81,19 @@ class PackedLoader:
         if hit is not None:
             return hit
         f, gt, wh = self.ds.load(i)
-        item = (CompactFile(f, n_classes=getattr(self.ds, "n_classes", None)),
-                gt, wh)
+        item = (CompactFile(f, n_classes=getattr(self.ds, "n_classes", None),
+                            super_family=self.super_family), gt, wh)
         if self.cache_files:
             self._compact[i] = item
         return item
 
     def compute_pad(self) -> PadSizes:
-        nodes, edges, props, gts = [], [], [], []
+        nodes, edges, supers, props, gts = [], [], [], [], []
         for i in range(len(self.ds)):
             f, (gt, _), _ = self._load(i)
             nodes.append(len(f.pos))
             edges.append(len(f.edge))
+            supers.append(len(f.edge_super) if self.super_family else 0)
             props.append(f.n_proposals)
             gts.append(len(gt))
             if len(f.edge):
@@ -88,7 +105,9 @@ class PackedLoader:
 
         return PadSizes(topsum(nodes, 512), topsum(edges, 512),
                         topsum(props, 64), round_up(max([1] + gts), 16),
-                        self.batch_size)
+                        self.batch_size,
+                        n_super=(topsum(supers, 2048) if self.super_family
+                                 else 0))
 
     def __len__(self):
         return -(-len(self.ds) // self.batch_size)
@@ -111,7 +130,8 @@ class PackedLoader:
             batch = pack_files(files, [l[1] for l in loads],
                                [l[2] for l in loads], self.pad,
                                edge_window=self.edge_window,
-                               ew_transpose=self.ew_transpose)
+                               ew_transpose=self.ew_transpose,
+                               super_family=self.super_family)
             if self.dense:
                 batch = add_dense_neighbors(batch, d_max=self.d_max,
                                             files=files)

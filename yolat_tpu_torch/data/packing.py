@@ -1,12 +1,14 @@
-"""Flat-packed, statically-shaped batches for the canonical detector.
+"""Flat-packed, statically-shaped batches for both detectors.
 
 Counterpart of `yolat_tpu/data/packing.py`: `PadSizes` (:53-79),
-`CompactFile` (:98-289), `pack_files` (:362-579), `finalize_batch`
-(:587-670, with the train-time augmentation and edge dropout) and
-`_seg_min` (:747), and the dense neighbour table (`CompactFile.dense_table`
-:291-314, `add_dense_neighbors` :673-744). That module reaches `yolat_tpu.ops.segment`
-(and so jax) inside `CompactFile` and `pack_files`, so the port carries
-its own jax-free copy, restricted to the keys the canonical detector reads:
+`CompactFile` (:98-289, the numpy branches; the native sort-and-align
+helper is not carried), `_align_runs` (:317), `pack_files` (:362-579),
+`finalize_batch` (:587-670, with the train-time augmentation and edge
+dropout) and `_seg_min` (:747), and the dense neighbour table
+(`CompactFile.dense_table` :291-314, `add_dense_neighbors` :673-744).
+That module reaches `yolat_tpu.ops.segment` (and so jax) inside
+`CompactFile` and `pack_files`, so the port carries its own jax-free copy.
+The keys every batch has (what the canonical detector reads):
 
   pos [N,2] f32, node_mask [N] bool, bbox_idx [N] i32 (sorted),
   edge [E,2] i32 (dst-sorted, padding rows at the front), e_attr [E,4] f32,
@@ -20,8 +22,24 @@ its own jax-free copy, restricted to the keys the canonical detector reads:
   dense neighbour table: slot k of node i holds the source of its k-th
   in-edge; unused slots point at node 0 with mask False).
 
-For those keys other than ew_* `pack_files` and `add_dense_neighbors` are
-bitwise equal to `yolat_tpu`'s (tests/test_torch_packing.py).
+With `super_family` (YOLaT++; the JAX package packs these always,
+:159-235, :394-423, :434-528) a batch also has the super-edge clique
+family and the factored primitive level's fields:
+
+  edge_super [S,2] i32 (dst-sorted, each dst run padded to SUPER_BLOCK
+  rows with src = dst, attr 0, mask False), e_attr_super [S,4] f32,
+  super_mask [S] bool, src_count [N] f32, super_dst_count [N] f32 (real
+  super edges only), sup_member [N] bool, sup_rank [N] f32,
+  sup_abar [N,4] f32, prop_first_row [P] i32, sup_pool_* (the aligned
+  pool plan over the super-edge runs),
+
+and the clique family's banded plan `sew_*` (`ops.plans.banded_plan`,
+kernel 5's layout; the JAX package's `extra_plans=("super",)`, :555-577).
+
+For all keys other than ew_* and sew_*, `pack_files` and
+`add_dense_neighbors` are bitwise equal to `yolat_tpu`'s
+(tests/test_torch_packing.py, tests/test_torch_pp_packing.py); a batch
+packed without `super_family` is what it was before that option existed.
 """
 
 from __future__ import annotations
@@ -29,8 +47,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from yolat_tpu_torch.ops.plans import (POOL_BLOCK, edge_window_plan,
-                                       plan_of, pool_plan)
+from yolat_tpu_torch.ops.plans import (POOL_BLOCK, SUPER_BLOCK, banded_plan,
+                                       edge_window_plan, plan_of, pool_plan)
 from yolat_tpu_torch.ops.segment import NEG, _two_level, segment_broadcast
 
 
@@ -39,28 +57,36 @@ def round_up(x: int, m: int) -> int:
 
 
 class PadSizes:
-    """Static bucket sizes for one batch shape (no super-edge family)."""
+    """Static bucket sizes for one batch shape. `n_super` is the super-edge
+    buffer's rows (after run alignment); 0 for batches packed without the
+    super-edge family. The JAX package's `PadSizes` (:56) has it third."""
 
-    def __init__(self, n_nodes, n_edges, n_proposals, n_gt, n_images):
+    def __init__(self, n_nodes, n_edges, n_proposals, n_gt, n_images,
+                 n_super: int = 0):
         self.n_nodes = n_nodes
         self.n_edges = n_edges
         self.n_proposals = n_proposals
         self.n_gt = n_gt
         self.n_images = n_images
+        self.n_super = n_super
 
 
 class CompactFile:
     """A ProposalFile in packed-batch dtypes: edges dst-sorted, each
     proposal's node run padded to a multiple of POOL_BLOCK (masked rows
     carrying the run's bbox_idx), and the per-proposal root pointer
-    materialised."""
+    materialised. With `super_family` also the super-edge clique family,
+    dst-sorted with each dst run padded to SUPER_BLOCK rows, its per-node
+    counts and the factored primitive level's fields (None otherwise)."""
 
     __slots__ = ("pos", "node_mask", "bbox_idx", "edge", "e_attr",
                  "dst_count", "prop_count", "labels", "bbox", "label_iou",
                  "label_iou_rel", "is_root_mask", "root_slot_local",
-                 "n_proposals", "_dense")
+                 "n_proposals", "_dense", "edge_super", "e_attr_super",
+                 "super_valid", "src_count", "super_dst_count", "sup_member",
+                 "sup_rank", "sup_abar", "prop_first")
 
-    def __init__(self, f, n_classes=None):
+    def __init__(self, f, n_classes=None, super_family: bool = False):
         bbox_idx = np.asarray(f.bbox_idx, np.int64)
         pos = np.asarray(f.pos, np.float32)
         n_prop = len(np.asarray(f.labels))
@@ -97,6 +123,52 @@ class CompactFile:
         self.root_slot_local = np.repeat(
             np.asarray(f.root_of_cc, np.int32), np.diff(np.asarray(f.cc_slice)))
         self._dense = None
+        for name in ("edge_super", "e_attr_super", "super_valid", "src_count",
+                     "super_dst_count", "sup_member", "sup_rank", "sup_abar",
+                     "prop_first"):
+            setattr(self, name, None)
+        if super_family:
+            self._super_family(f, old2new, n2, new_starts)
+
+    def _super_family(self, f, old2new, n2: int, new_starts) -> None:
+        """The super-edge family and what hangs on it (packing.py:177-235)."""
+        self.src_count = np.bincount(
+            self.edge[:, 0], minlength=n2).astype(np.float32)
+        so = np.argsort(np.asarray(f.edge_super)[:, 1], kind="stable")
+        es = np.ascontiguousarray(
+            old2new[np.asarray(f.edge_super, np.int64)[so]], np.int32)
+        ea = np.ascontiguousarray(
+            np.asarray(f.e_attr_super)[so, 0:4], np.float32)
+        self.edge_super, self.e_attr_super, self.super_valid = _align_runs(
+            es, ea, SUPER_BLOCK)
+        self.super_dst_count = np.bincount(
+            es[:, 1], minlength=n2).astype(np.float32)
+        member = np.zeros(n2, bool)
+        member[es[:, 0]] = True
+        member[es[:, 1]] = True
+        self.sup_member = member
+        # mean attribute of each node's incoming super edges
+        abar = np.zeros((n2, 4), np.float32)
+        if len(es):
+            dst_r = es[:, 1].astype(np.int64)
+            first = np.r_[0, np.flatnonzero(np.diff(dst_r)) + 1]
+            cnts = np.diff(np.r_[first, len(dst_r)])
+            sums = np.add.reduceat(ea, first, axis=0)
+            abar[dst_r[first]] = sums / cnts[:, None]
+        self.sup_abar = abar
+        # rank of each member node among the preceding members of its
+        # proposal (the factored primitive level's denominator)
+        mem_idx = np.flatnonzero(member)
+        rank = np.zeros(n2, np.float32)
+        if len(mem_idx):
+            grp = self.bbox_idx[mem_idx]
+            starts = np.r_[0, np.flatnonzero(np.diff(grp)) + 1]
+            lens = np.diff(np.r_[starts, len(mem_idx)])
+            rank[mem_idx] = (np.arange(len(mem_idx))
+                             - np.repeat(starts, lens)).astype(np.float32)
+        self.sup_rank = rank
+        # the first node row of every proposal
+        self.prop_first = new_starts.astype(np.int32)
 
     def dense_table(self, d_max: int):
         """The file's dense neighbour table (nbr_idx, nbr_attr, nbr_mask)
@@ -120,6 +192,49 @@ class CompactFile:
         nbr_mask[dst, pos_in_run] = True
         self._dense = (d_max, (nbr_idx, nbr_attr, nbr_mask))
         return self._dense[1]
+
+
+def _align_runs(edge: np.ndarray, attr: np.ndarray, block: int):
+    """Pad a dst-sorted edge list so that every dst run's length is a
+    multiple of `block`. Pad rows carry the run's dst (the list stays
+    sorted), src = dst, zero attributes, valid False.
+    -> (edge2, attr2, valid) (packing.py:317-345)."""
+    s = len(edge)
+    if s == 0:
+        return edge, attr, np.zeros(0, bool)
+    dst = edge[:, 1].astype(np.int64)
+    first = np.empty(s, bool)
+    first[0] = True
+    np.not_equal(dst[1:], dst[:-1], out=first[1:])
+    starts = np.flatnonzero(first)
+    uniq = dst[starts]
+    cnts = np.diff(np.append(starts, s))
+    acnt = ((cnts + block - 1) // block) * block
+    s2 = int(acnt.sum())
+    new_starts = np.concatenate([[0], np.cumsum(acnt)[:-1]])
+    run = np.cumsum(first) - 1
+    new_row = new_starts[run] + (np.arange(s) - starts[run])
+    edge2 = np.empty((s2, 2), np.int32)
+    edge2[:, 1] = np.repeat(uniq, acnt).astype(np.int32)
+    edge2[:, 0] = edge2[:, 1]
+    attr2 = np.zeros((s2, attr.shape[1]), attr.dtype)
+    valid = np.zeros(s2, bool)
+    edge2[new_row] = edge
+    attr2[new_row] = attr
+    valid[new_row] = True
+    return edge2, attr2, valid
+
+
+def aligned_super_count(f) -> int:
+    """Super-edge rows of `f` after CompactFile's run alignment
+    (packing.py:348-359)."""
+    if isinstance(f, CompactFile):
+        return len(f.edge_super)
+    dst = np.asarray(f.edge_super)[:, 1]
+    if len(dst) == 0:
+        return 0
+    cnts = np.unique(dst, return_counts=True)[1]
+    return int((((cnts + SUPER_BLOCK - 1) // SUPER_BLOCK) * SUPER_BLOCK).sum())
 
 
 def _label_quality(f, labels, n_classes):
@@ -157,14 +272,18 @@ def _label_quality(f, labels, n_classes):
 
 
 def pack_files(files: list, gts: list, whs: list, pad: PadSizes,
-               edge_window: bool = True, ew_transpose: bool = False) -> dict:
+               edge_window: bool = True, ew_transpose: bool = False,
+               super_family: bool = False) -> dict:
     """Concatenate CompactFiles into one padded flat batch (numpy).
 
     Real edge rows fill the END of the edge buffer (padding rows keep dst 0
     at the front), so per-file dst-sorted lists concatenate into a globally
     dst-sorted batch. Attaches the aligned pool plan and, with
     `edge_window`, the edge-window plan; `ew_transpose` adds the part of it
-    that the trainable window ops read (`ops.plans.EW_TRAIN_KEYS`).
+    that the trainable window ops and YOLaT++'s curve level read
+    (`ops.plans.EW_TRAIN_KEYS`). `super_family` (files made with it, a
+    `pad` with `n_super`) adds the super-edge family, `src_count` and the
+    factored fields and that family's banded plan `sew_*`.
     """
     B = pad.n_images
     if len(files) > B:
@@ -174,6 +293,13 @@ def pack_files(files: list, gts: list, whs: list, pad: PadSizes,
     P_tot = sum(f.n_proposals for f in files)
     if N_tot > pad.n_nodes or E_tot > pad.n_edges or P_tot > pad.n_proposals:
         raise ValueError("pad sizes too small for batch contents")
+    if super_family:
+        if any(f.edge_super is None for f in files):
+            raise ValueError("super_family needs CompactFile(f, "
+                             "super_family=True) files")
+        S_tot = sum(len(f.edge_super) for f in files)
+        if S_tot > pad.n_super:
+            raise ValueError("pad sizes too small for batch contents")
 
     batch = {
         "pos": np.zeros((pad.n_nodes, 2), np.float32),
@@ -199,6 +325,19 @@ def pack_files(files: list, gts: list, whs: list, pad: PadSizes,
         "dst_count": np.zeros(pad.n_nodes, np.float32),
         "prop_count": np.zeros(pad.n_proposals, np.float32),
     }
+    if super_family:
+        batch.update({
+            "edge_super": np.zeros((pad.n_super, 2), np.int32),
+            "e_attr_super": np.zeros((pad.n_super, 4), np.float32),
+            "super_mask": np.zeros(pad.n_super, bool),
+            "src_count": np.zeros(pad.n_nodes, np.float32),
+            "super_dst_count": np.zeros(pad.n_nodes, np.float32),
+            "sup_member": np.zeros(pad.n_nodes, bool),
+            "sup_rank": np.zeros(pad.n_nodes, np.float32),
+            "sup_abar": np.zeros((pad.n_nodes, 4), np.float32),
+            "prop_first_row": np.zeros(pad.n_proposals, np.int32),
+        })
+        s_off = pad.n_super - S_tot
 
     n_off = p_off = 0
     e_off = pad.n_edges - E_tot
@@ -222,6 +361,20 @@ def pack_files(files: list, gts: list, whs: list, pad: PadSizes,
                out=batch["root_slot"][p_off:p_off + p])
         batch["dst_count"][n_off:n_off + n] = f.dst_count
         batch["prop_count"][p_off:p_off + p] = f.prop_count
+        if super_family:
+            sn = len(f.edge_super)
+            np.add(f.edge_super, np.int32(n_off),
+                   out=batch["edge_super"][s_off:s_off + sn])
+            batch["e_attr_super"][s_off:s_off + sn] = f.e_attr_super
+            batch["super_mask"][s_off:s_off + sn] = f.super_valid
+            batch["src_count"][n_off:n_off + n] = f.src_count
+            batch["super_dst_count"][n_off:n_off + n] = f.super_dst_count
+            batch["sup_member"][n_off:n_off + n] = f.sup_member
+            batch["sup_rank"][n_off:n_off + n] = f.sup_rank
+            batch["sup_abar"][n_off:n_off + n] = f.sup_abar
+            np.add(f.prop_first, np.int32(n_off),
+                   out=batch["prop_first_row"][p_off:p_off + p])
+            s_off += sn
         g = len(gt_bbox)
         batch["gt_bbox"][img, :g] = gt_bbox
         batch["gt_labels"][img, :g] = gt_labels
@@ -233,6 +386,23 @@ def pack_files(files: list, gts: list, whs: list, pad: PadSizes,
 
     # every proposal run is block-aligned, so no block straddles a segment
     batch.update(pool_plan(batch["bbox_idx"], pad.n_proposals, cap=0))
+    if super_family:
+        # padding proposal slots point at the first padding node row
+        batch["prop_first_row"][p_off:] = n_off
+        np.minimum(batch["prop_first_row"], pad.n_nodes - 1,
+                   out=batch["prop_first_row"])
+        # front pad rows carry dst 0 and every file's region is a multiple
+        # of SUPER_BLOCK rows, so the buffer is block-aligned when its
+        # length is; a buffer that is not gets no plan (packing.py:523-528)
+        try:
+            sup = pool_plan(batch["edge_super"][:, 1], pad.n_nodes,
+                            block=SUPER_BLOCK, cap=0)
+            batch.update({"sup_" + k: v for k, v in sup.items()})
+        except ValueError:
+            pass
+        plan = banded_plan(batch["edge_super"], batch["super_mask"],
+                           batch["e_attr_super"], pad.n_nodes, sortby=1)
+        batch.update({"sew_" + k: v for k, v in plan.items()})
     if edge_window:
         batch.update(edge_window_plan(batch["edge"], batch["edge_mask"],
                                       batch["e_attr"], pad.n_nodes,

@@ -1,7 +1,8 @@
 """One-pass prediction + NMS over a packed batch.
 
-Counterpart of `yolat_tpu/eval/predict.py:78-186` (`make_predict_core`)
-and `yolat_tpu/eval/runner.py:40` (`img_slot_cap`). In eval mode the
+Counterpart of `yolat_tpu/eval/predict.py:78-186` (`make_predict_core`,
+with its dispatch on the arch, :91-113: a YOLaT++ config runs
+`fast_forward_pp`) and `yolat_tpu/eval/runner.py:40` (`img_slot_cap`). In eval mode the
 reference's two passes (roots, then children of background roots) reduce
 to one forward over all proposals plus a selection mask
   keep(p) = is_root(p) or argmax(logits[root_of(p)]) == background,
@@ -14,8 +15,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from yolat_tpu_torch.config import PP_ARCHS
 from yolat_tpu_torch.data.packing import finalize_batch
-from yolat_tpu_torch.eval.fast_forward import fast_forward
+from yolat_tpu_torch.eval.fast_forward import fast_forward, fast_forward_pp
 from yolat_tpu_torch.ops.iou import inflate_boxes
 from yolat_tpu_torch.ops.nms import batched_nms
 
@@ -34,9 +36,9 @@ def make_predict_core(cfg, folded=None, model=None, bf16: bool = False,
                       detections_only: bool = False):
     """Returns predict(batch) -> detections dict, for a tensor batch.
 
-    With `folded` (eval/fast_forward.fold_params) the forward runs the
-    folded-BN engine (bf16 selects its precision); otherwise the eval-mode
-    `model`.
+    With `folded` (eval/fast_forward.fold_params_for) the forward runs
+    the arch's folded-BN engine (bf16 selects its precision); otherwise the
+    eval-mode `model`.
     Output (leading axis = image slot): boxes [B, max_det, 4] pixel xyxy,
     scores [B, max_det], classes [B, max_det] i32, valid [B, max_det];
     unless detections_only, also pred_label/kept [P] and the per-proposal
@@ -45,12 +47,14 @@ def make_predict_core(cfg, folded=None, model=None, bf16: bool = False,
     if folded is None and model is None:
         raise ValueError("make_predict_core needs folded params or the model")
     background = cfg.n_classes - 1
+    engine = (fast_forward_pp if getattr(cfg, "arch", "") in PP_ARCHS
+              else fast_forward)
 
     @torch.no_grad()
     def predict(batch):
         batch = finalize_batch(batch)
         if folded is not None:
-            logits, prop_boxes = fast_forward(folded, batch, bf16=bf16)
+            logits, prop_boxes = engine(folded, batch, bf16=bf16)
         else:
             logits, prop_boxes = model(batch)
 

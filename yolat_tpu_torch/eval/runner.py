@@ -5,7 +5,8 @@ device) on the port's `make_predict_core`: the device runs the forward and
 NMS per batch, the host accumulates the protocol metrics
 (`eval/metrics.Evaluator`). `serve` picks the forward: 'flax' the
 eval-mode module (the parity route; the name is the JAX package's),
-'fast' / 'fast_bf16' the folded-BN engine with its kernels.
+'fast' / 'fast_bf16' the folded-BN engine of cfg's arch with its
+kernels.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ import numpy as np
 import torch
 
 from yolat_tpu_torch.data.packing import to_device
-from yolat_tpu_torch.eval.fast_forward import fold_params
+from yolat_tpu_torch.eval.fast_forward import fold_params_for
 from yolat_tpu_torch.eval.metrics import Evaluator
 from yolat_tpu_torch.eval.predict import img_slot_cap, make_predict_core
 
@@ -29,7 +30,7 @@ def evaluate(cfg, model, loader, max_det: int = 300, verbose: bool = False,
     device = device or next(model.parameters()).device
     was_training = model.training
     model.eval()
-    folded = fold_params(model, device) if serve != "flax" else None
+    folded = fold_params_for(cfg, model, device) if serve != "flax" else None
     ev = Evaluator(cfg.n_classes)
     try:
         for batch in loader:

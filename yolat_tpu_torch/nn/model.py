@@ -38,10 +38,12 @@ import numpy as np
 import torch
 from torch import nn
 
+from yolat_tpu_torch.config import CANONICAL_ARCH, PP_ARCHS, PP_GATES
 from yolat_tpu_torch.nn.conv import AttrEdgeGP2
 from yolat_tpu_torch.nn.layers import (MLP, FusedPoolFusion, MaskedBatchNorm,
                                        init_weights)
 from yolat_tpu_torch.nn.state_dict import (export_state_dict,
+                                           export_state_dict_pp,
                                            load_reference_state_dict)
 from yolat_tpu_torch.ops.fused_pool_train import fused_pool_available
 from yolat_tpu_torch.ops.plans import ew_train_of, plan_of
@@ -220,16 +222,32 @@ def detection_loss(pred_cls, labels, proposal_mask, classifier: str = "softmax",
     return {"loss": loss, "loss_cls": loss}
 
 
-def build_model(cfg) -> SparseCADGCN:
-    """The canonical detector from a `yolat_tpu_torch.config.Config`
-    (yolat_tpu/train/loop.py:47-81)."""
-    if cfg.arch != "centernet3cc_rpn_gp_iter2" or cfg.conv != "attr_edge_gp2":
+def build_model(cfg):
+    """The detector of a `yolat_tpu_torch.config.Config`
+    (yolat_tpu/train/loop.py:47-81): the canonical SparseCADGCN, or
+    YOLaT++ (`nn.yolat_pp.YOLaTPlusPlus`, eval mode only) for an arch of
+    `PP_ARCHS`."""
+    if cfg.conv != "attr_edge_gp2":
         raise NotImplementedError(
-            f"arch {cfg.arch!r} / conv {cfg.conv!r}: this port runs the "
-            "canonical centernet3cc_rpn_gp_iter2 + attr_edge_gp2 detector")
+            f"conv {cfg.conv!r}: this port runs the attr_edge_gp2 conv")
     if cfg.train_layout not in ("sparse", "window", "dense"):
         raise ValueError(f"train_layout {cfg.train_layout!r}: sparse, window "
                          "or dense")
+    if cfg.arch in PP_ARCHS:
+        from yolat_tpu_torch.nn.yolat_pp import YOLaTPlusPlus
+
+        if cfg.fused_head_train or cfg.train_layout == "window":
+            raise NotImplementedError(
+                "YOLaT++ is carried in eval mode: fused_head_train and "
+                "train_layout='window' are training options")
+        return YOLaTPlusPlus(cfg.n_classes, cfg.in_channels, cfg.n_filters,
+                             cfg.n_blocks, cfg.n_blocks_out,
+                             classifier=cfg.classifier, dropout=cfg.dropout,
+                             factored_prim=cfg.pp_factored_prim)
+    if cfg.arch != CANONICAL_ARCH:
+        raise NotImplementedError(
+            f"arch {cfg.arch!r}: this port runs {CANONICAL_ARCH} and "
+            f"YOLaT++ ({', '.join(PP_ARCHS)})")
     return SparseCADGCN(cfg.n_classes, cfg.in_channels, cfg.n_filters,
                         cfg.n_blocks, cfg.n_blocks_out, cfg.classifier,
                         cfg.dropout, cfg.fused_head_train,
@@ -237,10 +255,12 @@ def build_model(cfg) -> SparseCADGCN:
 
 
 @torch.no_grad()
-def seeded_model(cfg, seed: int = 0) -> SparseCADGCN:
+def seeded_model(cfg, seed: int = 0):
     """A random eval-mode detector made from `seed`: Kaiming weights and
     randomised BatchNorm affine terms and running statistics, so folding
-    them is not the identity (smoke checks, profiling, tests)."""
+    them is not the identity (smoke checks, profiling, tests). A YOLaT++
+    model gets its gates opened (0.3, 0.4, 0.5, 0.6): at their initial zero
+    no hierarchy level reaches the logits."""
     model = build_model(cfg)
     gen = torch.Generator().manual_seed(seed)
     init_weights(model, gen)
@@ -251,22 +271,29 @@ def seeded_model(cfg, seed: int = 0) -> SparseCADGCN:
             m.bias.copy_(0.1 * torch.randn(f, generator=gen))
             m.running_mean.copy_(0.2 * torch.randn(f, generator=gen))
             m.running_var.copy_(0.5 + torch.rand(f, generator=gen))
+    if cfg.arch in PP_ARCHS:
+        for i, g in enumerate(PP_GATES):
+            getattr(model, g).fill_(0.3 + 0.1 * i)
     return model.eval()
 
 
-def _load_numpy_state(model: SparseCADGCN, sd: dict) -> SparseCADGCN:
+def _load_numpy_state(model, sd: dict):
     model.load_state_dict({k: torch.from_numpy(np.array(v, copy=True))
                            for k, v in sd.items()}, strict=True)
     return model
 
 
-def load_jax_variables(model: SparseCADGCN, variables) -> SparseCADGCN:
+def load_jax_variables(model, variables):
     """JAX flax variables (numpy leaves) -> the port's weights, through the
-    reference state dict (`export_state_dict`)."""
-    return _load_numpy_state(model, export_state_dict(
-        variables, n_blocks=model.n_blocks))
+    reference state dict (`export_state_dict`) or, for a YOLaT++ model,
+    `export_state_dict_pp`."""
+    export = (export_state_dict if isinstance(model, SparseCADGCN)
+              else export_state_dict_pp)
+    return _load_numpy_state(model, export(variables,
+                                           n_blocks=model.n_blocks))
 
 
-def load_reference_checkpoint(model: SparseCADGCN, path: str) -> SparseCADGCN:
-    """Load a reference-format `.pth` ({'state_dict': ...}) strictly."""
+def load_reference_checkpoint(model, path: str):
+    """Load a reference-format `.pth` ({'state_dict': ...}) strictly; for a
+    YOLaT++ model the keys are its own state dict's."""
     return _load_numpy_state(model, load_reference_state_dict(path))

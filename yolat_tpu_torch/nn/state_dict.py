@@ -4,7 +4,10 @@ Counterpart of `yolat_tpu/train/import_reference.py` (`strip_module_prefix`
 :36-41, `_export_mlp`/`_export_linear`/`export_state_dict` :138-201,
 `load_reference_state_dict` :234-251). The port's modules carry the
 reference SparseCADGCN's names, so these state dicts load with
-`load_state_dict(strict=True)`.
+`load_state_dict(strict=True)`. The reference ships no YOLaT++ model, so
+`export_state_dict_pp` maps the JAX module's flat tree
+(`yolat_tpu/nn/yolat_pp.py`; `AttrEdgeGP2_{i}` at the top, not under
+`cls_net`) onto the names of `nn.yolat_pp.YOLaTPlusPlus`.
 """
 
 from __future__ import annotations
@@ -13,6 +16,8 @@ from typing import Mapping
 
 import numpy as np
 import torch
+
+from yolat_tpu_torch.config import PP_GATES
 
 
 def strip_module_prefix(sd: Mapping) -> dict:
@@ -74,6 +79,38 @@ def export_state_dict(variables: Mapping, n_blocks: int = 2) -> dict:
         out.update(_export_mlp(params[f"pred_{k}"], stats.get(f"pred_{k}", {}),
                                f"prediction_cls.{k}"))
         k += 1
+    return out
+
+
+PP_MLPS = ("fusion_block", "fusion_block_super", "point_pe_mlp", "curve_mlp",
+           "super_edge_mlp", "super_fact_mlp", "super_node_mlp")
+
+
+def export_state_dict_pp(variables: Mapping, n_blocks: int = 2) -> dict:
+    """JAX flax variables of a YOLaTPlusPlus ({'params', 'batch_stats'},
+    numpy leaves) -> the state dict of `nn.yolat_pp.YOLaTPlusPlus` (numpy
+    leaves). A checkpoint holds `super_edge_mlp` or `super_fact_mlp`;
+    whichever is there comes through."""
+    params = variables["params"]
+    stats = variables.get("batch_stats", {})
+    out: dict = {}
+    for i in range(n_blocks):
+        name, ref = f"AttrEdgeGP2_{i}", f"convs.{i}"
+        p, s = params[name], stats.get(name, {})
+        out.update(_export_mlp(p["nn"], s.get("nn", {}), f"{ref}.nn"))
+        out.update(_export_linear(p["lin_r"], f"{ref}.lin_r"))
+        out.update(_export_mlp(p["mlp_node"], s.get("mlp_node", {}),
+                               f"{ref}.mlp_node"))
+    for name in PP_MLPS:
+        if name in params:
+            out.update(_export_mlp(params[name], stats.get(name, {}), name))
+    k = 0
+    while f"pred_{k}" in params:
+        out.update(_export_mlp(params[f"pred_{k}"], stats.get(f"pred_{k}", {}),
+                               f"prediction_cls.{k}"))
+        k += 1
+    for g in PP_GATES:
+        out[g] = np.asarray(params[g], np.float32).reshape(())
     return out
 
 

@@ -29,7 +29,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "yolat_tpu_torch")
 SOURCES = ("edge_window.cu", "block_max.cu", "fused_pool_train.cu",
-           "edge_window_train.cu", "dense_message.cu")
+           "edge_window_train.cu", "dense_message.cu", "banded_message.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
@@ -41,7 +41,8 @@ launch_counts = {"edge_window_message_sum": 0, "folded_mlp_block_max2": 0,
                  "folded_mlp_block_max": 0, "fused_pool_train_bwd": 0,
                  "fused_dense_message": 0, "ew_pair_features": 0,
                  "ew_pair_features_bwd": 0, "ew_window_segment_sum": 0,
-                 "ew_window_segment_sum_bwd": 0}
+                 "ew_window_segment_sum_bwd": 0, "banded_message_sum": 0,
+                 "banded_message_sum_both": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -142,6 +143,10 @@ def library() -> ctypes.CDLL:
         lib.yk_fused_dense_message.restype = i
         lib.yk_dense_message_smem_bytes.argtypes = [i] * 2
         lib.yk_dense_message_smem_bytes.restype = ctypes.c_long
+        lib.yk_banded_message_sum.argtypes = [p] * 18 + [i] * 6 + [p]
+        lib.yk_banded_message_sum.restype = i
+        lib.yk_banded_message_smem_bytes.argtypes = [i] * 2
+        lib.yk_banded_message_smem_bytes.restype = ctypes.c_long
         lib.yk_error_string.argtypes = [i]
         lib.yk_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -1,5 +1,5 @@
-"""Pack-time plans (numpy only): the two-level pool plan and the
-edge-window plan.
+"""Pack-time plans (numpy only): the two-level pool plan, the edge-window
+plan and the banded-message plans.
 
 Counterparts of `yolat_tpu/ops/segment.py:26-131` (`POOL_BLOCK`,
 `pool_plan`, `plan_of`, `_plan_aligned`), with identical
@@ -18,6 +18,19 @@ With `transpose` the plan also carries what the trainable window ops
 the dst-sorted list, and the list's transpose by source (a stable argsort
 of the sources with per-node offsets), so that the backward of the pair
 gather sums each node's out-edges in a fixed order, without float atomics.
+
+The banded-message plans (`yolat_tpu/ops/banded_message.py:75-178`,
+`banded_plan` and `bm_of`) feed kernels 5 and 6 (`ops/banded_message.py`).
+They too take the CUDA kernels' shape: the family's real edges, stably
+sorted by the endpoint that is summed at, with absolute node rows,
+per-node offsets and node ranges for the thread blocks. The TPU plan
+exists only inside a band (other endpoint within 128 rows of the own
+512-row window, node count a multiple of the window, a block cap) and
+`banded_plan` returns None outside it; a row gather has no band, so every
+edge list has a plan. YOLaT++'s curve family is the conv's edge family:
+its dst-sorted plan (`cwd_`) is the edge-window plan and its src-sorted
+plan (`cws_`) that plan's transpose, so `bm_of` reads both from the `ew_`
+keys and only the super-edge clique family (`sew_`) is packed anew.
 """
 
 from __future__ import annotations
@@ -32,6 +45,11 @@ EW_TRAIN_KEYS = ("ew_dptr", "ew_sperm", "ew_sptr")
 # ew_wn_tag is a zeros[(wn,)] marker whose shape records the window size
 EW_BATCH_KEYS = EW_KEYS + EW_TRAIN_KEYS + ("ew_wn_tag",)
 WN_DEFAULT = 256
+
+SUPER_BLOCK = 4   # super-edge dst runs are padded to this many rows
+SEW_KEYS = ("sew_own", "sew_oth", "sew_attr", "sew_nptr", "sew_cnode")
+# edges + nodes one thread block of kernel 5 takes from the clique family
+SEW_BLOCK_WORK = 512
 
 
 def pool_plan(segment_ids: np.ndarray, num_segments: int,
@@ -78,6 +96,19 @@ def plan_of(batch: dict):
     return (batch["pool_blk_first"], batch["pool_blk_full"],
             batch["pool_bnd_rows"], batch["pool_bnd_seg"],
             batch["pool_bnd_mask"])
+
+
+def sup_plan_of(batch: dict):
+    """The pool plan over the SUPER_BLOCK-aligned super-edge runs
+    (`sup_pool_*`), or None when absent or stale (super-edge buffer no
+    longer NB * SUPER_BLOCK rows)."""
+    if "sup_pool_blk_first" not in batch:
+        return None
+    if (batch["sup_pool_blk_first"].shape[0] * SUPER_BLOCK
+            != batch["edge_super"].shape[0]):
+        return None
+    return tuple(batch[f"sup_pool_{k}"] for k in (
+        "blk_first", "blk_full", "bnd_rows", "bnd_seg", "bnd_mask"))
 
 
 def plan_aligned(plan) -> bool:
@@ -154,3 +185,105 @@ def ew_train_of(batch: dict):
         return None
     return (batch["ew_src"], batch["ew_dst"]) + tuple(
         batch[k] for k in EW_TRAIN_KEYS)
+
+
+def banded_plan(edge, mask, attr, n_nodes: int, sortby: int = 1,
+                block_work: int = SEW_BLOCK_WORK) -> dict:
+    """The real edges of one family, stably sorted by the endpoint
+    `sortby` (1 = dst) at which kernel 5 sums:
+
+      own   [E] i32       the sorted endpoint's node row (ascending)
+      oth   [E] i32       the other endpoint's node row
+      attr  [E, A] f32    edge attributes
+      nptr  [N + 1] i32   node v's edges are rows nptr[v]:nptr[v + 1]
+      cnode [NC + 1] i32  thread block k takes nodes cnode[k]:cnode[k + 1]
+
+    The node ranges hold about `block_work` edges plus nodes each and never
+    split a node, so a node's sum is formed by one block in list order: dense
+    cliques and long edge-free stretches cost a block the same. A node with
+    more edges than that ends its range, which holds less than one more
+    share beside it. Rows where `mask` is False
+    (buffer padding, run-alignment pad rows) are left out. Raises ValueError
+    on an endpoint outside [0, n_nodes).
+    """
+    edge = np.asarray(edge)
+    idx = np.nonzero(np.asarray(mask, bool))[0]
+    key = edge[idx, sortby].astype(np.int64)
+    order = idx[np.argsort(key, kind="stable")]
+    own = edge[order, sortby].astype(np.int64)
+    oth = edge[order, 1 - sortby].astype(np.int64)
+    if len(order) and (min(own.min(), oth.min()) < 0
+                       or max(own.max(), oth.max()) >= n_nodes):
+        raise ValueError(f"edge endpoints outside [0, {n_nodes})")
+    nptr = np.concatenate(
+        [[0], np.cumsum(np.bincount(own, minlength=n_nodes))])
+    # work up to node v: its edges' offset plus v; strictly increasing, so
+    # the cuts are distinct nodes
+    work = nptr + np.arange(n_nodes + 1)
+    cuts = np.searchsorted(work, np.arange(0, work[-1], block_work))
+    cnode = np.unique(np.append(cuts, n_nodes))
+    return {"own": own.astype(np.int32), "oth": oth.astype(np.int32),
+            "attr": np.ascontiguousarray(np.asarray(attr, np.float32)[order]),
+            "nptr": nptr.astype(np.int32), "cnode": cnode.astype(np.int32)}
+
+
+class BandedPlan(tuple):
+    """What kernels 5 and 6 read of one edge family, as a tuple
+    (own, oth, attr, perm, nptr, cnode, wn, tperm, tptr):
+
+      own, oth, attr  the edge rows' summed-at endpoint, other endpoint and
+                      attributes;
+      perm            None when the rows are already sorted by `own`, else
+                      the [E] i32 row order that sorts them (position i of
+                      the sorted list is row perm[i]);
+      nptr [N + 1]    per-node offsets into the sorted list;
+      cnode, wn       the thread blocks' node ranges: explicit [NC + 1]
+                      cuts, or (cnode None) windows of wn nodes;
+      tperm, tptr     the sorted list's transpose by the other endpoint
+                      (kernel 6's second sum), or None.
+    """
+
+    __slots__ = ()
+    own, oth, attr, perm, nptr, cnode, wn, tperm, tptr = (
+        property(lambda self, i=i: self[i]) for i in range(9))
+
+    @property
+    def n_edges(self) -> int:
+        return self.own.shape[0]
+
+    def rows(self):
+        """(own, oth, attr) in the sorted order, as long indices."""
+        if self.perm is None:
+            return self.own.long(), self.oth.long(), self.attr
+        p = self.perm.long()
+        return self.own.long()[p], self.oth.long()[p], self.attr[p]
+
+
+def bm_of(batch: dict, prefix: str):
+    """The banded plan of an edge family of a tensor batch, or None when
+    absent or stale (node count no longer the offsets' length - 1):
+      'sew_'  the super-edge clique family, sorted by dst (packed keys);
+      'cwd_'  the conv's edge family sorted by dst: the edge-window plan
+              with its transpose (kernel 6 sums at the sources through it);
+      'cws_'  the same rows sorted by src: that plan read through
+              `ew_sperm` / `ew_sptr`, own and other endpoint swapped.
+    """
+    n = batch["pos"].shape[0] if "pos" in batch else batch["x"].shape[0]
+    if prefix == "sew_":
+        if any(k not in batch for k in SEW_KEYS) \
+                or batch["sew_nptr"].shape[0] != n + 1:
+            return None
+        return BandedPlan((batch["sew_own"], batch["sew_oth"],
+                           batch["sew_attr"], None, batch["sew_nptr"],
+                           batch["sew_cnode"], 0, None, None))
+    if prefix not in ("cwd_", "cws_"):
+        raise ValueError(f"banded plan family {prefix!r}: sew_, cwd_ or cws_")
+    ew = ew_of(batch)
+    if ew is None or ew_train_of(batch) is None:
+        return None
+    src, dst, attr, _, wn = ew
+    if prefix == "cwd_":
+        return BandedPlan((dst, src, attr, None, batch["ew_dptr"], None, wn,
+                           batch["ew_sperm"], batch["ew_sptr"]))
+    return BandedPlan((src, dst, attr, batch["ew_sperm"], batch["ew_sptr"],
+                       None, wn, None, None))

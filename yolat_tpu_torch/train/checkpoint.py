@@ -9,7 +9,11 @@ removed; `restore(tag)` loads one back. Also the reference `.pth` side of
 `yolat_tpu/train/import_reference.py`: `save_reference_checkpoint`
 writes {'state_dict': ...} in the reference's names, and
 `state_from_pth` loads a reference `.pth` into a model (the optimizer
-stays fresh: torch Adam moments of another run are not carried).
+stays fresh: torch Adam moments of another run are not carried). All of
+it works on the model's own state dict, so a YOLaT++ model
+(`nn.yolat_pp.YOLaTPlusPlus`, for which the reference has no format) is
+saved and restored the same way, under its own keys; a checkpoint of the
+other primitive-level variant fails the strict load.
 """
 
 from __future__ import annotations

@@ -25,6 +25,7 @@ import time
 
 import torch
 
+from yolat_tpu_torch.config import PP_ARCHS
 from yolat_tpu_torch.data.dataset import SESYDDataset
 from yolat_tpu_torch.data.loader import PackedLoader
 from yolat_tpu_torch.data.packing import to_device
@@ -63,6 +64,10 @@ def run_training(cfg, device, exp_dir: str | None = None,
     train_seconds (wall time of the train steps, synchronised), losses
     (every step's loss) and eval_batches (batches evaluated in all)."""
     device = torch.device(device)
+    if cfg.arch in PP_ARCHS:
+        raise NotImplementedError(
+            f"arch {cfg.arch!r}: YOLaT++ is carried for serving (cli.infer, "
+            "cli.test); its training path is not carried yet")
     if cfg.train_layout == "window" and cfg.drop_edge > 0.0:
         raise ValueError(
             "train_layout 'window' with drop_edge > 0: the edge-window plan "
