@@ -88,12 +88,44 @@ no jax. Phases, each of which raises on failure (non-zero exit):
      `cli.infer --profile yolat_pp_fast` (the factored checkpoint: kernel 6
      and no launch of kernel 5) on the 8 SVGs, and `cli.test --arch
      yolat_pp` on the train phase's test split (finite AP table).
+ 14. banded train kernels: on the bench batch packed for the banded
+     YOLaT++ training route (the `sew_` plan with its transpose) and the
+     conv stack's real activations [72704, 64], kernels 7, 7b, 8, 8b, f32
+     and bf16: the gathers (7, 8b) exact against their plain versions; the
+     sums (8, 7b) against the float64 sum of the same terms within the
+     a-priori bound of an f32 sum in any order, (k - 1) 2^-24 sum|terms|
+     for the most terms k any node adds, plus one rounding of the output
+     where it is bf16, beside the readings of two planted faults (own and other
+     endpoint swapped, one row dropped); each twice, bit-identical; an
+     empty family (E = 0) through all four; rows per node and per thread
+     block on both sides; paired median times, the library call's time
+     (`index_select`, `index_add_`) and the bound;
+ 15. pp train route: the train-mode YOLaT++ module on its banded route
+     (kernels 7 and 8 with their backward kernels) against its sparse route
+     on the same weights and batch, f32 and bf16: `prim_at_node`,
+     `super_edge_mlp`'s batch statistics, and the gradients of a fixed
+     random cotangent on `prim_at_node` (relative Frobenius error: values
+     and statistics 1e-5 at f32 and 2e-3 at bf16; gradients, which a
+     flipped ReLU gate moves and which the sparse route's gather sums in
+     bf16 at bf16, 5e-3 and 6e-2), the ReLU gates that differ
+     between the routes counted; two planted faults in the banded backward
+     must read above the limit;
+ 16. pp train: `cli.train --arch yolat_pp` at bf16 for a few steps on the
+     SVGs of phase 6, with an evaluation and a checkpoint, on the per-edge
+     sparse route, with `--pp_banded_super true --fused_head_train true`
+     and with `--profile yolat_pp_fast`: losses finite and falling,
+     kernels 7, 7b, 8, 8b launched exactly on the banded run (forward once
+     per step and per evaluated batch, backward once per step) and kernels
+     3 and 11 exactly on the fused run; then `cli.test` restores the
+     banded run's checkpoint (fast_bf16: kernels 1, 2, 5, 6) and the
+     factored one (the eval-mode module).
 Everything it runs comes from yolat_tpu_torch, the synthetic SVG writer
 included: it imports neither jax nor the JAX package yolat_tpu.
 The kernels line (a JSON object describing each kernel; launches are
 counted over the path that runs it, with the counts set to 0 just before:
 phase 4 for the serving kernels, phase 6 for the fused head's, phase 10 for
-kernels 9, 10 and 4, phase 13's first `cli.infer` run for kernels 5 and 6)
+kernels 9, 10 and 4, phase 13's first `cli.infer` run for kernels 5 and 6,
+phase 16's banded run for kernels 7 and 8)
 comes before the nvidia-smi line; the last line is
 {"ok": true, "device": {...}}. Each kernel's bound_ms is the larger of its
 bytes (each input read once, each output written once) over 3.35 TB/s and
@@ -129,6 +161,10 @@ N_BLOCKS = 2
 CONV_TOL = {"f32": (1e-5, 5e-3), "bf16": (1e-4, 2e-2)}
 # max|err| / max|ref| of kernels 5 and 6 against their plain versions
 BANDED_TOL = {"f32": 1e-5, "bf16": 5e-4}
+PP_TRAIN_STEPS = 6
+# relative Frobenius limits, banded YOLaT++ route vs sparse route:
+# (prim_at_node and BN statistics, gradients)
+PP_ROUTE_TOL = {"f32": (1e-5, 5e-3), "bf16": (2e-3, 6e-2)}
 # the H100 SXM data sheet's peaks: HBM bytes/s, float32 and dense bf16 FLOP/s
 PEAK_BYTES, PEAK_F32, PEAK_BF16 = 3.35e12, 67e12, 989e12
 
@@ -1354,6 +1390,416 @@ def pp_serve_phase(root, test_root, ckpts, work, dev_line):
     return main_counts
 
 
+def banded_train_kernel_phase(model, batch, dev_line):
+    """Kernels 7, 7b, 8, 8b against their plain versions and the float64
+    sums at the banded train step's shapes; returns {kernel name: entry}
+    (ms at bf16; each runs once per step)."""
+    import numpy as np
+    import torch
+
+    from yolat_tpu_torch.ops import _build
+    from yolat_tpu_torch.ops import banded_train as bt
+    from yolat_tpu_torch.ops.banded_message import plan_tensors
+    from yolat_tpu_torch.ops.plans import banded_plan, bm_of
+
+    bm = bm_of(batch, "sew_")
+    check(bm is not None and bm.tperm is not None,
+          "the batch carries the sew_ plan with its transpose")
+    own, oth, nptr, tperm, tptr = bm.own, bm.oth, bm.nptr, bm.tperm, bm.tptr
+    ownl, othl = own.long(), oth.long()
+    s_f = _pp_activations(model, batch)
+    n, c = s_f.shape
+    e = bm.n_edges
+    check(e == int(batch["super_mask"].sum()), "the plan holds the real edges")
+    dev = s_f.device
+
+    # one warp per node: the rows a warp adds, and a thread block's 8 warps
+    for side, ptr in (("own (nptr)", nptr), ("other (tptr)", tptr)):
+        deg = (ptr[1:] - ptr[:-1]).float()
+        blk = torch.nn.functional.pad(deg, (0, -n % 8)).reshape(-1, 8).sum(1)
+        print(f"banded train plan, {side} side: {e} rows over {n} nodes, "
+              f"{int((deg > 0).sum())} nodes with rows, largest run "
+              f"{int(deg.max())}, median of the others' "
+              f"{float(deg[deg > 0].median()):.0f}; per thread block of 8 "
+              f"nodes: largest {int(blk.max())} rows, median "
+              f"{float(blk[blk > 0].median()):.0f}")
+    # the most terms any node's sums add: its own run plus its other run
+    k_max = int(((nptr[1:] - nptr[:-1]) + (tptr[1:] - tptr[:-1])).max())
+
+    names = ("banded_gather", "banded_gather_bwd", "banded_scatter_own",
+             "banded_scatter_own_bwd")
+    res = {k: dict(max_abs_err=0.0) for k in names}
+    gen = torch.Generator(device=dev).manual_seed(14)
+
+    def note(name, dt, err, ok, limit, ms, pms, lms, b):
+        tag = "f32" if dt == torch.float32 else "bf16"
+        print(f"kernel {name} {tag} C={c} N={n} E={e}: max_abs_err={err:.3e} "
+              f"({limit}) {'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms, plain "
+              f"{pms:.4f} ms, library {lms:.4f} ms, bound "
+              f"{b['bound_ms']:.4f} ms ({b['bound_by']}) [{dev_line}]")
+        check(ok, f"{name} {tag} disagrees")
+        r = res[name]
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        if dt == torch.bfloat16:
+            r.update(ms=ms, plain_ms=pms, library_ms=lms)
+            add_bound(r, b)
+
+    def sum_check(got, terms, want_plain, out_bf16):
+        """got [n, c] against the float64 sum of `terms` (([E, c], index)
+        pairs) -> (max |err| against the plain version, within the limit,
+        the limit and the planted faults' readings as text)."""
+        want = torch.zeros(n, c, dtype=torch.float64, device=dev)
+        mass = torch.zeros_like(want)
+        for t, i in terms:
+            want.index_add_(0, i, t.double())
+            mass.index_add_(0, i, t.double().abs())
+        lim = (k_max - 1) * 2.0 ** -24 * mass + 1e-30
+        if out_bf16:
+            lim = lim + 2.0 ** -8 * want.abs()
+        err64 = (got.double() - want).abs()
+        ok = bool((err64 <= lim).all())
+        # planted faults: endpoints swapped; the last row dropped
+        swapped = torch.zeros_like(want)
+        for t, i in terms:
+            swapped.index_add_(0, othl if i is ownl else ownl, t.double())
+        t0, i0 = terms[0]
+        dropped = want.clone().index_add_(0, i0[-1:], -t0[-1:].double())
+        faults = [((f - want).abs() / lim).max().item()
+                  for f in (swapped, dropped)]
+        text = (f"float64 sum of the same terms: largest |err| / limit "
+                f"{(err64 / lim).max().item():.3f} (<= 1; limit = "
+                f"{k_max - 1} x 2^-24 x sum|terms|"
+                f"{' + 2^-8 |ref|' if out_bf16 else ''}; endpoints swapped "
+                f"reads {faults[0]:.3g}, one row dropped {faults[1]:.3g}), "
+                f"two runs bit-identical")
+        check(min(faults) > 1.0, "a planted fault passes the limit")
+        return (got.float() - want_plain.float()).abs().max().item(), ok, text
+
+    for dt in (torch.float32, torch.bfloat16):
+        s = 4 if dt == torch.float32 else 2
+        x = s_f.to(dt)
+        # kernel 7: copies, exact
+        got = bt.gather_fwd(x, own, oth)
+        again = bt.gather_fwd(x, own, oth)
+        want = bt.gather_plain(x, own, oth)
+        torch.cuda.synchronize()
+        ok = all(torch.equal(a, b) and torch.equal(a, w)
+                 for a, b, w in zip(got, again, want))
+        check(not torch.equal(got[0], got[1]), "own and other rows differ")
+        err = max((a.float() - w.float()).abs().max().item()
+                  for a, w in zip(got, want))
+        ms, pms = paired_ms(lambda: bt.gather_fwd(x, own, oth),
+                            lambda: bt.gather_plain(x, own, oth))
+        lms = _library_ms(lambda: (x.index_select(0, ownl),
+                                   x.index_select(0, othl)))
+        note("banded_gather", dt, err, ok, "exact, two runs bit-identical",
+             ms, pms, lms, bound(s * (n * c + 2 * e * c) + 8 * e, 0.0, PEAK_F32))
+
+        # kernel 7b: two sums per node, rounded once to dt
+        g_own = torch.randn(e, c, device=dev, generator=gen).to(dt)
+        g_oth = torch.randn(e, c, device=dev, generator=gen).to(dt)
+        args = (g_own, g_oth, own, oth, nptr, tperm, tptr, n)
+        dx, dx2 = bt.gather_bwd(*args), bt.gather_bwd(*args)
+        want = bt.gather_bwd_plain(g_own, g_oth, own, oth, n)
+        torch.cuda.synchronize()
+        err, ok, text = sum_check(dx, [(g_own, ownl), (g_oth, othl)], want,
+                                  dt == torch.bfloat16)
+        ok = ok and torch.equal(dx, dx2) and dx.dtype == dt
+        ms, pms = paired_ms(lambda: bt.gather_bwd(*args),
+                            lambda: bt.gather_bwd_plain(g_own, g_oth, own,
+                                                        oth, n))
+        gf_own, gf_oth = g_own.float(), g_oth.float()
+        lms = _library_ms(lambda: torch.zeros(n, c, device=dev).index_add_(
+            0, ownl, gf_own).index_add_(0, othl, gf_oth))
+        note("banded_gather_bwd", dt, err, ok, text, ms, pms, lms,
+             bound(s * (2 * e * c + n * c) + 4 * (2 * (n + 1) + e),
+                   2 * e * c, PEAK_F32))
+
+        # kernel 8: one sum per node, f32
+        rows = torch.randn(e, c, device=dev, generator=gen).to(dt)
+        out = bt.scatter_own_fwd(rows, own, nptr, n)
+        out2 = bt.scatter_own_fwd(rows, own, nptr, n)
+        want = bt.scatter_own_plain(rows, own, n)
+        torch.cuda.synchronize()
+        err, ok, text = sum_check(out, [(rows, ownl)], want, False)
+        ok = ok and torch.equal(out, out2) and out.dtype == torch.float32
+        ms, pms = paired_ms(lambda: bt.scatter_own_fwd(rows, own, nptr, n),
+                            lambda: bt.scatter_own_plain(rows, own, n))
+        rf = rows.float()
+        lms = _library_ms(lambda: torch.zeros(n, c, device=dev).index_add_(
+            0, ownl, rf))
+        note("banded_scatter_own", dt, err, ok, text, ms, pms, lms,
+             bound(s * e * c + 4 * (n + 1) + 4 * n * c, e * c, PEAK_F32))
+
+        # kernel 8b: a gather of the f32 cotangent, rounded to dt: exact
+        g = torch.randn(n, c, device=dev, generator=gen)
+        d_rows = bt.scatter_own_bwd(g, own, dt)
+        d_rows2 = bt.scatter_own_bwd(g, own, dt)
+        want = bt.scatter_own_bwd_plain(g, own, dt)
+        torch.cuda.synchronize()
+        ok = torch.equal(d_rows, want) and torch.equal(d_rows, d_rows2)
+        err = (d_rows.float() - want.float()).abs().max().item()
+        ms, pms = paired_ms(lambda: bt.scatter_own_bwd(g, own, dt),
+                            lambda: bt.scatter_own_bwd_plain(g, own, dt))
+        lms = _library_ms(lambda: g.index_select(0, ownl))
+        note("banded_scatter_own_bwd", dt, err, ok,
+             "exact, two runs bit-identical", ms, pms, lms,
+             bound(4 * n * c + 4 * e + s * e * c, 0.0, PEAK_F32))
+
+    # an empty family: no launch, zero sums, empty gathers
+    empty = plan_tensors(banded_plan(
+        np.zeros((4, 2), np.int32), np.zeros(4, bool),
+        np.zeros((4, 4), np.float32), n, transpose=True), dev)
+    before = dict(_build.launch_counts)
+    xt = s_f.clone().requires_grad_(True)
+    a, b = bt.banded_gather(xt, empty)
+    rt = torch.zeros(0, c, device=dev, requires_grad=True)
+    total = bt.banded_scatter_own(rt, empty, n)
+    (a.sum() + b.sum() + total.sum()).backward()
+    torch.cuda.synchronize()
+    check(a.shape == b.shape == (0, c) and total.shape == (n, c)
+          and not total.any() and not xt.grad.any()
+          and rt.grad.shape == (0, c)
+          and before == dict(_build.launch_counts),
+          "an empty family goes through all four without a launch")
+    print("banded train kernels, E = 0: empty gathers, zero sums and "
+          "gradients, no launch")
+    return res
+
+
+def _pp_prim_run(model, batch, dt, cot, patch=None):
+    """One train-mode forward of a copy of `model` at `dt` up to
+    prim_at_node and the backward of (prim * cot).sum(): prim_at_node,
+    super_edge_mlp's running statistics, its ReLU gates, the gradients."""
+    import copy
+
+    import torch
+
+    from yolat_tpu_torch.nn import yolat_pp as pp_mod
+    from yolat_tpu_torch.train.loop import _COMPUTE_KEYS
+
+    m = copy.deepcopy(model).train()
+    leaves = {k: p.detach().clone().requires_grad_(True)
+              for k, p in m.named_parameters()}
+    cast = {k: (p.to(dt) if p.dtype == torch.float32 else p)
+            for k, p in leaves.items()}
+    b = {k: (v.to(dt) if k in _COMPUTE_KEYS else v) for k, v in batch.items()}
+    gates, probes = [], {}
+    hook = m.super_edge_mlp[2].register_forward_hook(
+        lambda mod, a, out: gates.append(out.detach() > 0))
+    sound = {k: getattr(pp_mod, k) for k in (patch or {})}
+    for k, fn in (patch or {}).items():
+        setattr(pp_mod, k, fn)
+    try:
+        torch.func.functional_call(m, cast, (b,), {"probes": probes})
+    finally:
+        for k, fn in sound.items():
+            setattr(pp_mod, k, fn)
+    hook.remove()
+    prim = probes["prim_at_node"]
+    (prim.float() * cot).sum().backward()
+    torch.cuda.synchronize()
+    bn = m.super_edge_mlp[1]
+    out = {"prim_at_node": prim.detach(), "running_mean": bn.running_mean,
+           "running_var": bn.running_var}
+    out.update({f"d {k}": p.grad for k, p in leaves.items()
+                if p.grad is not None})
+    return out, gates[0]
+
+
+def pp_train_route_phase(model, batch, dev_line):
+    """The train-mode module's banded route against its sparse route."""
+    import torch
+
+    from yolat_tpu_torch.ops import banded_train as bt
+
+    sparse = model
+    import copy
+    banded = copy.deepcopy(model)
+    banded.banded_super = True
+    maskf = batch["node_mask"].float()[:, None]
+    n, c = batch["pos"].shape[0], model.super_edge_mlp[0].weight.shape[0]
+    cot = torch.randn(n, c, generator=torch.Generator().manual_seed(15)
+                      ).to(maskf.device) * maskf
+    real = batch["super_mask"].nonzero()[:, 0]  # plan row r = buffer row real[r]
+    check(torch.equal(batch["edge_super"][real, 1], batch["sew_own"])
+          and torch.equal(batch["edge_super"][real, 0], batch["sew_oth"]),
+          "the plan's rows are the buffer's real rows in order")
+
+    # planted faults in the banded backward: kernel 7's backward without
+    # its sum at the other endpoint; kernel 8's backward reading the
+    # cotangent at the other endpoint
+    class NoOthSum(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, bm):
+            ctx.bm, ctx.n = bm, x.shape[0]
+            return bt.gather_fwd(x, bm.own, bm.oth)
+
+        @staticmethod
+        def backward(ctx, g_own, g_oth):
+            bm = ctx.bm
+            return bt.gather_bwd(g_own, torch.zeros_like(g_oth), bm.own,
+                                 bm.oth, bm.nptr, bm.tperm, bm.tptr,
+                                 ctx.n), None
+
+    class SumBwdAtOth(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, rows, bm, n):
+            ctx.bm, ctx.dtype = bm, rows.dtype
+            return bt.scatter_own_fwd(rows, bm.own, bm.nptr, n)
+
+        @staticmethod
+        def backward(ctx, g):
+            return bt.scatter_own_bwd(g.float(), ctx.bm.oth, ctx.dtype), None, None
+
+    # every Dense bias below prim_at_node feeds train-mode BatchNorms only:
+    # its gradient is structurally zero, noise on both routes
+    dead = {f"d {k}.bias" for k, m in model.named_modules()
+            if isinstance(m, torch.nn.Linear)}
+    faults = {"no_oth_sum": {"banded_gather": NoOthSum.apply},
+              "sum_bwd_at_oth": {"banded_scatter_own": SumBwdAtOth.apply}}
+    for dt in (torch.float32, torch.bfloat16):
+        name = "f32" if dt == torch.float32 else "bf16"
+        ref, g_sparse = _pp_prim_run(sparse, batch, dt, cot)
+        got, g_banded = _pp_prim_run(banded, batch, dt, cot)
+
+        def rel_to_sparse(run):
+            return {k: _rel(v, ref[k]) for k, v in run.items()
+                    if k not in dead}
+
+        errs = rel_to_sparse(got)
+        flips = int((g_sparse[real] != g_banded).sum())
+        check(set(got) == set(ref) and len(got) > 12, "the same gradients")
+        check(all(torch.isfinite(v.float()).all() for v in got.values()),
+              "finite values on the banded route")
+        tol_fwd, tol_grad = PP_ROUTE_TOL[name]
+        print(f"pp train route {name}, banded vs sparse (N={n}, "
+              f"{real.shape[0]} super edges), relative Frobenius error "
+              f"(prim_at_node and statistics <= {tol_fwd:g}, gradients <= "
+              f"{tol_grad:g}; the Dense biases, which feed BatchNorms only, "
+              f"left out): "
+              + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+              + f"; ReLU gates that differ between the routes: {flips} of "
+              f"{g_banded.numel()} [{dev_line}]")
+        check(all(v <= (tol_grad if k.startswith("d ") else tol_fwd)
+                  for k, v in errs.items()),
+              f"pp train route {name}: banded disagrees with sparse")
+        check(got["d convs.1.nn.0.weight"].abs().max().item() > 0
+              and got["d super_edge_mlp.0.weight"].abs().max().item() > 0,
+              "the gradient reaches the conv stack and the level's MLP")
+        read = {}
+        for fault, patch in faults.items():
+            bad, _ = _pp_prim_run(banded, batch, dt, cot, patch)
+            e = rel_to_sparse(bad)
+            # kernel 7's backward feeds the conv stack below the gather;
+            # kernel 8's the level's own MLP and everything below it
+            keys = [k for k in e if k.startswith("d convs.1.nn")
+                    and k.endswith(".weight")]
+            if fault == "sum_bwd_at_oth":
+                keys.append("d super_edge_mlp.0.weight")
+            read[fault] = {k: e[k] for k in keys}
+        print(f"pp train route {name}, planted faults against the gradient "
+              f"limit {tol_grad:g}: kernel 7's backward without the sum at "
+              f"the other endpoint reads "
+              + ", ".join(f"{k} {v:.2e}" for k, v in read["no_oth_sum"].items())
+              + "; kernel 8's backward reading the other endpoint's "
+              "cotangent reads "
+              + ", ".join(f"{k} {v:.2e}" for k, v in
+                          read["sum_bwd_at_oth"].items()))
+        check(all(v > tol_grad for r in read.values() for v in r.values()),
+              f"pp train route {name}: a planted fault passes the limit")
+
+
+def pp_train_phase(root, work, dev_line):
+    """cli.train --arch yolat_pp on its three routes on the SVGs of the
+    train phase, then cli.test on two of the checkpoints; returns the
+    banded run's launch counts."""
+    from yolat_tpu_torch.cli import test as test_cli
+    from yolat_tpu_torch.cli import train as train_cli
+    from yolat_tpu_torch.ops import _build
+
+    k78 = ("banded_gather", "banded_gather_bwd", "banded_scatter_own",
+           "banded_scatter_own_bwd")
+    k311 = ("folded_mlp_block_max", "fused_pool_train_bwd")
+    runs = (("per_edge", ["--arch", "yolat_pp"]),
+            ("banded", ["--arch", "yolat_pp", "--pp_banded_super", "true",
+                        "--fused_head_train", "true"]),
+            ("factored", ["--profile", "yolat_pp_fast"]))
+    main_counts, ckpts = None, {}
+    for route, flags in runs:
+        _build.reset_launch_counts()
+        res = train_cli.main([
+            "--data_dir", root, "--device", "cuda", "--dtype", "bfloat16",
+            "--data_aug", "false", "--lr", "1e-3", "--batch_size", str(BATCH),
+            "--n_filters", "64", "--n_blocks", str(N_BLOCKS), "--max_steps",
+            str(PP_TRAIN_STEPS), "--root_dir",
+            os.path.join(work, f"log_pp_{route}"), "--print_freq", "1"] + flags)
+        counts = dict(_build.launch_counts)
+        check(res["launches"] == counts,
+              "the CLI's launch counts are the counters' rise")
+        steps, evals, losses = res["steps"], res["eval_batches"], res["losses"]
+        check(steps == PP_TRAIN_STEPS and evals >= 1,
+              f"{steps} steps, {evals} evaluated batches")
+        check(len(losses) == steps and all(map(_finite, losses)),
+              f"finite losses {losses}")
+        check(sum(losses[-2:]) < sum(losses[:2]),
+              f"pp train {route}: the loss does not fall: {losses}")
+        for k in ("map_50", "map_all", "top1_acc"):
+            check(k in res and _finite(res[k]), f"evaluation result {k}")
+        banded, fused = route == "banded", "--fused_head_train" in flags
+        want = {"banded_gather": (steps + evals) * banded,
+                "banded_gather_bwd": steps * banded,
+                "banded_scatter_own": (steps + evals) * banded,
+                "banded_scatter_own_bwd": steps * banded,
+                "folded_mlp_block_max": steps * fused,
+                "fused_pool_train_bwd": steps * fused}
+        got = {k: counts[k] for k in k78 + k311}
+        check(got == want, f"pp train {route} launches {got}, the code "
+              f"implies {want}")
+        # the last epoch's checkpoint: what the evaluation above scored
+        ckdir = os.path.join(res["exp_dir"], "checkpoint")
+        last = max(int(f[5:-3]) for f in os.listdir(ckdir)
+                   if f.startswith("ckpt_") and f[5:-3].isdigit())
+        ckpts[route] = (os.path.join(ckdir, f"ckpt_{last}"), res["map_50"])
+        check(os.path.exists(os.path.join(ckdir, "ckpt_best.pt")),
+              "a best checkpoint was written")
+        secs = res["train_seconds"]
+        print(f"pp train {route} (cli.train {' '.join(flags)}, bf16, batch "
+              f"{BATCH}, 64 channels): {steps} steps in {secs:.3f} s = "
+              f"{steps / secs:.3f} steps/s (first steps included), {evals} "
+              f"evaluated batches; losses {[round(v, 4) for v in losses]}; "
+              f"MAP@0.5 {res['map_50']:.4f}, top1 {res['top1_acc']:.4f}; "
+              f"launches {got} [{dev_line}]")
+        if banded:
+            main_counts = counts
+
+    served = ("edge_window_message_sum", "folded_mlp_block_max2",
+              "banded_message_sum", "banded_message_sum_both")
+    for route, extra in (("banded", ["--serve_mode", "fast_bf16"]),
+                         ("factored", [])):
+        _build.reset_launch_counts()
+        table = test_cli.main([
+            "--data_dir", root, "--phase", "test", "--device", "cuda",
+            "--batch_size", str(BATCH), "--n_filters", "64", "--n_blocks",
+            str(N_BLOCKS), "--pretrained_model", ckpts[route][0]]
+            + dict(runs)[route][:4 if route == "banded" else 2] + extra)
+        check(len(table["map_per_th"]) == 10 and _finite(table["map_all"])
+              and _finite(table["top1_acc"]), "the pp test CLI's AP table")
+        tc = table["launches"]
+        if extra:
+            check(all(tc[k] > 0 for k in served), f"pp test launches {tc}")
+        else:  # the same module forward as the trainer's evaluation
+            check(abs(table["map_50"] - ckpts[route][1]) <= 1e-3,
+                  f"cli.test reads MAP@0.5 {table['map_50']}, the trainer's "
+                  f"evaluation read {ckpts[route][1]}")
+        print(f"pp train, cli.test on the {route} run's last checkpoint "
+              f"({' '.join(extra) or 'the eval-mode module'}): MAP@0.5 "
+              f"{table['map_50']:.4f} (the trainer's evaluation "
+              f"{ckpts[route][1]:.4f}), top1 {table['top1_acc']:.4f}; "
+              f"launches { {k: v for k, v in tc.items() if v} } [{dev_line}]")
+    return main_counts
+
+
 def _finite(v) -> bool:
     return v == v and abs(v) != float("inf")
 
@@ -1368,7 +1814,8 @@ def main() -> int:
     from yolat_tpu_torch.cli.profile import write_bench_svgs
     from yolat_tpu_torch.config import Config
     from yolat_tpu_torch.data.dataset import SESYDDataset
-    from yolat_tpu_torch.data.loader import PackedLoader, extra_plans_for
+    from yolat_tpu_torch.data.loader import (PackedLoader, extra_plans_for,
+                                             train_plans_for)
     from yolat_tpu_torch.data.packing import (CompactFile,
                                               add_dense_neighbors,
                                               finalize_batch, pack_files,
@@ -1481,7 +1928,23 @@ def main() -> int:
         counts.update({k: pp_counts[k] for k in (
             "banded_message_sum", "banded_message_sum_both")})
 
-    # 14. kernels line
+        # 14-16. YOLaT++ training: the bench files packed as the trainer's
+        # loader packs them for the banded route
+        tbatch = finalize_batch(to_device(next(iter(PackedLoader(
+            ds, batch_size=BATCH, prefetch=0,
+            **train_plans_for(pp_cfg.replace(pp_banded_super=True))))), dev))
+        check(all(torch.equal(tbatch[k], pbatch[k])
+                  for k in ("pos", "edge_super", "sew_own")),
+              "the same bench batch")
+        res.update(banded_train_kernel_phase(models["per_edge"][0], tbatch,
+                                             dev_line))
+        pp_train_route_phase(models["per_edge"][0], tbatch, dev_line)
+        tcounts = pp_train_phase(train_root, work, dev_line)
+        counts.update({k: tcounts[k] for k in (
+            "banded_gather", "banded_gather_bwd", "banded_scatter_own",
+            "banded_scatter_own_bwd")})
+
+    # the kernels line
     sources = {"edge_window_message_sum": (
                    "yolat_tpu_torch/csrc/edge_window.cu",
                    "yolat_tpu/ops/edge_window.py:185"),
@@ -1514,7 +1977,19 @@ def main() -> int:
                    "yolat_tpu/ops/banded_message.py:262"),
                "banded_message_sum_both": (
                    "yolat_tpu_torch/csrc/banded_message.cu",
-                   "yolat_tpu/ops/banded_message.py:417")}
+                   "yolat_tpu/ops/banded_message.py:417"),
+               "banded_gather": (
+                   "yolat_tpu_torch/csrc/banded_train.cu",
+                   "yolat_tpu/ops/banded_train.py:143"),
+               "banded_gather_bwd": (
+                   "yolat_tpu_torch/csrc/banded_train.cu",
+                   "yolat_tpu/ops/banded_train.py:294"),
+               "banded_scatter_own": (
+                   "yolat_tpu_torch/csrc/banded_train.cu",
+                   "yolat_tpu/ops/banded_train.py:257"),
+               "banded_scatter_own_bwd": (
+                   "yolat_tpu_torch/csrc/banded_train.cu",
+                   "yolat_tpu/ops/banded_train.py:319")}
     check(all(counts[k] > 0 for k in sources),
           f"every kernel was launched on its path: {counts}")
     kernels = [{"name": k, "route": "cuda", "source": sources[k][0],

@@ -30,6 +30,12 @@ Tolerances, kernel vs plain version on the same card and inputs:
     product or of h: max error <= 1e-5 * max|out| at f32, 5e-4 * max|out|
     at bf16 (an H100 reads <= 2e-7 and <= 1e-4). Kernel 6's own-endpoint
     sum is kernel 5's bit for bit.
+  * kernels 7 and 8: the gathers (7 forward, 8 backward) are copies, or one
+    rounding of an f32 value to bf16 — exact. The sums (8 forward, 7
+    backward) add a node's terms in f32 in the plan's order, the plain
+    versions with float atomics in any order, over runs of up to 1500 rows:
+    f32 |err| <= 1e-5 * (1 + |ref|) * sqrt(longest run); at bf16 7 backward
+    rounds its f32 sum once — one output ulp (2^-7) over the same floor.
 """
 
 import numpy as np
@@ -37,6 +43,7 @@ import pytest
 import torch
 
 from yolat_tpu_torch.ops import _build
+from yolat_tpu_torch.ops import banded_train as bt
 from yolat_tpu_torch.ops import edge_window_train as ewt
 from yolat_tpu_torch.ops.banded_message import (banded_message_sum,
                                                 banded_message_sum_both,
@@ -473,7 +480,7 @@ def test_banded_both_kernel_matches_plain_and_kernel5(cuda_device, layout,
     dev = cuda_device
     x, edge, mask, attr, w = _banded_inputs(5, dev, layout=layout)
     n = x.shape[0]
-    bm = plan_tensors(banded_plan(edge, mask, attr, n), dev, transpose=True)
+    bm = plan_tensors(banded_plan(edge, mask, attr, n, transpose=True), dev)
     bm_t = plan_tensors(banded_plan(edge, mask, attr, n, sortby=0), dev)
     x = x.to(dtype)
     w = w[:4]
@@ -534,3 +541,89 @@ def test_banded_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     cpu_plan = plan_tensors(banded_plan(edge, mask, attr, x.shape[0]))
     with pytest.raises(TypeError, match="own"):
         banded_message_sum(x, cpu_plan, *w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout,c", [("cliques", 64), ("wide", 64),
+                                      ("cliques", 6), ("empty", 64)])
+def test_banded_train_kernels_match_plain(cuda_device, layout, c, dtype):
+    """Kernels 7, 7b, 8, 8b through the two autograd Functions, twice, and
+    their plain versions; C 6 takes the gather's element-wise copy."""
+    dev = cuda_device
+    x, edge, mask, attr, _ = _banded_inputs(13, dev, layout=layout)
+    n = x.shape[0]
+    bm = plan_tensors(banded_plan(edge, mask, attr, n, transpose=True), dev)
+    e = bm.n_edges
+    gen = torch.Generator(device=dev).manual_seed(2)
+    x = x[:, :c].contiguous().to(dtype)
+    g_own = torch.randn(e, c, device=dev, generator=gen).to(dtype)
+    g_oth = torch.randn(e, c, device=dev, generator=gen).to(dtype)
+    rows = torch.randn(e, c, device=dev, generator=gen).to(dtype)
+    cot = torch.randn(n, c, device=dev, generator=gen)
+    _build.reset_launch_counts()
+    outs = []
+    for _ in range(2):
+        xt = x.clone().requires_grad_(True)
+        x_own, x_oth = bt.banded_gather(xt, bm)
+        torch.autograd.backward([x_own, x_oth], [g_own, g_oth])
+        rt = rows.clone().requires_grad_(True)
+        total = bt.banded_scatter_own(rt, bm, n)
+        total.backward(cot)
+        outs.append((x_own.detach(), x_oth.detach(), xt.grad, total.detach(),
+                     rt.grad))
+    torch.cuda.synchronize()
+    launched = 0 if layout == "empty" else 2
+    for k in ("banded_gather", "banded_gather_bwd", "banded_scatter_own",
+              "banded_scatter_own_bwd"):
+        assert _build.launch_counts[k] == launched, k
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)  # no atomics: bit-identical runs
+    x_own, x_oth, dx, total, d_rows = outs[0]
+    assert x_own.dtype == x_oth.dtype == dx.dtype == d_rows.dtype == dtype
+    assert total.dtype == torch.float32
+    assert x_own.shape == (e, c) and dx.shape == (n, c) == total.shape
+    p_own, p_oth = bt.gather_plain(x, bm.own, bm.oth)
+    assert torch.equal(x_own, p_own) and torch.equal(x_oth, p_oth)
+    assert torch.equal(d_rows, bt.scatter_own_bwd_plain(cot, bm.own, dtype))
+    if layout == "empty":
+        assert e == 0 and not dx.any() and not total.any()
+        return
+    run = max(int(torch.bincount(bm.own.long()).max()),
+              int(torch.bincount(bm.oth.long()).max()))
+    want = bt.scatter_own_plain(rows, bm.own, n)
+    lim = 1e-5 * (1 + want.abs()) * run ** 0.5
+    assert bool(((total - want).abs() <= lim).all())
+    want = bt.gather_bwd_plain(g_own, g_oth, bm.own, bm.oth, n).float()
+    lim = 1e-5 * (1 + want.abs()) * run ** 0.5
+    if dtype == torch.bfloat16:
+        lim = lim + 2.0 ** -7 * want.abs()
+    assert bool(((dx.float() - want).abs() <= lim).all())
+    assert dx.float().abs().max() > 1.0 and total.abs().max() > 1.0
+    deg = torch.bincount(bm.own.long(), minlength=n)
+    assert not total[deg == 0].any()  # every row is written, edge or not
+
+
+@pytest.mark.cuda
+def test_banded_train_wrappers_refuse_what_the_kernels_do_not_take(
+        cuda_device):
+    dev = cuda_device
+    x, edge, mask, attr, _ = _banded_inputs(15, dev, layout="wide")
+    n = x.shape[0]
+    bm = plan_tensors(banded_plan(edge, mask, attr, n, transpose=True), dev)
+    no_t = plan_tensors(banded_plan(edge, mask, attr, n), dev)
+    bt.banded_gather(x, no_t)  # forward only: no transpose needed
+    with pytest.raises(ValueError, match="transpose"):
+        bt.banded_gather(x.clone().requires_grad_(True), no_t)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        bt.banded_gather(x.half(), bm)
+    with pytest.raises(TypeError, match="own"):
+        bt.gather_fwd(x, bm.own.long(), bm.oth)
+    rows = torch.randn(bm.n_edges, 5, device=dev)
+    with pytest.raises(ValueError, match="even width"):
+        bt.banded_scatter_own(rows, bm, n)
+    with pytest.raises(TypeError, match="nptr"):
+        bt.banded_scatter_own(rows[:, :4].contiguous(), bm, n + 1)
+    cpu_plan = plan_tensors(banded_plan(edge, mask, attr, n, transpose=True))
+    with pytest.raises(TypeError, match="own"):
+        bt.banded_gather(x, cpu_plan)

@@ -6,8 +6,11 @@ them on the CPU (predict core, on the edge-window and on the dense route,
 and CLI), train one step with the fused pool head on and one in the window
 layout through the train CLI, evaluate that checkpoint through the test CLI
 on the dense route, serve YOLaT++ (predict core, both CLIs, the per-edge
-and the factored checkpoint), and check that none of those modules was loaded. Plus a source check: no import of any of them
-anywhere in the package or in chip_smoke.py."""
+and the factored checkpoint), train YOLaT++ through the train CLI (the
+per-edge sparse route, the banded route of `ops/banded_train.py` with the
+fused head, the factored profile) and evaluate one of those checkpoints,
+and check that none of those modules was loaded. Plus a source check: no
+import of any of them anywhere in the package or in chip_smoke.py."""
 
 import os
 import re
@@ -118,6 +121,25 @@ SCRIPT = textwrap.dedent("""
                 "--n_filters", "8", "--batch_size", "1", "--pretrained_model",
                 pth, "--serve_mode", "fast_bf16"] + flags)
             assert len(table["map_per_th"]) == 10
+        # YOLaT++ training: the three routes through the primitive level
+        import yolat_tpu_torch.ops.banded_train
+        for i, flags in enumerate((
+                ["--arch", "yolat_pp"],
+                ["--arch", "yolat_pp", "--pp_banded_super", "true",
+                 "--fused_head_train", "true"],
+                ["--profile", "yolat_pp_fast"])):
+            res = train_cli.main(["--data_dir", d, "--device", "cpu",
+                                  "--n_filters", "8", "--batch_size", "1",
+                                  "--max_steps", "1", "--root_dir",
+                                  os.path.join(d, f"log_pp{i}")] + flags)
+            assert res["steps"] == 1 and res["losses"][0] == res["losses"][0]
+            assert res["map_50"] == res["map_50"]
+        table = test_cli.main([
+            "--data_dir", d, "--phase", "test", "--device", "cpu",
+            "--n_filters", "8", "--batch_size", "1", "--pretrained_model",
+            os.path.join(res["exp_dir"], "checkpoint"), "--profile",
+            "yolat_pp_fast"])
+        assert len(table["map_per_th"]) == 10
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     assert not loaded, loaded
     print("NOJAX-OK", len(mods))
@@ -128,11 +150,11 @@ def test_port_runs_without_jax():
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     r = subprocess.run([sys.executable, "-c", SCRIPT.replace("__REPO__", repr(REPO))],
                        capture_output=True, text=True, cwd=REPO, env=env,
-                       timeout=300)
+                       timeout=420)
     assert r.returncode == 0, r.stdout + r.stderr
     assert "NOJAX-OK" in r.stdout
     n_mods = int(r.stdout.split("NOJAX-OK")[1].split()[0])
-    assert n_mods >= 37
+    assert n_mods >= 38
 
 
 def test_no_jax_import_in_port_sources():

@@ -1,6 +1,7 @@
 """YOLaT++ of the port against yolat_tpu's, on the CPU: the eval-mode
-module, the weight conversion, the fold and the folded engine, per-edge
-and factored, on the same seeded toy batch and the same weights.
+module (the train-mode one: tests/test_torch_pp_train.py), the weight
+conversion, the fold and the folded engine, per-edge and factored, on the
+same seeded toy batch and the same weights.
 
 The weights start in JAX (`model.init`, gates opened to 0.3 + 0.1 i as
 tests/test_fast_pp.py does, BatchNorm statistics and affine terms
@@ -109,8 +110,11 @@ def test_module_eval_logits_match_jax(factored):
     assert np.abs(np.asarray(want)).max() > 0.1
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
     np.testing.assert_array_equal(gb.numpy(), np.asarray(wb))
-    with pytest.raises(NotImplementedError, match="eval mode"):
-        model.train()(pb)
+    # train mode: batch statistics in place of the running ones
+    train_logits, _ = model.train()(pb)
+    assert train_logits.shape == got.shape
+    assert bool(torch.isfinite(train_logits).all())
+    assert not torch.equal(train_logits, got)
 
 
 @pytest.mark.parametrize("factored", [False, True])
@@ -265,5 +269,7 @@ def test_missing_pack_fields_raise():
         fast_forward_pp(folded, no_t)
     with pytest.raises(NotImplementedError, match="arch"):
         build_model(Config(arch="resnet"))
-    with pytest.raises(NotImplementedError, match="eval mode"):
-        build_model(Config(arch="yolat_pp", fused_head_train=True))
+    with pytest.raises(NotImplementedError, match="window"):
+        build_model(Config(arch="yolat_pp", train_layout="window"))
+    assert build_model(Config(arch="yolat_pp", fused_head_train=True,
+                              pp_banded_super=True)).fused_pool

@@ -94,8 +94,8 @@ def _setup(seed, sortby, transpose=False):
     edge, mask, attr = _clique_family(rng)
     x = rng.normal(size=(N, C)).astype(np.float32)
     w = _weights(rng)
-    bm = plan_tensors(banded_plan(edge, mask, attr, N, sortby=sortby),
-                      transpose=transpose)
+    bm = plan_tensors(banded_plan(edge, mask, attr, N, sortby=sortby,
+                                  transpose=transpose))
     return edge, mask, attr, x, w, bm
 
 
@@ -195,8 +195,8 @@ def test_empty_family_and_band_violation():
     x = torch.from_numpy(rng.normal(size=(N, C)).astype(np.float32))
     edge = np.zeros((256, 2), np.int32)
     attr = np.zeros((256, 4), np.float32)
-    bm = plan_tensors(banded_plan(edge, np.zeros(256, bool), attr, N),
-                      transpose=True)
+    bm = plan_tensors(banded_plan(edge, np.zeros(256, bool), attr, N,
+                                  transpose=True))
     assert bm.n_edges == 0
     assert not banded_message_sum(x, bm, *args).any()
     assert not any(t.any() for t in banded_message_sum_both(x, bm, *args))

@@ -231,8 +231,9 @@ def test_clis_serve_a_seeded_checkpoint(synthetic_root, tmp_path, capsys,
 
 
 def test_profile_bundle_and_refusals(synthetic_root, tmp_path):
-    """--profile lays its bundle over the flags, typed flags win; training
-    a YOLaT++ arch is refused before anything is built."""
+    """--profile lays its bundle over the flags, typed flags win; the
+    YOLaT++ training options that would quietly train another route are
+    refused before anything is built."""
     def cfg_of(argv):
         return config_from_args(build_parser().parse_args(argv), argv)
 
@@ -244,6 +245,13 @@ def test_profile_bundle_and_refusals(synthetic_root, tmp_path):
                   "--pp_factored_prim", "false"])
     assert (cfg.pp_factored_prim, cfg.pos_class_weight) == (False, 16.0)
     assert cfg_of([]).arch == Config().arch and not cfg_of([]).profile
-    with pytest.raises(NotImplementedError, match="training path"):
-        train_cli.main(["--data_dir", synthetic_root, "--device", "cpu",
-                        "--arch", "yolat_pp", "--root_dir", str(tmp_path)])
+    assert cfg_of(["--arch", "yolat_pp", "--pp_banded_super", "true"]
+                  ).pp_banded_super and not cfg_of([]).pp_banded_super
+    base = ["--data_dir", synthetic_root, "--device", "cpu", "--arch",
+            "yolat_pp", "--root_dir", str(tmp_path)]
+    with pytest.raises(ValueError, match="pp_banded_super with drop_edge"):
+        train_cli.main(base + ["--pp_banded_super", "true", "--drop_edge",
+                               "0.1"])
+    assert not any(tmp_path.iterdir())
+    with pytest.raises(NotImplementedError, match="window"):
+        train_cli.main(base + ["--train_layout", "window"])

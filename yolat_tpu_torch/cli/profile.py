@@ -1,7 +1,7 @@
 """Per-stage times of the serving and training paths on one CUDA device.
 
   python -m yolat_tpu_torch.cli.profile [--n_svgs 8] [--batch_size 4]
-      [--reps 20] [--stages serve,serve_dense,serve_pp,train]
+      [--reps 20] [--stages serve,serve_dense,serve_pp,train,train_pp]
       [--train_layout sparse|window|dense] [--out profile.json]
 
 Writes bench-scale synthetic floorplans (seed 7, 2000x1500, 6 rooms, 1-3
@@ -40,7 +40,14 @@ temporary directory under build/ and times each stage of the loop of
           (kernels 1, 2, 5, 6), its two-pass curve route (kernel 5 three
           times, no kernel 6) and the factored checkpoint (kernels 1, 2,
           6), fast_bf16 and fast, in turns; a trace of the per-edge and of
-          the factored fast_bf16 predict.
+          the factored fast_bf16 predict;
+  train_pp  YOLaT++ training (`--arch yolat_pp`, the reference init with
+          the gates opened so that every level runs its backward): the
+          train step at bf16 on the per-edge sparse route, the per-edge
+          banded route (kernels 7 and 8 with their backward kernels) and
+          the factored route, in turns, with the pack time of each route's
+          train batch, and a trace of each (device busy, kernels per step,
+          own kernels by name).
 
 It has no JAX counterpart module: the JAX package timed its stages in
 `bench.py`, whose batch this is. Host times are medians of `--reps`
@@ -62,9 +69,10 @@ import time
 
 import torch
 
-from yolat_tpu_torch.config import Config
+from yolat_tpu_torch.config import PP_GATES, Config
 from yolat_tpu_torch.data.dataset import SESYDDataset
-from yolat_tpu_torch.data.loader import PackedLoader, extra_plans_for
+from yolat_tpu_torch.data.loader import (PackedLoader, extra_plans_for,
+                                         train_plans_for)
 from yolat_tpu_torch.data.packing import (CompactFile, add_dense_neighbors,
                                           finalize_batch, pack_files,
                                           to_device)
@@ -85,8 +93,9 @@ _REPO = os.path.dirname(os.path.dirname(os.path.dirname(
 _OWN_KERNEL_RE = re.compile(
     r"\b(edge_window_kernel|block_max_kernel|bwd_rows_kernel|bwd_dw_kernel"
     r"|sum_parts_kernel|dense_message_kernel|pair_fwd_kernel|pair_bwd_kernel"
-    r"|wsum_fwd_kernel|wsum_bwd_kernel|banded_kernel|sum_rows_by_perm_kernel)"
-    r"(<[^>(]*>)?")
+    r"|wsum_fwd_kernel|wsum_bwd_kernel|banded_kernel|sum_rows_by_perm_kernel"
+    r"|gather_pair_kernel|gather_bwd_kernel|scatter_own_kernel"
+    r"|scatter_own_bwd_kernel)(<[^>(]*>)?")
 
 
 def nvidia_smi() -> str:
@@ -154,6 +163,13 @@ def _host_stages(root: str, batch_size: int, reps: int, res: dict,
         res["pack_pp_ms_per_batch"] = _median_ms(
             lambda: pack_files(*pp_args, **opts), reps)
         packs["pp"] = pack_files(*pp_args, **opts)
+        # what the trainer's loader packs per route (sparse conv layout)
+        for name, banded in (("pp_train", False), ("pp_train_banded", True)):
+            kw = dict(edge_window=False, **train_plans_for(
+                Config(arch="yolat_pp", pp_banded_super=banded)))
+            res[f"pack_{name}_ms_per_batch"] = _median_ms(
+                lambda: pack_files(*pp_args, **kw), reps)
+            packs[name] = pack_files(*pp_args, **kw)
     return ds, packs
 
 
@@ -301,8 +317,11 @@ def _trace(fn, reps: int) -> dict:
             fn()
         torch.cuda.synchronize()
         span = (time.perf_counter() - t0) * 1e3 / reps
+    # device activity only: a user annotation (the optimizer's step span) is
+    # mirrored on the device timeline and would count its kernels twice
     kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
     per_name: dict = {}
     for e in kernels:
         per_name[e.name] = (per_name.get(e.name, 0.0)
@@ -363,6 +382,52 @@ def _train_stage(packs, n_classes: int, dev, reps: int, res: dict,
             else 1.0 - busy / res[f"train_step_{name}_ms"])
 
 
+PP_TRAIN_ARMS = (
+    ("per_edge", "pp_train", {}),
+    ("banded", "pp_train_banded", {"pp_banded_super": True}),
+    ("factored", "pp_train", {"pp_factored_prim": True,
+                              "iou_aware_loss": True,
+                              "iou_aware_mode": "rel"}))
+
+
+def _train_pp_stage(packs, n_classes: int, dev, reps: int, res: dict) -> None:
+    """The YOLaT++ train step at bf16 on its three routes, in turns, and a
+    trace of each."""
+    steps = {}
+    for name, pack, kw in PP_TRAIN_ARMS:
+        cfg = Config(arch="yolat_pp", n_classes=n_classes, data_aug=True,
+                     dtype="bfloat16", **kw)
+        batch = to_device(packs[pack], dev)
+        model = init_model(cfg, dev)
+        with torch.no_grad():  # closed gates would skip the levels' backward
+            for i, g in enumerate(PP_GATES):
+                getattr(model, g).fill_(0.3 + 0.1 * i)
+        opt = make_optimizer(cfg.optimizer, model.parameters(), cfg.lr,
+                             cfg.weight_decay)
+        step = make_train_step(cfg, model, opt)
+        gen = torch.Generator(device=dev).manual_seed(0)
+
+        def run(step=step, gen=gen, batch=batch):
+            step(batch, gen)
+
+        for _ in range(3):
+            run()
+        steps[name] = run
+    names = list(steps)
+    times = {name: [] for name in names}
+    for order in (names, names[::-1]):  # each arm early and late once
+        for name in order:
+            times[name].append(_median_ms(steps[name], reps, sync=True))
+    for name in names:
+        res[f"train_pp_step_{name}_ms"] = statistics.median(times[name])
+        key = f"train_pp_{name}_trace"
+        res[key] = _trace(steps[name], reps)
+        busy = res[key]["device_busy_ms_per_call"]
+        res[f"train_pp_{name}_idle_share_estimate"] = (
+            None if busy is None
+            else 1.0 - busy / res[f"train_pp_step_{name}_ms"])
+
+
 def _print_trace(name: str, t: dict) -> None:
     print(f"{name}: {t['device_kernels_per_call']:.0f} kernels, device busy "
           f"{t['device_busy_ms_per_call']} ms, profiled wall "
@@ -396,7 +461,7 @@ def main(argv=None) -> dict:
         root = os.path.join(work, "svgs")
         write_bench_svgs(root, args.n_svgs)
         ds, packs = _host_stages(root, args.batch_size, args.reps, res,
-                                 pp="serve_pp" in stages)
+                                 pp=bool({"serve_pp", "train_pp"} & stages))
     nb = packs["sparse"]
     res["shapes"] = {"N": int(nb["pos"].shape[0]),
                      "E": int(nb["edge_mask"].sum()),
@@ -412,6 +477,8 @@ def main(argv=None) -> dict:
     if "train" in stages:
         _train_stage(packs, ds.n_classes, dev, args.reps, res,
                      args.train_layout)
+    if "train_pp" in stages:
+        _train_pp_stage(packs, ds.n_classes, dev, args.reps, res)
 
     traces = [k for k in res if "trace" in k]
     for k, v in res.items():

@@ -7,7 +7,8 @@ the same names:
   python -m yolat_tpu_torch.cli.train --data_dir DIR [--batch_size 4]
       [--total_epochs 200] [--lr 2.5e-4] [--dtype float32|bfloat16]
       [--fused_head_train true] [--train_layout sparse|window|dense]
-      [--eval_start 20] [--root_dir log]
+      [--arch yolat_pp [--pp_banded_super true | --pp_factored_prim true]]
+      [--profile yolat_pp_fast] [--eval_start 20] [--root_dir log]
       [--pretrained_model ckpt_dir|ckpt_dir/ckpt_<tag>|ref.pth]
       [--max_steps N] [--device cuda]
 
@@ -16,8 +17,16 @@ moves to the CPU on its own. `--max_steps` ends the run after N train
 steps (evaluating and checkpointing that epoch). The last line prints the
 train rate (steps/s and images/s over the synchronised train-step wall
 time) and the launch counts of the fused pool head's kernels and of the
-window layout's kernels 9 and 10, forward and backward apart (they count
-the evaluation's forward passes too).
+window layout's kernels 9 and 10 and of the banded YOLaT++ route's
+kernels 7 and 8, forward and backward apart (they count the evaluation's
+forward passes too).
+
+`--arch yolat_pp` trains YOLaT++ (`nn/yolat_pp.py`) on one of three routes
+through its primitive level: per super edge over the padded buffer (the
+default), the same level over the clique family's plan with
+`--pp_banded_super true` (kernels 7 and 8 with their backward kernels), or
+factored with `--pp_factored_prim true` (`--profile yolat_pp_fast` sets it
+with the IoU-aware loss). Each also takes `--fused_head_train true`.
 """
 
 from __future__ import annotations
@@ -90,6 +99,9 @@ def build_parser() -> argparse.ArgumentParser:
     add("--pp_factored_prim", default=d.pp_factored_prim, type=_bool,
         help="YOLaT++ primitive level as a prefix sum per proposal "
              "(a super_fact_mlp checkpoint) instead of per super edge")
+    add("--pp_banded_super", default=d.pp_banded_super, type=_bool,
+        help="YOLaT++ training: the per-edge primitive level over the "
+             "super-edge plan (kernels 7 and 8) instead of the padded buffer")
     add("--profile", default=d.profile, type=str,
         choices=("",) + tuple(PROFILES),
         help="named flag bundle; flags typed beside it keep their values")
@@ -154,7 +166,9 @@ def main(argv=None) -> dict:
           + ", ".join(f"{k}={counts[k]}" for k in (
               "folded_mlp_block_max", "fused_pool_train_bwd",
               "ew_pair_features", "ew_pair_features_bwd",
-              "ew_window_segment_sum", "ew_window_segment_sum_bwd")))
+              "ew_window_segment_sum", "ew_window_segment_sum_bwd",
+              "banded_gather", "banded_gather_bwd", "banded_scatter_own",
+              "banded_scatter_own_bwd")))
     return results
 
 

@@ -116,6 +116,9 @@ class Config:
     pp_factored_prim: bool = False  # YOLaT++ primitive level as a prefix
                                     # sum per proposal (super_fact_mlp)
                                     # instead of the per-edge clique level
+    pp_banded_super: bool = False   # YOLaT++ training: the per-edge clique
+                                    # level over the sew_ plan (kernels 7
+                                    # and 8) instead of the padded buffer
     profile: str = ""               # named flag bundle applied at parse time
     pretrained_model: str = ""
 

@@ -36,6 +36,18 @@ def extra_plans_for(cfg) -> dict:
     return {}
 
 
+def train_plans_for(cfg) -> dict:
+    """The loader options an arch's train step needs
+    (`yolat_tpu/train/trainer.py:102-111`, `train_plans`): YOLaT++ reads
+    the super-edge family and the factored fields; the clique family's
+    banded plan is packed, with its transpose, only for the banded
+    training route (cfg.pp_banded_super, kernels 7 and 8)."""
+    if getattr(cfg, "arch", "") in PP_ARCHS:
+        return {"super_family": True,
+                "sew_plan": "transpose" if cfg.pp_banded_super else "none"}
+    return {}
+
+
 class PackedLoader:
     """Yields numpy batch dicts of `batch_size` images, in manifest order
     or, with shuffle, in each epoch's shuffled order.
@@ -49,14 +61,16 @@ class PackedLoader:
     D slots wide for the manifest's largest in-degree
     (`packing.dense_width`) unless d_max is given. super_family packs the
     super-edge clique family and the factored fields (YOLaT++), sized by
-    `PadSizes.n_super`, with that family's banded plan `sew_*`.
+    `PadSizes.n_super`, with that family's banded plan `sew_*` as
+    `sew_plan` says ('own', 'transpose' or 'none': `packing.pack_files`).
     """
 
     def __init__(self, dataset, batch_size: int = 4, prefetch: int = 1,
                  edge_window: bool = True, cache_files: bool = True,
                  shuffle: bool = False, seed: int = 0,
                  ew_transpose: bool = False, dense: bool = False,
-                 d_max: int | None = None, super_family: bool = False):
+                 d_max: int | None = None, super_family: bool = False,
+                 sew_plan: str = "own"):
         if prefetch not in (0, 1):
             raise ValueError("prefetch is 0 or 1")
         self.ds = dataset
@@ -69,6 +83,7 @@ class PackedLoader:
         self.ew_transpose = ew_transpose
         self.dense = dense
         self.super_family = super_family
+        self.sew_plan = sew_plan
         self.cache_files = cache_files
         self._compact: dict = {}
         self._max_indegree = 0
@@ -131,7 +146,8 @@ class PackedLoader:
                                [l[2] for l in loads], self.pad,
                                edge_window=self.edge_window,
                                ew_transpose=self.ew_transpose,
-                               super_family=self.super_family)
+                               super_family=self.super_family,
+                               sew_plan=self.sew_plan)
             if self.dense:
                 batch = add_dense_neighbors(batch, d_max=self.d_max,
                                             files=files)

@@ -34,7 +34,10 @@ family and the factored primitive level's fields:
   pool plan over the super-edge runs),
 
 and the clique family's banded plan `sew_*` (`ops.plans.banded_plan`,
-kernel 5's layout; the JAX package's `extra_plans=("super",)`, :555-577).
+kernel 5's layout; the JAX package's `extra_plans=("super",)`, :555-577):
+left out with `sew_plan="none"` (a train batch of the per-edge sparse or
+the factored route reads none), with its transpose `sew_tperm`, `sew_tptr`
+under `sew_plan="transpose"` (the banded training route, kernels 7 and 8).
 
 For all keys other than ew_* and sew_*, `pack_files` and
 `add_dense_neighbors` are bitwise equal to `yolat_tpu`'s
@@ -273,7 +276,7 @@ def _label_quality(f, labels, n_classes):
 
 def pack_files(files: list, gts: list, whs: list, pad: PadSizes,
                edge_window: bool = True, ew_transpose: bool = False,
-               super_family: bool = False) -> dict:
+               super_family: bool = False, sew_plan: str = "own") -> dict:
     """Concatenate CompactFiles into one padded flat batch (numpy).
 
     Real edge rows fill the END of the edge buffer (padding rows keep dst 0
@@ -283,8 +286,12 @@ def pack_files(files: list, gts: list, whs: list, pad: PadSizes,
     that the trainable window ops and YOLaT++'s curve level read
     (`ops.plans.EW_TRAIN_KEYS`). `super_family` (files made with it, a
     `pad` with `n_super`) adds the super-edge family, `src_count` and the
-    factored fields and that family's banded plan `sew_*`.
+    factored fields and, by `sew_plan`, that family's banded plan `sew_*`:
+    'own' (sorted by dst, what serving reads), 'transpose' (also its
+    transpose by src, for the banded training route) or 'none'.
     """
+    if sew_plan not in ("none", "own", "transpose"):
+        raise ValueError(f"sew_plan {sew_plan!r}: none, own or transpose")
     B = pad.n_images
     if len(files) > B:
         raise ValueError(f"{len(files)} files for {B} image slots")
@@ -400,9 +407,11 @@ def pack_files(files: list, gts: list, whs: list, pad: PadSizes,
             batch.update({"sup_" + k: v for k, v in sup.items()})
         except ValueError:
             pass
-        plan = banded_plan(batch["edge_super"], batch["super_mask"],
-                           batch["e_attr_super"], pad.n_nodes, sortby=1)
-        batch.update({"sew_" + k: v for k, v in plan.items()})
+        if sew_plan != "none":
+            plan = banded_plan(batch["edge_super"], batch["super_mask"],
+                               batch["e_attr_super"], pad.n_nodes, sortby=1,
+                               transpose=sew_plan == "transpose")
+            batch.update({"sew_" + k: v for k, v in plan.items()})
     if edge_window:
         batch.update(edge_window_plan(batch["edge"], batch["edge_mask"],
                                       batch["e_attr"], pad.n_nodes,

@@ -69,6 +69,25 @@ class _ResBlock(nn.Module):
         self.body = _GConv(c, c)
 
 
+def takes_fused_head(module, cat, plan) -> bool:
+    """Whether `module` (its `fused_pool`, `training`, `fused_fallbacks`)
+    pools this batch through the fused head: in train mode with the
+    aligned pool plan and N % 512 == 0. Without them a CUDA batch raises
+    and a CPU batch takes the unfused route, counted in
+    `module.fused_fallbacks`."""
+    if not (module.fused_pool and module.training):
+        return False
+    if fused_pool_available(cat.shape[0], plan):
+        return True
+    if cat.device.type == "cuda":
+        raise ValueError(
+            "fused_head_train needs the aligned pool plan and N % 512 "
+            "== 0 (batches from yolat_tpu_torch.data.packing.pack_files "
+            "have both)")
+    module.fused_fallbacks += 1
+    return False
+
+
 class Backbone(nn.Module):
     def __init__(self, in_channels: int = 5, channels: int = 64,
                  n_blocks: int = 2, n_blocks_out: int = 2,
@@ -85,19 +104,6 @@ class Backbone(nn.Module):
                                       for _ in range(n_blocks - 1))
         self.fusion_block = FusedPoolFusion(self.fusion_dims, FUSION)
         self.fusion_block_super = MLP([self.fusion_dims, FUSION])
-
-    def _use_fused(self, cat, plan) -> bool:
-        if not (self.fused_pool and self.training):
-            return False
-        if fused_pool_available(cat.shape[0], plan):
-            return True
-        if cat.device.type == "cuda":
-            raise ValueError(
-                "fused_head_train needs the aligned pool plan and N % 512 "
-                "== 0 (batches from yolat_tpu_torch.data.packing.pack_files "
-                "have both)")
-        self.fused_fallbacks += 1
-        return False
 
     def features(self, batch: dict):
         """-> (cat [N, C * n_blocks_out], cat_super [N, C * n_blocks_out]):
@@ -132,7 +138,7 @@ class Backbone(nn.Module):
         plan = plan_of(batch)
         node_mask = batch["node_mask"]
         cat, cat_super = self.features(batch)
-        if self._use_fused(cat, plan):
+        if takes_fused_head(self, cat, plan):
             pooled_fusion = self.fusion_block.pool(cat, node_mask, plan[0],
                                                    n_prop)
             pooled_cat = segment_max(cat, batch["bbox_idx"], n_prop,
@@ -225,8 +231,7 @@ def detection_loss(pred_cls, labels, proposal_mask, classifier: str = "softmax",
 def build_model(cfg):
     """The detector of a `yolat_tpu_torch.config.Config`
     (yolat_tpu/train/loop.py:47-81): the canonical SparseCADGCN, or
-    YOLaT++ (`nn.yolat_pp.YOLaTPlusPlus`, eval mode only) for an arch of
-    `PP_ARCHS`."""
+    YOLaT++ (`nn.yolat_pp.YOLaTPlusPlus`) for an arch of `PP_ARCHS`."""
     if cfg.conv != "attr_edge_gp2":
         raise NotImplementedError(
             f"conv {cfg.conv!r}: this port runs the attr_edge_gp2 conv")
@@ -236,14 +241,18 @@ def build_model(cfg):
     if cfg.arch in PP_ARCHS:
         from yolat_tpu_torch.nn.yolat_pp import YOLaTPlusPlus
 
-        if cfg.fused_head_train or cfg.train_layout == "window":
+        if cfg.train_layout == "window":
             raise NotImplementedError(
-                "YOLaT++ is carried in eval mode: fused_head_train and "
-                "train_layout='window' are training options")
+                "train_layout 'window' under YOLaT++: the reference module "
+                "hands its convs no edge-window plan, so it trains the sparse "
+                "layout whatever this flag says; train with train_layout "
+                "'sparse' or 'dense'")
         return YOLaTPlusPlus(cfg.n_classes, cfg.in_channels, cfg.n_filters,
                              cfg.n_blocks, cfg.n_blocks_out,
                              classifier=cfg.classifier, dropout=cfg.dropout,
-                             factored_prim=cfg.pp_factored_prim)
+                             factored_prim=cfg.pp_factored_prim,
+                             banded_super=cfg.pp_banded_super,
+                             fused_pool=cfg.fused_head_train)
     if cfg.arch != CANONICAL_ARCH:
         raise NotImplementedError(
             f"arch {cfg.arch!r}: this port runs {CANONICAL_ARCH} and "

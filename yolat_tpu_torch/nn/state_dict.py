@@ -90,7 +90,10 @@ def export_state_dict_pp(variables: Mapping, n_blocks: int = 2) -> dict:
     """JAX flax variables of a YOLaTPlusPlus ({'params', 'batch_stats'},
     numpy leaves) -> the state dict of `nn.yolat_pp.YOLaTPlusPlus` (numpy
     leaves). A checkpoint holds `super_edge_mlp` or `super_fact_mlp`;
-    whichever is there comes through."""
+    whichever is there comes through. The running statistics of every
+    MLP and the four gates come with the weights (a train step starts from
+    them), and a `fusion_block` trained through the fused pool head has
+    the MLP's own tree (dense_0 + bn_0)."""
     params = variables["params"]
     stats = variables.get("batch_stats", {})
     out: dict = {}

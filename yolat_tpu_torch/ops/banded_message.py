@@ -45,20 +45,16 @@ from yolat_tpu_torch.ops.plans import BandedPlan
 H_KERNEL = 64  # message width the CUDA kernels are compiled for
 
 
-def plan_tensors(plan: dict, device="cpu", transpose: bool = False):
+def plan_tensors(plan: dict, device="cpu"):
     """An `ops.plans.banded_plan` dict (numpy) -> the `BandedPlan` of
-    tensors on `device`; `transpose` adds the sorted list's transpose by the
-    other endpoint, which kernel 6 reads."""
+    tensors on `device`, with the sorted list's transpose by the other
+    endpoint (kernel 6 and kernel 7's backward read it) when the plan was
+    made with it."""
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
-    tperm = tptr = None
-    if transpose:
-        oth = np.asarray(plan["oth"], np.int64)
-        n = plan["nptr"].shape[0] - 1
-        tperm = t(np.argsort(oth, kind="stable").astype(np.int32))
-        tptr = t(np.concatenate([[0], np.cumsum(
-            np.bincount(oth, minlength=n))]).astype(np.int32))
+    tperm, tptr = (t(plan[k]) if k in plan else None
+                   for k in ("tperm", "tptr"))
     return BandedPlan((t(plan["own"]), t(plan["oth"]), t(plan["attr"]), None,
                        t(plan["nptr"]), t(plan["cnode"]), 0, tperm, tptr))
 

@@ -48,6 +48,9 @@ WN_DEFAULT = 256
 
 SUPER_BLOCK = 4   # super-edge dst runs are padded to this many rows
 SEW_KEYS = ("sew_own", "sew_oth", "sew_attr", "sew_nptr", "sew_cnode")
+# the clique family's transpose by the other endpoint, packed for the banded
+# training route only (kernel 7's backward sums through it)
+SEW_TRAIN_KEYS = ("sew_tperm", "sew_tptr")
 # edges + nodes one thread block of kernel 5 takes from the clique family
 SEW_BLOCK_WORK = 512
 
@@ -188,7 +191,8 @@ def ew_train_of(batch: dict):
 
 
 def banded_plan(edge, mask, attr, n_nodes: int, sortby: int = 1,
-                block_work: int = SEW_BLOCK_WORK) -> dict:
+                block_work: int = SEW_BLOCK_WORK,
+                transpose: bool = False) -> dict:
     """The real edges of one family, stably sorted by the endpoint
     `sortby` (1 = dst) at which kernel 5 sums:
 
@@ -203,8 +207,15 @@ def banded_plan(edge, mask, attr, n_nodes: int, sortby: int = 1,
     cliques and long edge-free stretches cost a block the same. A node with
     more edges than that ends its range, which holds less than one more
     share beside it. Rows where `mask` is False
-    (buffer padding, run-alignment pad rows) are left out. Raises ValueError
-    on an endpoint outside [0, n_nodes).
+    (buffer padding, run-alignment pad rows) are left out. With `transpose`,
+    also the sorted list's transpose by the other endpoint, as
+    `edge_window_plan` carries it for the conv's family:
+
+      tperm [E] i32       the rows stably sorted by `oth`
+      tptr  [N + 1] i32   node v is the other endpoint of the rows
+                          tperm[tptr[v]:tptr[v + 1]], ascending
+
+    Raises ValueError on an endpoint outside [0, n_nodes).
     """
     edge = np.asarray(edge)
     idx = np.nonzero(np.asarray(mask, bool))[0]
@@ -222,9 +233,15 @@ def banded_plan(edge, mask, attr, n_nodes: int, sortby: int = 1,
     work = nptr + np.arange(n_nodes + 1)
     cuts = np.searchsorted(work, np.arange(0, work[-1], block_work))
     cnode = np.unique(np.append(cuts, n_nodes))
-    return {"own": own.astype(np.int32), "oth": oth.astype(np.int32),
+    plan = {"own": own.astype(np.int32), "oth": oth.astype(np.int32),
             "attr": np.ascontiguousarray(np.asarray(attr, np.float32)[order]),
             "nptr": nptr.astype(np.int32), "cnode": cnode.astype(np.int32)}
+    if transpose:
+        plan["tperm"] = np.argsort(oth, kind="stable").astype(np.int32)
+        plan["tptr"] = np.concatenate(
+            [[0], np.cumsum(np.bincount(oth, minlength=n_nodes))]
+        ).astype(np.int32)
+    return plan
 
 
 class BandedPlan(tuple):
@@ -240,7 +257,7 @@ class BandedPlan(tuple):
       cnode, wn       the thread blocks' node ranges: explicit [NC + 1]
                       cuts, or (cnode None) windows of wn nodes;
       tperm, tptr     the sorted list's transpose by the other endpoint
-                      (kernel 6's second sum), or None.
+                      (kernel 6's second sum, kernel 7's backward), or None.
     """
 
     __slots__ = ()
@@ -262,7 +279,8 @@ class BandedPlan(tuple):
 def bm_of(batch: dict, prefix: str):
     """The banded plan of an edge family of a tensor batch, or None when
     absent or stale (node count no longer the offsets' length - 1):
-      'sew_'  the super-edge clique family, sorted by dst (packed keys);
+      'sew_'  the super-edge clique family, sorted by dst (packed keys),
+              with its transpose when the batch carries `SEW_TRAIN_KEYS`;
       'cwd_'  the conv's edge family sorted by dst: the edge-window plan
               with its transpose (kernel 6 sums at the sources through it);
       'cws_'  the same rows sorted by src: that plan read through
@@ -273,9 +291,12 @@ def bm_of(batch: dict, prefix: str):
         if any(k not in batch for k in SEW_KEYS) \
                 or batch["sew_nptr"].shape[0] != n + 1:
             return None
+        tperm, tptr = (batch.get(k) for k in SEW_TRAIN_KEYS)
+        if tperm is None or tptr is None or tptr.shape[0] != n + 1:
+            tperm = tptr = None
         return BandedPlan((batch["sew_own"], batch["sew_oth"],
                            batch["sew_attr"], None, batch["sew_nptr"],
-                           batch["sew_cnode"], 0, None, None))
+                           batch["sew_cnode"], 0, tperm, tptr))
     if prefix not in ("cwd_", "cws_"):
         raise ValueError(f"banded plan family {prefix!r}: sew_, cwd_ or cws_")
     ew = ew_of(batch)

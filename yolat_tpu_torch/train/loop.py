@@ -9,7 +9,9 @@ and schedule step.
 
 Mixed precision (`cfg.dtype = bfloat16`) mirrors the JAX step: the float
 batch fields of `_COMPUTE_KEYS` and every f32 parameter are cast to bf16
-for the forward (`torch.func.functional_call` over bf16 copies, so the
+(`e_attr_super` among them: YOLaT++'s per-edge level reads it as it comes,
+so this cast is the one place that sets its type) for the forward
+(`torch.func.functional_call` over bf16 copies, so the
 gradients come back to the f32 master weights through the casts), while
 BatchNorm buffers and batch statistics stay f32. No torch.autocast: it
 rounds at other points than the JAX step.
@@ -22,14 +24,17 @@ from torch.func import functional_call
 
 from yolat_tpu_torch.data.packing import finalize_batch
 from yolat_tpu_torch.nn.model import detection_loss
-from yolat_tpu_torch.ops.plans import EW_BATCH_KEYS
+from yolat_tpu_torch.ops.plans import (EW_BATCH_KEYS, SEW_KEYS,
+                                       SEW_TRAIN_KEYS)
 
 # float batch fields that feed matmuls: cast to the compute dtype
-_COMPUTE_KEYS = ("x", "pos", "e_attr", "nbr_attr")
+_COMPUTE_KEYS = ("x", "pos", "e_attr", "nbr_attr", "e_attr_super")
 # the dense neighbour table, read by train_layout='dense' only
 _DENSE_KEYS = ("nbr_idx", "nbr_attr", "nbr_mask")
 # pack-time edge populations and plans, stale once edges drop on device
-_EDGE_STALE_KEYS = ("dst_count",) + EW_BATCH_KEYS
+# (`yolat_tpu/train/loop.py:151-154`)
+_EDGE_STALE_KEYS = (("dst_count", "src_count", "super_dst_count")
+                    + EW_BATCH_KEYS + SEW_KEYS + SEW_TRAIN_KEYS)
 
 
 def compute_dtype_of(cfg):

@@ -5,9 +5,12 @@ reference's cad_recognition/train.py:173-321) for a single process on one
 device: no mesh, no multi-host, no `scan_steps` chains, no buckets or
 mixup. The loaders pack what cfg.train_layout's conv branch reads
 ('window' is refused together with edge dropout, which would leave its
-plan stale). Epoch loop over the shuffled train loader, evaluation every epoch
-from `eval_start` (and at the last epoch or when `max_steps` stops the
-run), per-epoch checkpoints with a best-by-`test_value` copy, a scalar
+plan stale) and, for a YOLaT++ arch, the super-edge family: the train
+loader with the clique family's plan and its transpose only under
+cfg.pp_banded_super (refused together with edge dropout for the same
+reason), the test loader with what serving reads. Epoch loop over the
+shuffled train loader, evaluation every epoch from `eval_start` (and at
+the last epoch or when `max_steps` stops the run), per-epoch checkpoints with a best-by-`test_value` copy, a scalar
 log, and resume from a checkpoint directory, a `<dir>/ckpt_<tag>` path
 or a reference `.pth` (weights only).
 
@@ -25,9 +28,9 @@ import time
 
 import torch
 
-from yolat_tpu_torch.config import PP_ARCHS
 from yolat_tpu_torch.data.dataset import SESYDDataset
-from yolat_tpu_torch.data.loader import PackedLoader
+from yolat_tpu_torch.data.loader import (PackedLoader, extra_plans_for,
+                                         train_plans_for)
 from yolat_tpu_torch.data.packing import to_device
 from yolat_tpu_torch.eval.runner import evaluate
 from yolat_tpu_torch.nn.layers import init_weights
@@ -45,8 +48,9 @@ from yolat_tpu_torch.utils.meters import AverageMeter
 
 
 def init_model(cfg, device) -> torch.nn.Module:
-    """The canonical detector with the reference's init (Kaiming Linear
-    weights, zero biases, BatchNorm at identity) from cfg.seed."""
+    """cfg's detector with the reference's init (Kaiming Linear weights,
+    zero biases, BatchNorm at identity) from cfg.seed; YOLaT++'s gates
+    stay at zero, so it starts as the canonical detector."""
     model = build_model(cfg)
     init_weights(model, torch.Generator().manual_seed(cfg.seed))
     return model.to(device)
@@ -64,10 +68,12 @@ def run_training(cfg, device, exp_dir: str | None = None,
     train_seconds (wall time of the train steps, synchronised), losses
     (every step's loss) and eval_batches (batches evaluated in all)."""
     device = torch.device(device)
-    if cfg.arch in PP_ARCHS:
-        raise NotImplementedError(
-            f"arch {cfg.arch!r}: YOLaT++ is carried for serving (cli.infer, "
-            "cli.test); its training path is not carried yet")
+    if cfg.pp_banded_super and cfg.drop_edge > 0.0:
+        raise ValueError(
+            "pp_banded_super with drop_edge > 0: edge dropout strips the "
+            "super-edge plan and its pack-time counts from the batch, and "
+            "the step would train the sparse route under this flag's name; "
+            "train without pp_banded_super, or without edge dropout")
     if cfg.train_layout == "window" and cfg.drop_edge > 0.0:
         raise ValueError(
             "train_layout 'window' with drop_edge > 0: the edge-window plan "
@@ -94,9 +100,10 @@ def run_training(cfg, device, exp_dir: str | None = None,
     layout_kw = dict(edge_window=window, ew_transpose=window,
                      dense=cfg.train_layout == "dense")
     train_loader = PackedLoader(train_ds, batch_size=cfg.batch_size,
-                                shuffle=True, seed=cfg.seed, **layout_kw)
+                                shuffle=True, seed=cfg.seed,
+                                **{**layout_kw, **train_plans_for(cfg)})
     test_loader = PackedLoader(test_ds, batch_size=cfg.batch_size * 2,
-                               **layout_kw)
+                               **{**layout_kw, **extra_plans_for(cfg)})
     steps_per_epoch = max(len(train_loader), 1)
 
     model = init_model(cfg, device)
