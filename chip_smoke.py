@@ -118,14 +118,27 @@ no jax. Phases, each of which raises on failure (non-zero exit):
      per step and per evaluated batch, backward once per step) and kernels
      3 and 11 exactly on the fused run; then `cli.test` restores the
      banded run's checkpoint (fast_bf16: kernels 1, 2, 5, 6) and the
-     factored one (the eval-mode module).
+     factored one (the eval-mode module);
+ 17. edge-window decomposition (kernel 12): on the bench batch of phase 3
+     with the probe's seeded inputs (x [N, 64], w1 [132, 64], w2 [64, 64],
+     scale 1, shift 0), f32 and bf16, each variant of
+     `edge_window_decomp` (full, noband, noonehot) bit-identical to kernel
+     1 on the variant's inputs (as they are; the plan with src := dst; x
+     filled with 0.001), twice bit-identical, within phase 3's tolerance of
+     its plain version, and unlike `full` (noband, noonehot); paired median
+     times of `full` at bf16; then
+     `yolat_tpu_torch.scripts.ew_kernel_decomp` (the probe: its own copy of
+     the bench batch, 40 CUDA-event spans per variant, in turns) prints its
+     line, on the same N and E, every time finite and kernel 1 not
+     launched.
 Everything it runs comes from yolat_tpu_torch, the synthetic SVG writer
 included: it imports neither jax nor the JAX package yolat_tpu.
 The kernels line (a JSON object describing each kernel; launches are
 counted over the path that runs it, with the counts set to 0 just before:
 phase 4 for the serving kernels, phase 6 for the fused head's, phase 10 for
 kernels 9, 10 and 4, phase 13's first `cli.infer` run for kernels 5 and 6,
-phase 16's banded run for kernels 7 and 8)
+phase 16's banded run for kernels 7 and 8, phase 17's probe run for
+kernel 12, `edge_window_decomp`)
 comes before the nvidia-smi line; the last line is
 {"ok": true, "device": {...}}. Each kernel's bound_ms is the larger of its
 bytes (each input read once, each output written once) over 3.35 TB/s and
@@ -1800,6 +1813,78 @@ def pp_train_phase(root, work, dev_line):
     return main_counts
 
 
+def decomp_phase(batch, dev_line):
+    """Phase 17: kernel 12's variants against kernel 1 and their plain
+    versions, then the probe; returns (its kernels-line entry, its launches
+    over the probe's run)."""
+    import torch
+
+    from yolat_tpu_torch.ops import _build
+    from yolat_tpu_torch.ops.edge_window import (VARIANTS, decomp_inputs,
+                                                 edge_window_decomp,
+                                                 edge_window_decomp_plain,
+                                                 edge_window_message_sum)
+    from yolat_tpu_torch.ops.plans import ew_of
+    from yolat_tpu_torch.scripts import ew_kernel_decomp as probe
+
+    ew = ew_of(batch)
+    n, e, nw = batch["pos"].shape[0], ew[0].shape[0], ew[3].shape[0] - 1
+    r = {"max_abs_err": 0.0, "library_ms": None}
+    for dt in (torch.float32, torch.bfloat16):
+        name = "f32" if dt == torch.float32 else "bf16"
+        x, w1, sc1, w2, sc2 = probe.probe_inputs(n, batch["pos"].device, dt)
+        w = (w1, sc1, w2, sc2)
+        full = edge_window_decomp(x, ew, *w, "full")
+        for v in VARIANTS:
+            got = edge_window_decomp(x, ew, *w, v)
+            again = edge_window_decomp(x, ew, *w, v)
+            k1 = edge_window_message_sum(*decomp_inputs(x, ew, v), *w)
+            want = edge_window_decomp_plain(x, ew, *w, v)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            scale = want.abs().max().item()
+            if dt == torch.float32:
+                ok = bool(((got - want).abs() <= 1e-4 + 1e-4 * want.abs()).all())
+                tol = "|err| <= 1e-4 + 1e-4|ref|"
+            else:
+                ok = err <= 5e-3 * scale
+                tol = "max|err| <= 5e-3 max|ref|"
+            same_k1, same_run = torch.equal(got, k1), torch.equal(got, again)
+            moved = v == "full" or not torch.equal(got, full)
+            print(f"kernel edge_window_decomp {v} {name} x{tuple(x.shape)} E={e}"
+                  f" in {nw} windows: bit-identical to kernel 1 on its inputs "
+                  f"{same_k1}, twice {same_run}, differs from full {moved}; "
+                  f"vs plain max_abs_err={err:.3e} of max|ref|={scale:.3e} "
+                  f"({tol}) {'ok' if ok else 'FAIL'} [{dev_line}]")
+            check(same_k1 and same_run and moved and ok,
+                  f"edge_window_decomp {v} {name}")
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+        if dt == torch.bfloat16:
+            r["ms"], r["plain_ms"] = paired_ms(
+                lambda: edge_window_decomp(x, ew, *w, "full"),
+                lambda: edge_window_decomp_plain(x, ew, *w, "full"))
+            r.update(bound(*probe.variant_work("full", n, probe.C, e, nw, 2),
+                           PEAK_BF16))
+            print(f"kernel edge_window_decomp full bf16: kernel {r['ms']:.4f} "
+                  f"ms, plain {r['plain_ms']:.4f} ms, bound "
+                  f"{r['bound_ms']:.4f} ms ({r['bound_by']}) [{dev_line}]")
+
+    _build.reset_launch_counts()
+    out = probe.main([])
+    launches = _build.launch_counts["edge_window_decomp"]
+    check(out["N"] == n and out["E"] == e, "the probe ran on the bench batch")
+    check(all(_finite(out[f"{v}_us"]) and out[f"{v}_us"] > 0 for v in VARIANTS),
+          "the probe's times are finite")
+    check(launches > 0 and _build.launch_counts["edge_window_message_sum"] == 0,
+          f"the probe ran kernel 12, not kernel 1: {_build.launch_counts}")
+    print(f"probe: {launches} launches of edge_window_decomp; full "
+          f"{out['full_us']:.2f} us, noband {out['noband_us']:.2f}, noonehot "
+          f"{out['noonehot_us']:.2f}; source-row gather "
+          f"{out['gather_src_us']:.2f} us, both gathers "
+          f"{out['gather_both_us']:.2f} us [{dev_line}]")
+    return r, launches
+
+
 def _finite(v) -> bool:
     return v == v and abs(v) != float("inf")
 
@@ -1944,6 +2029,10 @@ def main() -> int:
             "banded_gather", "banded_gather_bwd", "banded_scatter_own",
             "banded_scatter_own_bwd")})
 
+        # 17. the edge-window decomposition probe (kernel 12)
+        res["edge_window_decomp"], counts["edge_window_decomp"] = \
+            decomp_phase(batch, dev_line)
+
     # the kernels line
     sources = {"edge_window_message_sum": (
                    "yolat_tpu_torch/csrc/edge_window.cu",
@@ -1989,7 +2078,10 @@ def main() -> int:
                    "yolat_tpu/ops/banded_train.py:257"),
                "banded_scatter_own_bwd": (
                    "yolat_tpu_torch/csrc/banded_train.cu",
-                   "yolat_tpu/ops/banded_train.py:319")}
+                   "yolat_tpu/ops/banded_train.py:319"),
+               "edge_window_decomp": (
+                   "yolat_tpu_torch/csrc/edge_window.cu",
+                   "scripts/ew_kernel_decomp.py:105")}
     check(all(counts[k] > 0 for k in sources),
           f"every kernel was launched on its path: {counts}")
     kernels = [{"name": k, "route": "cuda", "source": sources[k][0],

@@ -22,6 +22,9 @@ Tolerances, kernel vs plain version on the same card and inputs:
     a node's few terms in f32 in the plan's order, the plain versions with
     float atomics in any order: f32 rtol/atol 1e-5; at bf16 (9 backward
     rounds its f32 sum to bf16) one output ulp, rtol 2^-7 over atol 1e-5.
+  * kernel 12, the decomposition variants of kernel 1: bit-identical to
+    kernel 1 on the variant's inputs (same code, same order), and to
+    itself on a second run.
   * kernel 4: f32 rtol/atol 1e-4; bf16 max error <= 5e-3 * max|out| (a
     flipped bf16 rounding of s_i, h1 or h2, as for the edge window).
   * kernels 5 and 6: the kernel adds a node's terms in the plan's order,
@@ -56,7 +59,10 @@ from yolat_tpu_torch.ops.block_max import (folded_mlp_block_max,
                                            folded_mlp_block_max_plain)
 from yolat_tpu_torch.ops.dense_message import (fused_dense_message,
                                                fused_dense_message_plain)
-from yolat_tpu_torch.ops.edge_window import (edge_window_message_sum,
+from yolat_tpu_torch.ops.edge_window import (decomp_inputs,
+                                             edge_window_decomp,
+                                             edge_window_decomp_plain,
+                                             edge_window_message_sum,
                                              edge_window_message_sum_plain)
 from yolat_tpu_torch.ops.fused_pool_train import (fused_pool_train,
                                                   fused_pool_train_bwd)
@@ -123,6 +129,32 @@ def test_edge_window_kernel_matches_plain(cuda_device, ci, layout, dtype):
     else:
         err = (got - want).abs().max().item()
         assert err <= 5e-3 * want.abs().max().item(), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("variant", ["full", "noband", "noonehot"])
+def test_edge_window_decomp_is_kernel1_on_its_inputs(cuda_device, variant,
+                                                     dtype):
+    x, ew, w1, sc1, w2, sc2 = _ew_inputs(3, 64, cuda_device, layout="wide")
+    x = x.to(dtype)
+    w = (w1, sc1, w2, sc2)
+    _build.reset_launch_counts()
+    got = edge_window_decomp(x, ew, *w, variant)
+    again = edge_window_decomp(x, ew, *w, variant)
+    k1 = edge_window_message_sum(*decomp_inputs(x, ew, variant), *w)
+    want = edge_window_decomp_plain(x, ew, *w, variant)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["edge_window_decomp"] == 2
+    assert _build.launch_counts["edge_window_message_sum"] == 1
+    assert torch.equal(got, k1) and torch.equal(got, again)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    else:
+        err = (got - want).abs().max().item()
+        assert err <= 5e-3 * want.abs().max().item(), err
+    with pytest.raises(ValueError):
+        edge_window_decomp(x, ew, *w, "nogather")
 
 
 @pytest.mark.cuda

@@ -8,8 +8,8 @@ layout through the train CLI, evaluate that checkpoint through the test CLI
 on the dense route, serve YOLaT++ (predict core, both CLIs, the per-edge
 and the factored checkpoint), train YOLaT++ through the train CLI (the
 per-edge sparse route, the banded route of `ops/banded_train.py` with the
-fused head, the factored profile) and evaluate one of those checkpoints,
-and check that none of those modules was loaded. Plus a source check: no
+fused head, the factored profile), evaluate one of those checkpoints, run
+the edge-window decomposition probe on the plain versions, and check that none of those modules was loaded. Plus a source check: no
 import of any of them anywhere in the package or in chip_smoke.py."""
 
 import os
@@ -140,6 +140,11 @@ SCRIPT = textwrap.dedent("""
             os.path.join(res["exp_dir"], "checkpoint"), "--profile",
             "yolat_pp_fast"])
         assert len(table["map_per_th"]) == 10
+        # the edge-window decomposition probe (kernel 12), plain versions
+        from yolat_tpu_torch.scripts import ew_kernel_decomp
+        r = ew_kernel_decomp.main(["--device", "cpu", "--n_svgs", "1",
+                                   "--batch_size", "1", "--reps", "1"])
+        assert r["N"] > 0 and r["full_us"] > 0 and r["noonehot_us"] > 0
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     assert not loaded, loaded
     print("NOJAX-OK", len(mods))

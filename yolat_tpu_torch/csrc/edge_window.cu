@@ -32,6 +32,28 @@
 // This first version runs on the FP32 pipes at one CTA (8 warps) per SM —
 // the accumulator takes most of shared memory — far below the FP32 peak
 // (PERF.md); mma.sync / wgmma tiles are later work.
+//
+// Decomposition variants (yk_edge_window_decomp). Replaces:
+// scripts/ew_kernel_decomp.py, the probe kernel `main.make.kern` (:41-86,
+// pallas_call at :105), which times kernel 1 at C = H = 64 with parts of
+// its work switched off. The variant is a template parameter of the same
+// kernel, so everything but the tile's row loads is the code above:
+//   full      today's kernel (yk_edge_window_message_sum launches this
+//             instantiation; the same code, the same bits);
+//   noband    the source-row gather is off: a tile loads x[dst] only and
+//             stores it as both x_i and x_j — what the probe's noband
+//             computes (ohs = ohl, so x_j = x_i). Kernel 1 on the plan
+//             with src := dst gives the same bits;
+//   noonehot  both row gathers are off: x_i and x_j are the constant
+//             0.001 rounded to the input type, and no row of x is read.
+//             Kernel 1 on x filled with 0.001 gives the same bits. The
+//             probe's noonehot replaces both one-hot matrices by 0.001, so
+//             its x_i / x_j are 0.001-scaled window sums, over its 3-window
+//             band only, and its output is numerically meaningless; this
+//             variant keeps the probe's point, everything but the row
+//             selection, and computes a defined function.
+// attr, the plan's dst, the MLP and the per-destination sum are the same in
+// every variant, and so is the shared memory a launch asks for.
 #include <stdint.h>
 
 #include "common.cuh"
@@ -44,13 +66,15 @@ constexpr int TE = 32;            // edges per tile
 constexpr int G = THREADS / H;    // edge groups per tile
 constexpr int EPT = TE / G;       // edges per thread per tile
 
+enum Variant : int { kFull = 0, kNoBand = 1, kNoOneHot = 2 };
+
 size_t smem_bytes(int c, int na, int wn) {
   size_t floats = (size_t)(2 * c + na) * H + H * H + 4 * H + (size_t)2 * TE * c +
                   (size_t)TE * na + (size_t)2 * TE * H + (size_t)wn * H;
   return floats * 4 + TE * 4;
 }
 
-template <typename T>
+template <typename T, int V>
 __global__ void __launch_bounds__(THREADS) edge_window_kernel(
     const T* __restrict__ x, const int* __restrict__ src,
     const int* __restrict__ dst, const float* __restrict__ attr,
@@ -95,8 +119,15 @@ __global__ void __launch_bounds__(THREADS) edge_window_kernel(
       const int el = i / c, kk = i - el * c, e = e0 + el;
       float xi = 0.f, xj = 0.f;
       if (e < e_end) {
-        xi = yk::to_f(x[(size_t)min(max(dst[e], 0), n - 1) * c + kk]);
-        xj = yk::to_f(x[(size_t)min(max(src[e], 0), n - 1) * c + kk]);
+        if constexpr (V == kNoOneHot) {
+          xi = xj = yk::round_to<T>(0.001f);
+        } else {
+          xi = yk::to_f(x[(size_t)min(max(dst[e], 0), n - 1) * c + kk]);
+          if constexpr (V == kNoBand)
+            xj = xi;
+          else
+            xj = yk::to_f(x[(size_t)min(max(src[e], 0), n - 1) * c + kk]);
+        }
       }
       xi_s[i] = xi;
       xj_s[i] = xj;
@@ -160,22 +191,36 @@ __global__ void __launch_bounds__(THREADS) edge_window_kernel(
   for (int i = tid; i < nodes * H; i += THREADS) out[(size_t)node0 * H + i] = acc_s[i];
 }
 
-template <typename T>
+template <typename T, int V>
 int launch(const void* x, const void* src, const void* dst, const void* attr,
            const void* wptr, const void* w1s, const void* sc1, const void* w2,
            const void* sc2, void* out, int n, int c, int nw, int wn, int na,
            cudaStream_t stream) {
   const size_t smem = smem_bytes(c, na, wn);
+  // the attribute belongs to each instantiation
   cudaError_t err = cudaFuncSetAttribute(
-      edge_window_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      edge_window_kernel<T, V>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  edge_window_kernel<T><<<nw, THREADS, smem, stream>>>(
+  edge_window_kernel<T, V><<<nw, THREADS, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const int*>(src),
       static_cast<const int*>(dst), static_cast<const float*>(attr),
       static_cast<const int*>(wptr), static_cast<const T*>(w1s),
       static_cast<const float*>(sc1), static_cast<const T*>(w2),
       static_cast<const float*>(sc2), static_cast<float*>(out), n, c, wn, na);
   return (int)cudaGetLastError();
+}
+
+template <int V>
+int launch_typed(const void* x, const void* src, const void* dst,
+                 const void* attr, const void* wptr, const void* w1s,
+                 const void* sc1, const void* w2, const void* sc2, void* out,
+                 int n, int c, int nw, int wn, int na, int bf16, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bf16)
+    return launch<__nv_bfloat16, V>(x, src, dst, attr, wptr, w1s, sc1, w2, sc2,
+                                    out, n, c, nw, wn, na, st);
+  return launch<float, V>(x, src, dst, attr, wptr, w1s, sc1, w2, sc2, out, n,
+                          c, nw, wn, na, st);
 }
 
 }  // namespace
@@ -192,12 +237,31 @@ int yk_edge_window_message_sum(const void* x, const void* src, const void* dst,
                                const void* w1s, const void* sc1, const void* w2,
                                const void* sc2, void* out, int n, int c, int nw,
                                int wn, int na, int bf16, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    return launch<__nv_bfloat16>(x, src, dst, attr, wptr, w1s, sc1, w2, sc2,
-                                 out, n, c, nw, wn, na, st);
-  return launch<float>(x, src, dst, attr, wptr, w1s, sc1, w2, sc2, out, n, c,
-                       nw, wn, na, st);
+  return launch_typed<kFull>(x, src, dst, attr, wptr, w1s, sc1, w2, sc2, out,
+                             n, c, nw, wn, na, bf16, stream);
+}
+
+// The decomposition probe's variants: 0 full, 1 noband, 2 noonehot (see the
+// header); arguments as above. An unknown variant returns
+// cudaErrorInvalidValue and launches nothing.
+int yk_edge_window_decomp(int variant, const void* x, const void* src,
+                          const void* dst, const void* attr, const void* wptr,
+                          const void* w1s, const void* sc1, const void* w2,
+                          const void* sc2, void* out, int n, int c, int nw,
+                          int wn, int na, int bf16, void* stream) {
+  switch (variant) {
+    case kFull:
+      return launch_typed<kFull>(x, src, dst, attr, wptr, w1s, sc1, w2, sc2,
+                                 out, n, c, nw, wn, na, bf16, stream);
+    case kNoBand:
+      return launch_typed<kNoBand>(x, src, dst, attr, wptr, w1s, sc1, w2, sc2,
+                                   out, n, c, nw, wn, na, bf16, stream);
+    case kNoOneHot:
+      return launch_typed<kNoOneHot>(x, src, dst, attr, wptr, w1s, sc1, w2,
+                                     sc2, out, n, c, nw, wn, na, bf16, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 // dynamic shared memory the launch asks for (bytes)

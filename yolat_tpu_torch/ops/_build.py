@@ -45,7 +45,7 @@ launch_counts = {"edge_window_message_sum": 0, "folded_mlp_block_max2": 0,
                  "ew_window_segment_sum_bwd": 0, "banded_message_sum": 0,
                  "banded_message_sum_both": 0, "banded_gather": 0,
                  "banded_gather_bwd": 0, "banded_scatter_own": 0,
-                 "banded_scatter_own_bwd": 0}
+                 "banded_scatter_own_bwd": 0, "edge_window_decomp": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -122,6 +122,8 @@ def library() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.yk_edge_window_message_sum.argtypes = [p] * 10 + [i] * 6 + [p]
         lib.yk_edge_window_message_sum.restype = i
+        lib.yk_edge_window_decomp.argtypes = [i] + [p] * 10 + [i] * 6 + [p]
+        lib.yk_edge_window_decomp.restype = i
         lib.yk_edge_window_smem_bytes.argtypes = [i] * 3
         lib.yk_edge_window_smem_bytes.restype = ctypes.c_long
         lib.yk_folded_mlp_block_max2.argtypes = [p] * 6 + [i] * 4 + [p]

@@ -15,6 +15,15 @@ per-window offsets). The caller divides by the in-degree and adds the
 `edge_window_message_sum_plain` for CPU tensors; any other device raises.
 Both follow the TPU kernel's rounding: W1 split as (W1a - W1b, W1b, W1c)
 in x's type, x_i/x_j/attr, h1 and h2 rounded to x's type, f32 sums.
+
+`edge_window_decomp` is the same kernel with parts of its row loads
+switched off, the counterpart of the probe kernel of
+`scripts/ew_kernel_decomp.py:41-105` (kernel 12; timed by
+`yolat_tpu_torch.scripts.ew_kernel_decomp`). Each variant computes kernel
+1's function on transformed inputs (`decomp_inputs`): `full` on the inputs
+as they are, `noband` on the plan with src := dst (x_j = x_i, as the
+probe's `ohs = ohl`), `noonehot` on x filled with 0.001 in x's type (no row
+of x read). Nothing on a serving or training path calls it.
 """
 
 from __future__ import annotations
@@ -24,6 +33,9 @@ import torch
 from yolat_tpu_torch.ops import _build
 
 H_KERNEL = 64  # message width the CUDA kernel is compiled for
+# the decomposition variants, by their index in the C entry point
+VARIANTS = ("full", "noband", "noonehot")
+NOONEHOT_VALUE = 0.001  # what the noonehot variant reads for every x value
 
 
 def _split_w1(w1, c: int, dtype):
@@ -57,8 +69,43 @@ def edge_window_message_sum(x, ew, w1, sc1, w2, sc2):
     """Kernel 1 on CUDA tensors, its plain version on CPU tensors."""
     if x.device.type == "cpu":
         return edge_window_message_sum_plain(x, ew, w1, sc1, w2, sc2)
+    return _launch("edge_window_message_sum", None, x, ew, w1, sc1, w2, sc2)
+
+
+def decomp_inputs(x, ew, variant: str):
+    """(x, ew) on which kernel 1 computes what `variant` computes."""
+    if variant == "full":
+        return x, ew
+    if variant == "noband":
+        return x, (ew[1],) + tuple(ew[1:])
+    if variant == "noonehot":
+        return torch.full_like(x, NOONEHOT_VALUE), ew
+    raise ValueError(f"edge-window variant {variant!r}: one of {VARIANTS}")
+
+
+def edge_window_decomp_plain(x, ew, w1, sc1, w2, sc2, variant: str):
+    """Plain PyTorch version of the decomposition variants: kernel 1's
+    plain version on the variant's inputs."""
+    return edge_window_message_sum_plain(*decomp_inputs(x, ew, variant), w1,
+                                         sc1, w2, sc2)
+
+
+def edge_window_decomp(x, ew, w1, sc1, w2, sc2, variant: str):
+    """Kernel 12 (a variant of kernel 1) on CUDA tensors, its plain version
+    on CPU tensors."""
+    if variant not in VARIANTS:
+        raise ValueError(f"edge-window variant {variant!r}: one of {VARIANTS}")
+    if x.device.type == "cpu":
+        return edge_window_decomp_plain(x, ew, w1, sc1, w2, sc2, variant)
+    return _launch("edge_window_decomp", VARIANTS.index(variant), x, ew, w1,
+                   sc1, w2, sc2)
+
+
+def _launch(name, variant, x, ew, w1, sc1, w2, sc2):
+    """Check the inputs and launch kernel 1 (variant None) or its
+    decomposition variant; counts the launch under `name`."""
     if x.device.type != "cuda":
-        raise ValueError(f"edge_window_message_sum: no route for {x.device}")
+        raise ValueError(f"{name}: no route for {x.device}")
     src, dst, attr, wptr, wn = ew
     n, c = x.shape
     e, na = attr.shape
@@ -71,19 +118,19 @@ def edge_window_message_sum(x, ew, w1, sc1, w2, sc2):
             or tuple(w2.shape) != (h, h) or tuple(sc1.shape) != (2, h) \
             or tuple(sc2.shape) != (2, h):
         raise ValueError(
-            f"edge_window_message_sum shapes: x {tuple(x.shape)}, plan "
+            f"{name} shapes: x {tuple(x.shape)}, plan "
             f"{tuple(src.shape)}/{tuple(attr.shape)}/{tuple(wptr.shape)} at "
             f"wn={wn}, w1 {tuple(w1.shape)}, w2 {tuple(w2.shape)}; needs "
             f"H == {H_KERNEL} and ceil(N / wn) windows")
-    for name, t, dt in (("src", src, torch.int32), ("dst", dst, torch.int32),
-                        ("attr", attr, torch.float32),
-                        ("wptr", wptr, torch.int32)):
+    for tname, t, dt in (("src", src, torch.int32), ("dst", dst, torch.int32),
+                         ("attr", attr, torch.float32),
+                         ("wptr", wptr, torch.int32)):
         if t.dtype != dt or t.device != x.device:
-            raise TypeError(f"{name}: {t.dtype} on {t.device}, want {dt} on "
+            raise TypeError(f"{tname}: {t.dtype} on {t.device}, want {dt} on "
                             f"{x.device}")
-    for name, t in (("w1", w1), ("w2", w2), ("sc1", sc1), ("sc2", sc2)):
+    for tname, t in (("w1", w1), ("w2", w2), ("sc1", sc1), ("sc2", sc2)):
         if t.device != x.device or not t.is_floating_point():
-            raise TypeError(f"{name}: {t.dtype} on {t.device}, want a float "
+            raise TypeError(f"{tname}: {t.dtype} on {t.device}, want a float "
                             f"tensor on {x.device}")
     out = torch.empty(n, h, dtype=torch.float32, device=x.device)
     if n == 0:
@@ -100,10 +147,14 @@ def edge_window_message_sum(x, ew, w1, sc1, w2, sc2):
     # the scale/shift pairs are read as f32 whatever their type, as the
     # TPU kernel reads them (edge_window.py:142-143)
     sc1c, sc2c = sc1.float().contiguous(), sc2.float().contiguous()
-    rc = lib.yk_edge_window_message_sum(
-        _build.ptr(x), *[_build.ptr(t) for t in ins], _build.ptr(w1s),
-        _build.ptr(sc1c), _build.ptr(w2c), _build.ptr(sc2c), _build.ptr(out),
-        n, c, nw, wn, na, int(x.dtype == torch.bfloat16), _build.stream_of(x))
-    _build.check(lib, rc, "edge_window_message_sum")
-    _build.launch_counts["edge_window_message_sum"] += 1
+    args = (_build.ptr(x), *[_build.ptr(t) for t in ins], _build.ptr(w1s),
+            _build.ptr(sc1c), _build.ptr(w2c), _build.ptr(sc2c),
+            _build.ptr(out), n, c, nw, wn, na, int(x.dtype == torch.bfloat16),
+            _build.stream_of(x))
+    if variant is None:
+        rc = lib.yk_edge_window_message_sum(*args)
+    else:
+        rc = lib.yk_edge_window_decomp(variant, *args)
+    _build.check(lib, rc, name)
+    _build.launch_counts[name] += 1
     return out
