@@ -7,7 +7,11 @@ Run from the root of a checkout on a machine with one NVIDIA H100. Imports
 no jax. Phases, each of which raises on failure (non-zero exit):
   1. device: CUDA present; the card's name and power limit from
      nvidia-smi; TF32 off for matmuls and cuDNN;
-  2. build: nvcc builds the kernels from yolat_tpu_torch/csrc;
+  2. build: nvcc builds the kernels from yolat_tpu_torch/csrc; for the
+     pool-head kernels (2, 3, 11) the count of warpgroup (HGMMA) and warp
+     (HMMA) tensor-core instructions in each one's SASS (`cuobjdump
+     -sass`), with ptxas's registers, spills and static shared memory: each
+     bf16 kernel must have HGMMA, each f32 kernel neither;
   3. kernels: on one packed batch of 4 bench-scale synthetic floorplans
      (2000x1500, 6 rooms, 1-3 symbols per room, seed 7, sampling step 10),
      each kernel against its plain PyTorch version at the shapes the
@@ -26,7 +30,9 @@ no jax. Phases, each of which raises on failure (non-zero exit):
      cotangent (relative Frobenius error 1e-5 at f32, 5e-4 at bf16);
      the kernel route against the unfused composition (Linear -> masked
      BN -> ReLU -> segment max, torch autograd) at f32 (1e-5); kernel
-     11 twice, bit-identical; paired median times;
+     11 twice, bit-identical; paired median times; then the whole bf16
+     head, forward and backward, fused against the unfused composition in
+     turns, with the profiler's device time per call;
   6. train: 8 bench-scale training SVGs and 2 test SVGs through
      `yolat_tpu_torch.cli.train` (bf16, fused head, augmentation on,
      batch 4, full width) for a few steps; losses finite, kernels 3 and
@@ -147,12 +153,17 @@ on the bf16 tensor cores for the MLP kernels, whose times are taken at
 bf16; 67 TFLOP/s in float32 for the gathers' and sums' additions), from
 this run's shapes and data; library_ms is one PyTorch call of the same
 function where there is one, timed here and used nowhere in the port.
+`ms` and `plain_ms` are medians of synchronised spans of one call (each
+holds the wrapper's host time); `device_ms` is the median of queued spans,
+one CUDA-event pair around 40 back-to-back calls divided by 40, six per
+kernel in turns with the plain version's.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -208,14 +219,38 @@ def time_ms(fn, reps: int = 20) -> list:
     return out
 
 
+def queued_ms(fn, reps: int = 40) -> float:
+    """Device ms per call: one CUDA-event pair around `reps` back-to-back
+    calls, divided by the count (no synchronisation between the calls, so
+    the host queues ahead of the device while it can)."""
+    import torch
+
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
+    for _ in range(reps):
+        fn()
+    e.record()
+    e.synchronize()
+    return s.elapsed_time(e) / reps
+
+
 def paired_ms(kernel_fn, plain_fn) -> tuple:
-    """Median ms of kernel and plain versions, timed in turns
-    plain, kernel, kernel, plain."""
+    """(ms, plain ms, device ms): medians of synchronised spans of one call
+    (time_ms) of the kernel and the plain version, in turns plain, kernel,
+    kernel, plain; then the median of the kernel's queued spans
+    (queued_ms), after warm-up, in turns with the plain version's, three
+    times plain, kernel, kernel, plain."""
     p = time_ms(plain_fn)
     k = time_ms(kernel_fn)
     k += time_ms(kernel_fn)
     p += time_ms(plain_fn)
-    return statistics.median(k), statistics.median(p)
+    dk = []
+    for _ in range(3):
+        queued_ms(plain_fn)
+        dk += [queued_ms(kernel_fn), queued_ms(kernel_fn)]
+        queued_ms(plain_fn)
+    return statistics.median(k), statistics.median(p), statistics.median(dk)
 
 
 def bound(nbytes: float, ops: float, peak_ops: float) -> dict:
@@ -239,6 +274,98 @@ def check(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
+# the pool-head kernels: bf16 on the tensor cores, f32 on IEEE FMA
+POOL_HEAD_TC = ("block_max_tc_kernel", "bwd_rows_tc_kernel", "bwd_dw_tc_kernel")
+POOL_HEAD_F32 = ("block_max_kernel", "bwd_rows_kernel", "bwd_dw_kernel")
+
+
+def _cuobjdump() -> str:
+    cands = [shutil.which("cuobjdump"), "/usr/local/cuda/bin/cuobjdump"]
+    try:
+        import triton
+        cands.append(os.path.join(os.path.dirname(triton.__file__), "backends",
+                                  "nvidia", "bin", "cuobjdump"))
+    except ImportError:
+        pass
+    for c in cands:
+        if c and os.path.exists(c):
+            return c
+    raise RuntimeError("cuobjdump not found (PATH, /usr/local/cuda, triton)")
+
+
+def sass_tensor_ops(sass: str) -> dict:
+    """{function: {"HGMMA": n, "HMMA": n}} from `cuobjdump -sass` text."""
+    import re
+
+    ops, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            ops[fn] = {"HGMMA": 0, "HMMA": 0}
+        elif fn is not None:
+            for op in ("HGMMA", "HMMA"):
+                if re.search(rf"\b{op}\b", line):
+                    ops[fn][op] += 1
+    return ops
+
+
+def ptxas_props(log: str) -> dict:
+    """{function: registers, spill stores / loads, static smem} from
+    `nvcc -Xptxas -v` output."""
+    import re
+
+    props = {}
+    for m in re.finditer(
+            r"Compiling entry function '(\S+)'.*?(\d+) bytes stack frame, "
+            r"(\d+) bytes spill stores, (\d+) bytes spill loads.*?Used "
+            r"(\d+) registers(?:, used \d+ barriers)?(?:, (\d+) bytes smem)?",
+            log, re.S):
+        props[m.group(1)] = dict(registers=int(m.group(5)),
+                                 spill_stores=int(m.group(3)),
+                                 spill_loads=int(m.group(4)),
+                                 smem=int(m.group(6) or 0))
+    return props
+
+
+def tensor_core_report() -> dict:
+    """Phase 2: the warpgroup (HGMMA) and warp (HMMA) tensor-core
+    instructions in the SASS of the pool-head kernels, with ptxas's
+    registers, spills and static shared memory; fails unless every bf16
+    kernel has HGMMA and no f32 kernel has either."""
+    import re
+
+    from yolat_tpu_torch.ops import _build
+
+    so = _build.library_path()
+    ops = sass_tensor_ops(subprocess.run(
+        [_cuobjdump(), "-sass", so], capture_output=True, text=True,
+        check=True, timeout=300).stdout)
+    with open(os.path.join(os.path.dirname(so), "ptxas.log")) as f:
+        log = f.read()
+    props = ptxas_props(log)
+    out = {}
+    for name in POOL_HEAD_TC + POOL_HEAD_F32:
+        fns = [f for f in ops if re.search(rf"\d{name}(I|E|v|P|$)", f)]
+        check(bool(fns), f"{name} not in the SASS of {so}")
+        for f in fns:
+            p = props.get(f, {})
+            # ptxas's C7515: the wgmma pipeline runs serialised
+            serial = bool(re.search(rf"C7515\)[^\n]*{re.escape(f)}", log))
+            out[f] = dict(ops[f], serialised=serial, **p)
+            print(f"sass {name} ({f}): HGMMA {ops[f]['HGMMA']}, HMMA "
+                  f"{ops[f]['HMMA']}; ptxas: {p.get('registers')} registers, "
+                  f"{p.get('spill_stores')} / {p.get('spill_loads')} bytes "
+                  f"spilled (stores / loads), {p.get('smem')} bytes static "
+                  f"smem, wgmma serialised (C7515) {serial}")
+            if name in POOL_HEAD_TC:
+                check(ops[f]["HGMMA"] > 0, f"{name}: no HGMMA in its SASS")
+            else:
+                check(ops[f]["HGMMA"] + ops[f]["HMMA"] == 0,
+                      f"{name}: the f32 kernel uses the tensor cores")
+    return out
+
+
 def kernel_phase(folded, batch, dev_line):
     """Each kernel vs its plain version at the serving shapes; returns
     {kernel name: dict(max_abs_err, ms, plain_ms)} (ms at bf16, summed over
@@ -254,8 +381,8 @@ def kernel_phase(folded, batch, dev_line):
     ew = ew_of(batch)
     cnt = torch.clamp(batch["dst_count"].float(), min=1.0)[:, None]
     maskf = batch["node_mask"].float()[:, None]
-    res = {"edge_window_message_sum": dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0),
-           "folded_mlp_block_max2": dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0)}
+    res = {k: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, device_ms=0.0)
+           for k in ("edge_window_message_sum", "folded_mlp_block_max2")}
     for dt in (torch.float32, torch.bfloat16):
         name = "f32" if dt == torch.float32 else "bf16"
         f = batch["x"].to(dt)
@@ -274,20 +401,21 @@ def kernel_phase(folded, batch, dev_line):
             else:
                 ok = err <= 5e-3 * scale
                 tol = "max|err| <= 5e-3 max|ref|"
-            ms, pms = paired_ms(lambda: edge_window_message_sum(*args),
+            ms, pms, dms = paired_ms(lambda: edge_window_message_sum(*args),
                                 lambda: edge_window_message_sum_plain(*args))
             print(f"kernel edge_window_message_sum conv{i} {name} x{tuple(f.shape)} "
                   f"E={ew[0].shape[0]} in {ew[3].shape[0] - 1} windows of "
                   f"{ew[4]}: max_abs_err={err:.3e}, max_rel_err="
                   f"{err / scale:.3e} of max|ref|={scale:.3e} ({tol}) "
                   f"{'ok' if ok else 'FAIL'}; "
-                  f"kernel {ms:.4f} ms, plain {pms:.4f} ms [{dev_line}]")
+                  f"kernel {ms:.4f} ms (queued {dms:.4f}), plain {pms:.4f} ms [{dev_line}]")
             check(ok, f"edge_window_message_sum conv{i} {name} disagrees")
             r = res["edge_window_message_sum"]
             r["max_abs_err"] = max(r["max_abs_err"], err)
             if dt == torch.bfloat16:
                 r["ms"] += ms
                 r["plain_ms"] += pms
+                r["device_ms"] += dms
                 n, ci = f.shape
                 e, h = ew[0].shape[0], c["w2"].shape[0]
                 add_bound(r, bound(
@@ -307,18 +435,18 @@ def kernel_phase(folded, batch, dev_line):
         rtol = 1e-4 if dt == torch.float32 else 1e-2
         ok = bool(((gh.float() - wh.float()).abs()
                    <= 1e-4 + rtol * wh.float().abs()).all()) and torch.equal(gx, wx)
-        ms, pms = paired_ms(lambda: folded_mlp_block_max2(*args),
+        ms, pms, dms = paired_ms(lambda: folded_mlp_block_max2(*args),
                             lambda: folded_mlp_block_max2_plain(*args))
         print(f"kernel folded_mlp_block_max2 {name} x{tuple(cat.shape)} -> "
               f"{tuple(gh.shape)}+{tuple(gx.shape)}: max_abs_err={err:.3e} "
               f"(|err| <= 1e-4 + {rtol:g}|ref|, x max exact) "
-              f"{'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms, plain "
+              f"{'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms (queued {dms:.4f}), plain "
               f"{pms:.4f} ms [{dev_line}]")
         check(ok, f"folded_mlp_block_max2 {name} disagrees")
         r = res["folded_mlp_block_max2"]
         r["max_abs_err"] = max(r["max_abs_err"], err)
         if dt == torch.bfloat16:
-            r["ms"], r["plain_ms"] = ms, pms
+            r["ms"], r["plain_ms"], r["device_ms"] = ms, pms, dms
             n, ci = cat.shape
             h = w.shape[1]
             add_bound(r, bound(
@@ -422,9 +550,10 @@ def _head_run(cat, maskf, lin, bn, blk_first, n_prop, cot, dtype, route):
                      (t.grad for t in leaves))))
 
 
-def _unfused_run(cat, mask, lin, bn, batch, n_prop, cot):
+def _unfused_run(cat, mask, lin, bn, batch, n_prop, cot, dtype=None):
     """Linear -> masked train-mode BN -> ReLU -> segment max (torch
-    autograd through the port's modules) at f32."""
+    autograd through the port's modules) at f32, or on dtype copies of x
+    and the parameters as the bf16 train step runs it."""
     import torch
 
     from yolat_tpu_torch.nn.layers import MLP
@@ -437,12 +566,14 @@ def _unfused_run(cat, mask, lin, bn, batch, n_prop, cot):
     b = lin.bias.detach().clone().requires_grad_(True)
     g = bn.weight.detach().clone().requires_grad_(True)
     be = bn.bias.detach().clone().requires_grad_(True)
+    dt = dtype or torch.float32
     a = torch.func.functional_call(
-        mlp, {"0.weight": w.t(), "0.bias": b, "1.weight": g, "1.bias": be},
-        (x * mask[:, None].float(), mask))
+        mlp, {"0.weight": w.t().to(dt), "0.bias": b.to(dt), "1.weight": g.to(dt),
+              "1.bias": be.to(dt)},
+        ((x * mask[:, None].float()).to(dt), mask))
     pooled = segment_max(a, batch["bbox_idx"], n_prop, mask=mask,
                          plan=plan_of(batch))
-    (pooled * cot).sum().backward()
+    (pooled.float() * cot).sum().backward()
     torch.cuda.synchronize()
     return ({"pooled": pooled.detach()},
             dict(zip(("dx", "dW", "db", "dgamma", "dbeta"),
@@ -463,8 +594,17 @@ def train_kernel_phase(model, batch, dev_line):
     from yolat_tpu_torch.ops.plans import plan_of
 
     model.train()
-    with torch.no_grad():
-        cat, _ = model.cls_net.features(batch)
+    # the features in a fixed order (the sparse layout's scatter_add_ is
+    # otherwise atomic): the bf16 head comparison below then sees the same
+    # inputs, and the same bf16 winner flips between the routes, every run
+    det = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with torch.no_grad():
+            cat, _ = model.cls_net.features(batch)
+    finally:
+        torch.use_deterministic_algorithms(det[0], warn_only=det[1])
     lin, bn = model.cls_net.fusion_block[0], model.cls_net.fusion_block[1]
     mask = batch["node_mask"]
     maskf = mask.float()[:, None]
@@ -492,17 +632,17 @@ def train_kernel_phase(model, batch, dev_line):
         rtol = 1e-4 if dt == torch.float32 else 1e-2
         ok = bool(((got.float() - want.float()).abs()
                    <= 1e-4 + rtol * want.float().abs()).all())
-        ms, pms = paired_ms(lambda: folded_mlp_block_max(x, maskf, w, sc),
+        ms, pms, dms = paired_ms(lambda: folded_mlp_block_max(x, maskf, w, sc),
                             lambda: folded_mlp_block_max_plain(x, maskf, w, sc))
         print(f"kernel folded_mlp_block_max {name} x{tuple(x.shape)} -> "
               f"{tuple(got.shape)}: max_abs_err={err:.3e} (|err| <= 1e-4 + "
-              f"{rtol:g}|ref|) {'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms, "
+              f"{rtol:g}|ref|) {'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms (queued {dms:.4f}), "
               f"plain {pms:.4f} ms [{dev_line}]")
         check(ok, f"folded_mlp_block_max {name} disagrees")
         r = res["folded_mlp_block_max"]
         r["max_abs_err"] = max(r["max_abs_err"], err)
         if dt == torch.bfloat16:
-            r["ms"], r["plain_ms"] = ms, pms
+            r["ms"], r["plain_ms"], r["device_ms"] = ms, pms, dms
             n, ci = x.shape
             add_bound(r, bound(
                 2 * (n * ci + ci * h + n // 8 * h) + 4 * (n + 2 * h),
@@ -558,14 +698,15 @@ def train_kernel_phase(model, batch, dev_line):
         torch.cuda.synchronize()
         same = all(torch.equal(p, q) for p, q in zip(a1, a2))
         check(same, f"kernel 11 {name}: two runs differ")
-        ms, pms = paired_ms(
+        ms, pms, dms = paired_ms(
             lambda: fused_pool_train_bwd(x, maskf, w, sc, pooled_b, gp_b),
             lambda: fused_pool_train_bwd_plain(x, maskf, w, sc, ppooled_b,
                                                gp_b))
         print(f"kernel fused_pool_train_bwd {name}: two runs bit-identical "
-              f"{same}; kernel {ms:.4f} ms, plain {pms:.4f} ms [{dev_line}]")
+              f"{same}; kernel {ms:.4f} ms (queued {dms:.4f}), plain {pms:.4f} ms [{dev_line}]")
         if dt == torch.bfloat16:
-            res["fused_pool_train_bwd"].update(ms=ms, plain_ms=pms)
+            res["fused_pool_train_bwd"].update(ms=ms, plain_ms=pms,
+                                               device_ms=dms)
 
     # the kernel route against the unfused composition, f32
     kv, kg = _head_run(cat, maskf, lin, bn, blk_first, n_prop, cot,
@@ -580,6 +721,31 @@ def train_kernel_phase(model, batch, dev_line):
           + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
     check(all(v <= UNFUSED_TOL for v in errs.values()),
           "fused head disagrees with the unfused composition")
+
+    # the whole bf16 head, forward and backward: the fused route (kernels
+    # 3 and 11) against the unfused composition (cuBLAS and torch autograd)
+    # in turns, device time per call from the profiler
+    from yolat_tpu_torch.cli.profile import _trace
+
+    arms = {"fused": lambda: _head_run(cat, maskf, lin, bn, blk_first, n_prop,
+                                       cot, torch.bfloat16, "kernel"),
+            "unfused": lambda: _unfused_run(cat, mask, lin, bn, batch, n_prop,
+                                            cot, torch.bfloat16)}
+    for fn in arms.values():
+        fn()
+    reads = {k: [] for k in arms}
+    for k in ("fused", "unfused", "unfused", "fused"):
+        t = _trace(arms[k], 10)
+        check(t["device_busy_ms_per_call"] is not None,
+              "the profiler traced the card")
+        reads[k].append(t)
+    for k, ts in reads.items():
+        print(f"bf16 head {k}, forward + backward: device busy "
+              + " / ".join(f"{t['device_busy_ms_per_call']:.4f}" for t in ts)
+              + " ms per call, profiled wall "
+              + " / ".join(f"{t['profiled_wall_ms_per_call']:.4f}" for t in ts)
+              + f" ms, {ts[0]['device_kernels_per_call']:.0f} kernels; own "
+              f"kernels {ts[-1]['own_kernels_ms_per_call']} [{dev_line}]")
     model.eval()
     return res
 
@@ -674,8 +840,8 @@ def window_kernel_phase(model, batch, dev_line):
     gen = torch.Generator(device=f1.device).manual_seed(9)
     names = ("ew_pair_features", "ew_pair_features_bwd",
              "ew_window_segment_sum", "ew_window_segment_sum_bwd")
-    res = {k: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0)
-           for k in names}
+    res = {k: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, device_ms=0.0,
+                   library_ms=0.0) for k in names}
     # calls per step: kernel 9 forward at C 5 and 64, its backward at C 64
     # (the first layer's input needs no gradient); kernel 10 forward and
     # backward at C 64, once per layer
@@ -683,10 +849,10 @@ def window_kernel_phase(model, batch, dev_line):
              "ew_window_segment_sum": {64: N_BLOCKS},
              "ew_window_segment_sum_bwd": {64: N_BLOCKS}}
 
-    def note(name, c, dt, err, ok, limit, ms, pms, lms, b):
+    def note(name, c, dt, err, ok, limit, ms, pms, dms, lms, b):
         tag = "f32" if dt == torch.float32 else "bf16"
         print(f"kernel {name} {tag} C={c} N={n} E={e}: max_abs_err={err:.3e} "
-              f"({limit}) {'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms, plain "
+              f"({limit}) {'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms (queued {dms:.4f}), plain "
               f"{pms:.4f} ms, library {lms:.4f} ms, bound "
               f"{b['bound_ms']:.4f} ms ({b['bound_by']}) [{dev_line}]")
         check(ok, f"{name} {tag} C={c} disagrees with its plain version")
@@ -696,6 +862,7 @@ def window_kernel_phase(model, batch, dev_line):
         if dt == torch.bfloat16 and k:
             r["ms"] += k * ms
             r["plain_ms"] += k * pms
+            r["device_ms"] += k * dms
             r["library_ms"] += k * lms
             for _ in range(k):
                 add_bound(r, b)
@@ -711,12 +878,12 @@ def window_kernel_phase(model, batch, dev_line):
             torch.cuda.synchronize()
             ok = torch.equal(g, want) and torch.equal(g, g2)
             err = (g.float() - want.float()).abs().max().item()
-            ms, pms = paired_ms(lambda: ewt.pair_fwd(x, src, dst),
+            ms, pms, dms = paired_ms(lambda: ewt.pair_fwd(x, src, dst),
                                 lambda: ewt.pair_fwd_plain(x, src, dst))
             lms = _library_ms(lambda: (x.index_select(0, dstl),
                                        x.index_select(0, srcl)))
             note("ew_pair_features", c, dt, err, ok,
-                 "exact, two runs bit-identical", ms, pms, lms,
+                 "exact, two runs bit-identical", ms, pms, dms, lms,
                  bound(s * (n * c + 2 * e * c) + 8 * e, e * c, PEAK_F32))
 
             # kernel 9 backward: sums in the plan's order, rounded to dt
@@ -742,14 +909,14 @@ def window_kernel_phase(model, batch, dev_line):
                 limit = (f"one bf16 ulp, {frac:.2e} of the elements differ "
                          f"(<= 1e-3; the planted fault reads {pfrac:.2e})")
             ok = ok and torch.equal(dx, dx2)
-            ms, pms = paired_ms(
+            ms, pms, dms = paired_ms(
                 lambda: ewt.pair_bwd(dg, src, dst, dptr, sperm, sptr, n),
                 lambda: ewt.pair_bwd_plain(dg, src, dst, n))
             d_xi, d_xj = dg[:, :c].float(), dg[:, c:].float()
             lms = _library_ms(lambda: torch.zeros(
                 n, c, device=x.device).index_add_(0, dstl, d_xi
                                                   ).index_add_(0, srcl, d_xj))
-            note("ew_pair_features_bwd", c, dt, err, ok, limit, ms, pms, lms,
+            note("ew_pair_features_bwd", c, dt, err, ok, limit, ms, pms, dms, lms,
                  bound(s * (2 * e * c + n * c) + 4 * (2 * n + 2 + e),
                        3 * e * c, PEAK_F32))
 
@@ -763,14 +930,14 @@ def window_kernel_phase(model, batch, dev_line):
             diff = (out - want).abs()
             ok = bool((diff <= 1e-5 + 1e-5 * want.abs()).all()) \
                 and torch.equal(out, out2)
-            ms, pms = paired_ms(lambda: ewt.wsum_fwd(h, dst, dptr, n),
+            ms, pms, dms = paired_ms(lambda: ewt.wsum_fwd(h, dst, dptr, n),
                                 lambda: ewt.wsum_fwd_plain(h, dst, n))
             hf = h.float()
             lms = _library_ms(lambda: torch.zeros(
                 n, c, device=h.device).index_add_(0, dstl, hf))
             note("ew_window_segment_sum", c, dt, diff.max().item(), ok,
                  "|err| <= 1e-5 + 1e-5|ref|, two runs bit-identical", ms, pms,
-                 lms, bound(s * e * c + 4 * (n + 1) + 4 * n * c, e * c,
+                 dms, lms, bound(s * e * c + 4 * (n + 1) + 4 * n * c, e * c,
                             PEAK_F32))
 
             g = torch.randn(n, c, device=f1.device, generator=gen)
@@ -780,11 +947,11 @@ def window_kernel_phase(model, batch, dev_line):
             torch.cuda.synchronize()
             ok = torch.equal(dh, want) and torch.equal(dh, dh2)
             err = (dh.float() - want.float()).abs().max().item()
-            ms, pms = paired_ms(lambda: ewt.wsum_bwd(g, dst, dt),
+            ms, pms, dms = paired_ms(lambda: ewt.wsum_bwd(g, dst, dt),
                                 lambda: ewt.wsum_bwd_plain(g, dst, dt))
             lms = _library_ms(lambda: g.index_select(0, dstl))
             note("ew_window_segment_sum_bwd", c, dt, err, ok,
-                 "exact, two runs bit-identical", ms, pms, lms,
+                 "exact, two runs bit-identical", ms, pms, dms, lms,
                  bound(4 * n * c + 4 * e + s * e * c, 0.0, PEAK_F32))
     return res
 
@@ -983,7 +1150,8 @@ def dense_phase(folded, batch, dense_batch, dev_line):
     used = int(nbr[2].sum())
     check(used == int(batch["edge_mask"].sum()),
           "the table holds every real edge")
-    r = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=None)
+    r = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, device_ms=0.0,
+             library_ms=None)
     for dt in (torch.float32, torch.bfloat16):
         name = "f32" if dt == torch.float32 else "bf16"
         f = dense_batch["x"].to(dt)
@@ -1003,7 +1171,7 @@ def dense_phase(folded, batch, dense_batch, dev_line):
                 ok = err <= 5e-3 * scale
                 tol = "max|err| <= 5e-3 max|ref|"
             ok = ok and torch.equal(got, again)
-            ms, pms = paired_ms(lambda: fused_dense_message(*args),
+            ms, pms, dms = paired_ms(lambda: fused_dense_message(*args),
                                 lambda: fused_dense_message_plain(*args))
             ci, h = f.shape[1], c["w2"].shape[0]
             b = bound((2 if dt == torch.bfloat16 else 4)
@@ -1015,13 +1183,14 @@ def dense_phase(folded, batch, dense_batch, dev_line):
                   f"{tuple(f.shape)} D={d}, {used} of {n * d} slots used: "
                   f"max_abs_err={err:.3e} of max|ref|={scale:.3e} ({tol}, "
                   f"two runs bit-identical) {'ok' if ok else 'FAIL'}; kernel "
-                  f"{ms:.4f} ms, plain {pms:.4f} ms, bound "
+                  f"{ms:.4f} ms (queued {dms:.4f}), plain {pms:.4f} ms, bound "
                   f"{b['bound_ms']:.4f} ms ({b['bound_by']}) [{dev_line}]")
             check(ok, f"fused_dense_message conv{i} {name} disagrees")
             r["max_abs_err"] = max(r["max_abs_err"], err)
             if dt == torch.bfloat16:
                 r["ms"] += ms
                 r["plain_ms"] += pms
+                r["device_ms"] += dms
                 add_bound(r, b)
             f = got.to(dt)
 
@@ -1158,7 +1327,8 @@ def banded_kernel_phase(model, folded, batch, dev_line):
               f"thread blocks, largest {big} edges, median {med:.0f}; largest "
               f"node {deg} edges")
 
-    res = {k: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=None)
+    res = {k: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, device_ms=0.0,
+                   library_ms=None)
            for k in ("banded_message_sum", "banded_message_sum_both")}
     for dt in (torch.float32, torch.bfloat16):
         tag = "f32" if dt == torch.float32 else "bf16"
@@ -1198,7 +1368,7 @@ def banded_kernel_phase(model, folded, batch, dev_line):
             perr = (planted - want).abs().max().item()
             same = torch.equal(got, again)
             ok = err <= limit and same and bool(torch.isfinite(got).all())
-            ms, pms = paired_ms(lambda: kernel(x, bm, *w, *second),
+            ms, pms, dms = paired_ms(lambda: kernel(x, bm, *w, *second),
                                 lambda: plain(x, bm, *w, *second))
             e = bm.n_edges
             sz = 2 if dt == torch.bfloat16 else 4
@@ -1216,7 +1386,7 @@ def banded_kernel_phase(model, folded, batch, dev_line):
                   f"{limit:.3e} = {BANDED_TOL[tag]:g} max|ref|; own and other "
                   f"weights swapped reads {perr:.3e}; two runs "
                   f"{'bit-identical' if same else 'DIFFER'}) "
-                  f"{'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms, plain "
+                  f"{'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms (queued {dms:.4f}), plain "
                   f"{pms:.4f} ms, bound {b['bound_ms']:.4f} ms "
                   f"({b['bound_by']}), library none [{dev_line}]")
             check(ok, f"{kname} {label} {tag} disagrees with its plain version")
@@ -1226,7 +1396,7 @@ def banded_kernel_phase(model, folded, batch, dev_line):
             r = res[kname]
             r["max_abs_err"] = max(r["max_abs_err"], err)
             if dt == torch.bfloat16 and label in ("sew", "cwd both"):
-                r["ms"], r["plain_ms"] = ms, pms
+                r["ms"], r["plain_ms"], r["device_ms"] = ms, pms, dms
                 add_bound(r, b)
         own, oth = kept["cwd both"][:, :64], kept["cwd both"][:, 64:]
         own_same = torch.equal(own, kept["cwd"])
@@ -1444,17 +1614,17 @@ def banded_train_kernel_phase(model, batch, dev_line):
     res = {k: dict(max_abs_err=0.0) for k in names}
     gen = torch.Generator(device=dev).manual_seed(14)
 
-    def note(name, dt, err, ok, limit, ms, pms, lms, b):
+    def note(name, dt, err, ok, limit, ms, pms, dms, lms, b):
         tag = "f32" if dt == torch.float32 else "bf16"
         print(f"kernel {name} {tag} C={c} N={n} E={e}: max_abs_err={err:.3e} "
-              f"({limit}) {'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms, plain "
+              f"({limit}) {'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms (queued {dms:.4f}), plain "
               f"{pms:.4f} ms, library {lms:.4f} ms, bound "
               f"{b['bound_ms']:.4f} ms ({b['bound_by']}) [{dev_line}]")
         check(ok, f"{name} {tag} disagrees")
         r = res[name]
         r["max_abs_err"] = max(r["max_abs_err"], err)
         if dt == torch.bfloat16:
-            r.update(ms=ms, plain_ms=pms, library_ms=lms)
+            r.update(ms=ms, plain_ms=pms, device_ms=dms, library_ms=lms)
             add_bound(r, b)
 
     def sum_check(got, terms, want_plain, out_bf16):
@@ -1501,12 +1671,12 @@ def banded_train_kernel_phase(model, batch, dev_line):
         check(not torch.equal(got[0], got[1]), "own and other rows differ")
         err = max((a.float() - w.float()).abs().max().item()
                   for a, w in zip(got, want))
-        ms, pms = paired_ms(lambda: bt.gather_fwd(x, own, oth),
+        ms, pms, dms = paired_ms(lambda: bt.gather_fwd(x, own, oth),
                             lambda: bt.gather_plain(x, own, oth))
         lms = _library_ms(lambda: (x.index_select(0, ownl),
                                    x.index_select(0, othl)))
         note("banded_gather", dt, err, ok, "exact, two runs bit-identical",
-             ms, pms, lms, bound(s * (n * c + 2 * e * c) + 8 * e, 0.0, PEAK_F32))
+             ms, pms, dms, lms, bound(s * (n * c + 2 * e * c) + 8 * e, 0.0, PEAK_F32))
 
         # kernel 7b: two sums per node, rounded once to dt
         g_own = torch.randn(e, c, device=dev, generator=gen).to(dt)
@@ -1518,13 +1688,13 @@ def banded_train_kernel_phase(model, batch, dev_line):
         err, ok, text = sum_check(dx, [(g_own, ownl), (g_oth, othl)], want,
                                   dt == torch.bfloat16)
         ok = ok and torch.equal(dx, dx2) and dx.dtype == dt
-        ms, pms = paired_ms(lambda: bt.gather_bwd(*args),
+        ms, pms, dms = paired_ms(lambda: bt.gather_bwd(*args),
                             lambda: bt.gather_bwd_plain(g_own, g_oth, own,
                                                         oth, n))
         gf_own, gf_oth = g_own.float(), g_oth.float()
         lms = _library_ms(lambda: torch.zeros(n, c, device=dev).index_add_(
             0, ownl, gf_own).index_add_(0, othl, gf_oth))
-        note("banded_gather_bwd", dt, err, ok, text, ms, pms, lms,
+        note("banded_gather_bwd", dt, err, ok, text, ms, pms, dms, lms,
              bound(s * (2 * e * c + n * c) + 4 * (2 * (n + 1) + e),
                    2 * e * c, PEAK_F32))
 
@@ -1536,12 +1706,12 @@ def banded_train_kernel_phase(model, batch, dev_line):
         torch.cuda.synchronize()
         err, ok, text = sum_check(out, [(rows, ownl)], want, False)
         ok = ok and torch.equal(out, out2) and out.dtype == torch.float32
-        ms, pms = paired_ms(lambda: bt.scatter_own_fwd(rows, own, nptr, n),
+        ms, pms, dms = paired_ms(lambda: bt.scatter_own_fwd(rows, own, nptr, n),
                             lambda: bt.scatter_own_plain(rows, own, n))
         rf = rows.float()
         lms = _library_ms(lambda: torch.zeros(n, c, device=dev).index_add_(
             0, ownl, rf))
-        note("banded_scatter_own", dt, err, ok, text, ms, pms, lms,
+        note("banded_scatter_own", dt, err, ok, text, ms, pms, dms, lms,
              bound(s * e * c + 4 * (n + 1) + 4 * n * c, e * c, PEAK_F32))
 
         # kernel 8b: a gather of the f32 cotangent, rounded to dt: exact
@@ -1552,11 +1722,11 @@ def banded_train_kernel_phase(model, batch, dev_line):
         torch.cuda.synchronize()
         ok = torch.equal(d_rows, want) and torch.equal(d_rows, d_rows2)
         err = (d_rows.float() - want.float()).abs().max().item()
-        ms, pms = paired_ms(lambda: bt.scatter_own_bwd(g, own, dt),
+        ms, pms, dms = paired_ms(lambda: bt.scatter_own_bwd(g, own, dt),
                             lambda: bt.scatter_own_bwd_plain(g, own, dt))
         lms = _library_ms(lambda: g.index_select(0, ownl))
         note("banded_scatter_own_bwd", dt, err, ok,
-             "exact, two runs bit-identical", ms, pms, lms,
+             "exact, two runs bit-identical", ms, pms, dms, lms,
              bound(4 * n * c + 4 * e + s * e * c, 0.0, PEAK_F32))
 
     # an empty family: no launch, zero sums, empty gathers
@@ -1860,13 +2030,13 @@ def decomp_phase(batch, dev_line):
                   f"edge_window_decomp {v} {name}")
             r["max_abs_err"] = max(r["max_abs_err"], err)
         if dt == torch.bfloat16:
-            r["ms"], r["plain_ms"] = paired_ms(
+            r["ms"], r["plain_ms"], r["device_ms"] = paired_ms(
                 lambda: edge_window_decomp(x, ew, *w, "full"),
                 lambda: edge_window_decomp_plain(x, ew, *w, "full"))
             r.update(bound(*probe.variant_work("full", n, probe.C, e, nw, 2),
                            PEAK_BF16))
             print(f"kernel edge_window_decomp full bf16: kernel {r['ms']:.4f} "
-                  f"ms, plain {r['plain_ms']:.4f} ms, bound "
+                  f"ms (queued {r['device_ms']:.4f}), plain {r['plain_ms']:.4f} ms, bound "
                   f"{r['bound_ms']:.4f} ms ({r['bound_by']}) [{dev_line}]")
 
     _build.reset_launch_counts()
@@ -1928,6 +2098,7 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.library()
     print(f"build: {_build.library_path()} in {time.perf_counter() - t0:.2f} s")
+    tensor_core_report()
 
     os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
     with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as work:
@@ -2087,6 +2258,7 @@ def main() -> int:
     kernels = [{"name": k, "route": "cuda", "source": sources[k][0],
                 "replaces": sources[k][1], "launches": counts[k],
                 "max_abs_err": res[k]["max_abs_err"], "ms": res[k]["ms"],
+                "device_ms": res[k]["device_ms"],
                 "plain_ms": res[k]["plain_ms"],
                 "bound_ms": res[k]["bound_ms"], "bound_by": res[k]["bound_by"],
                 "library_ms": res[k].get("library_ms")} for k in sources]

@@ -177,5 +177,10 @@ def ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
+def aligned16(t):
+    """t, or a copy of it whose data starts on a 16-byte boundary."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def stream_of(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)

@@ -126,11 +126,12 @@ def fused_pool_train_bwd(xm, maskf, w, sc, pooled_b, gp_b,
     tiles = n // ROWS
     k = min(KCHUNKS, tiles)
     dev = xm.device
-    x = xm.contiguous()
-    wc = w.to(x.dtype).contiguous()
-    scf = sc.float().contiguous()
-    pb = pooled_b.contiguous()
-    gb = gp_b.float().contiguous()
+    # the bf16 kernels copy x, W, sc and the block refs in 16-byte pieces
+    x = _build.aligned16(xm.contiguous())
+    wc = _build.aligned16(w.to(x.dtype).contiguous())
+    scf = _build.aligned16(sc.float().contiguous())
+    pb = _build.aligned16(pooled_b.contiguous())
+    gb = _build.aligned16(gp_b.float().contiguous())
     dw_u = torch.empty(ci, h, dtype=torch.float32, device=dev)
     dx_s = torch.empty(n, ci, dtype=x.dtype, device=dev)
     sums = torch.empty(2, h, dtype=torch.float32, device=dev)
