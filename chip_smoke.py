@@ -8,10 +8,12 @@ no jax. Phases, each of which raises on failure (non-zero exit):
   1. device: CUDA present; the card's name and power limit from
      nvidia-smi; TF32 off for matmuls and cuDNN;
   2. build: nvcc builds the kernels from yolat_tpu_torch/csrc; for the
-     pool-head kernels (2, 3, 11) the count of warpgroup (HGMMA) and warp
+     kernels with a tensor-core route at bf16 (the pool head 2, 3, 11 and
+     the message MLPs 4, 5, 6) the count of warpgroup (HGMMA) and warp
      (HMMA) tensor-core instructions in each one's SASS (`cuobjdump
      -sass`), with ptxas's registers, spills and static shared memory: each
-     bf16 kernel must have HGMMA, each f32 kernel neither;
+     bf16 kernel must have HGMMA, spill nothing and keep its wgmma pipeline
+     unserialised (no C7515), each f32 kernel must have neither;
   3. kernels: on one packed batch of 4 bench-scale synthetic floorplans
      (2000x1500, 6 rooms, 1-3 symbols per room, seed 7, sampling step 10),
      each kernel against its plain PyTorch version at the shapes the
@@ -58,7 +60,8 @@ no jax. Phases, each of which raises on failure (non-zero exit):
      gradient must agree to 1e-5 once their cotangents are taken out;
      two planted faults in the window backward must read above the limit;
   9. dense route: kernel 4 against its plain version at both conv shapes,
-     f32 and bf16, twice, bit-identical, with times; the engine's dense
+     f32 and bf16, twice, bit-identical, with times; at bf16 the MLP rows
+     it computed (its own count) equal to the used slots; the engine's dense
      route (kernel 4) against its edge-window route (kernel 1) on batches
      of the same files (f32 logits within 1e-4 of their scale);
  10. window train and dense test: a few bf16 steps through
@@ -274,9 +277,12 @@ def check(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
-# the pool-head kernels: bf16 on the tensor cores, f32 on IEEE FMA
-POOL_HEAD_TC = ("block_max_tc_kernel", "bwd_rows_tc_kernel", "bwd_dw_tc_kernel")
-POOL_HEAD_F32 = ("block_max_kernel", "bwd_rows_kernel", "bwd_dw_kernel")
+# the kernels with two routes: bf16 on the tensor cores (the pool head 2, 3,
+# 11; the message MLPs 4, 5, 6), f32 on IEEE FMA
+TC_KERNELS = ("block_max_tc_kernel", "bwd_rows_tc_kernel", "bwd_dw_tc_kernel",
+              "dense_message_tc_kernel", "banded_tc_kernel")
+F32_KERNELS = ("block_max_kernel", "bwd_rows_kernel", "bwd_dw_kernel",
+               "dense_message_kernel", "banded_kernel")
 
 
 def _cuobjdump() -> str:
@@ -328,11 +334,21 @@ def ptxas_props(log: str) -> dict:
     return props
 
 
+def functions_of(name: str, fns) -> list:
+    """The mangled functions among `fns` that are kernel `name` (each
+    template instantiation; another kernel whose name ends in `name` is
+    not)."""
+    import re
+
+    return [f for f in fns if re.search(rf"\d{name}(I|E|v|P|$)", f)]
+
+
 def tensor_core_report() -> dict:
     """Phase 2: the warpgroup (HGMMA) and warp (HMMA) tensor-core
-    instructions in the SASS of the pool-head kernels, with ptxas's
-    registers, spills and static shared memory; fails unless every bf16
-    kernel has HGMMA and no f32 kernel has either."""
+    instructions in the SASS of the kernels with a tensor-core route, with
+    ptxas's registers, spills and static shared memory; fails unless every
+    bf16 kernel has HGMMA, spills nothing and runs its wgmma pipeline
+    unserialised, and no f32 kernel has either instruction."""
     import re
 
     from yolat_tpu_torch.ops import _build
@@ -345,8 +361,8 @@ def tensor_core_report() -> dict:
         log = f.read()
     props = ptxas_props(log)
     out = {}
-    for name in POOL_HEAD_TC + POOL_HEAD_F32:
-        fns = [f for f in ops if re.search(rf"\d{name}(I|E|v|P|$)", f)]
+    for name in TC_KERNELS + F32_KERNELS:
+        fns = functions_of(name, ops)
         check(bool(fns), f"{name} not in the SASS of {so}")
         for f in fns:
             p = props.get(f, {})
@@ -358,8 +374,11 @@ def tensor_core_report() -> dict:
                   f"{p.get('spill_stores')} / {p.get('spill_loads')} bytes "
                   f"spilled (stores / loads), {p.get('smem')} bytes static "
                   f"smem, wgmma serialised (C7515) {serial}")
-            if name in POOL_HEAD_TC:
+            if name in TC_KERNELS:
                 check(ops[f]["HGMMA"] > 0, f"{name}: no HGMMA in its SASS")
+                check(p.get("spill_stores", 0) + p.get("spill_loads", 0) == 0,
+                      f"{name}: ptxas spills registers")
+                check(not serial, f"{name}: ptxas serialises its wgmma (C7515)")
             else:
                 check(ops[f]["HGMMA"] + ops[f]["HMMA"] == 0,
                       f"{name}: the f32 kernel uses the tensor cores")
@@ -1141,7 +1160,8 @@ def dense_phase(folded, batch, dense_batch, dev_line):
     import torch
 
     from yolat_tpu_torch.eval.fast_forward import fast_forward
-    from yolat_tpu_torch.ops.dense_message import (fused_dense_message,
+    from yolat_tpu_torch.ops.dense_message import (dense_message_work,
+                                                   fused_dense_message,
                                                    fused_dense_message_plain)
 
     nbr = (dense_batch["nbr_idx"], dense_batch["nbr_attr"],
@@ -1158,7 +1178,15 @@ def dense_phase(folded, batch, dense_batch, dev_line):
         for i, c in enumerate(folded["convs"]):
             args = (f, *nbr, c["w1"], c["sc1"], c["w2"], c["sc2"], c["wr"],
                     c["br"])
+            dense_message_work(reset=True)
             got = fused_dense_message(*args)
+            if dt == torch.bfloat16:
+                rows, tiles = dense_message_work(reset=True)
+                print(f"kernel fused_dense_message conv{i} bf16: computed "
+                      f"{rows} MLP rows for {used} used slots (of {n * d}), "
+                      f"in {tiles} pair tiles of 64 rows")
+                check(rows == used, "kernel 4 computes MLP rows for used "
+                      "slots only, each once")
             again = fused_dense_message(*args)
             want = fused_dense_message_plain(*args)
             torch.cuda.synchronize()

@@ -93,8 +93,10 @@ _REPO = os.path.dirname(os.path.dirname(os.path.dirname(
 _OWN_KERNEL_RE = re.compile(
     r"\b(edge_window_kernel|block_max_kernel|bwd_rows_kernel|bwd_dw_kernel"
     r"|block_max_tc_kernel|bwd_rows_tc_kernel|bwd_dw_tc_kernel"
-    r"|sum_parts_kernel|dense_message_kernel|pair_fwd_kernel|pair_bwd_kernel"
-    r"|wsum_fwd_kernel|wsum_bwd_kernel|banded_kernel|sum_rows_by_perm_kernel"
+    r"|sum_parts_kernel|dense_message_kernel|dense_message_tc_kernel"
+    r"|pair_fwd_kernel|pair_bwd_kernel"
+    r"|wsum_fwd_kernel|wsum_bwd_kernel|banded_kernel|banded_tc_kernel"
+    r"|sum_rows_by_perm_kernel"
     r"|gather_pair_kernel|gather_bwd_kernel|scatter_own_kernel"
     r"|scatter_own_bwd_kernel)(<[^>(]*>)?")
 

@@ -253,6 +253,243 @@ __device__ __forceinline__ void load_tiled(__nv_bfloat16* dst, const __nv_bfloat
   }
 }
 
+// ---- the message MLP on the tensor cores (kernels 4, 5 and 6 at bf16) ----
+//
+// A message tile is 64 rows (edges, neighbour slots or nodes) x 64 columns
+// (the message width). Its first stage, A [64 x kp] @ W [kp x 64], is
+// yk::msg_tile_bf16: one warpgroup issues wgmma m64n64k16 over K in
+// ascending k16 steps from a zero accumulator, both operands in the tiled
+// shared layout above (A K-major, W MN-major, K zero-padded to kp, a
+// multiple of 16). The caller's epilogue (fold, ReLU, round) works on the
+// accumulator fragment; yk::msg_stage2_bf16 then hands the rounded
+// fragment, as bf16 pairs, to the second stage as its register A operand
+// against W2 [64 x 64]: h1 never goes through shared memory. Fragment
+// element i of thread (warp w, lane l) is row yk::msg_row(i), column
+// yk::msg_col(i). The per-node sum is yk::msg_run_sum over a tile of
+// rounded rows kept in shared memory.
+constexpr int MSG_H = 64;    // message width
+constexpr int MSG_HS = 72;   // row stride (bf16) of a [64 x 64] row tile: rows 4 banks apart
+constexpr int MSG_AS = 68;   // row stride (f32) of a [64 x 64] sum tile; 16-byte rows
+
+__device__ __forceinline__ int msg_row(int i) {
+  const int lane = threadIdx.x & 31;
+  return 16 * (threadIdx.x >> 5) + (lane >> 2) + 8 * ((i >> 1) & 1);
+}
+__device__ __forceinline__ int msg_col(int i) {
+  return 8 * (i >> 2) + 2 * (threadIdx.x & 3) + (i & 1);
+}
+
+__device__ __forceinline__ void fence_acc(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define YK_D32 YK_D8(0), YK_D8(8), YK_D8(16), YK_D8(24)
+#define YK_R32                                                              \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31}"
+
+// d[64 x 64] (+)= A[64 x 16] B[16 x 64], both from shared memory
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss64(float (&d)[32], uint64_t da, uint64_t db,
+                                           int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " YK_R32
+      ", %32, %33, p, 1, 1, %35, %36;\n}\n"
+      : YK_D32
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
+}
+
+// the same with A from registers (the fragment of wgmma_rs)
+template <int TB>
+__device__ __forceinline__ void wgmma_rs64(float (&d)[32], const uint32_t (&a)[4],
+                                           uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " YK_R32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : YK_D32
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate),
+        "n"(TB));
+}
+
+// d = a_s [64, kp] @ w_s [kp, 64] (f32), issued (msg_tile_issue) and
+// completed (msg_tile_wait, which completes every product issued before it:
+// two tiles' products run back to back). The caller is one whole
+// warpgroup, after fence_async_smem and a barrier over the operands' writes.
+__device__ __forceinline__ void msg_tile_issue(const __nv_bfloat16* a_s,
+                                               const __nv_bfloat16* w_s, int kp,
+                                               float (&d)[32]) {
+  const uint32_t aa = smem_u32(a_s), wa = smem_u32(w_s);
+#pragma unroll
+  for (int i = 0; i < 32; ++i) d[i] = 0.f;
+  fence_acc(d);
+  wgmma_fence();
+  for (int k = 0; k < kp / 16; ++k)
+    wgmma_ss64<0, 1>(d, gmma_desc(aa + k * 256, 128, kp * 16),
+                     gmma_desc(wa + k * 16 * MSG_H * 2, 16 * MSG_H, 128), k > 0);
+  wgmma_commit();
+}
+__device__ __forceinline__ void msg_tile_wait(float (&d)[32]) {
+  wgmma_wait_all();
+  fence_acc(d);
+}
+__device__ __forceinline__ void msg_tile_bf16(const __nv_bfloat16* a_s,
+                                              const __nv_bfloat16* w_s, int kp,
+                                              float (&d)[32]) {
+  msg_tile_issue(a_s, w_s, kp, d);
+  msg_tile_wait(d);
+}
+
+__device__ __forceinline__ uint32_t bf16_pair(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// d = h @ w2_s [64, 64] (f32), h a first-stage fragment whose values are
+// bf16 already (rounded by the epilogue): k16 step kk reads the columns
+// 16 kk .. 16 kk + 15, which the fragment holds at elements 8 kk .. 8 kk + 7
+__device__ __forceinline__ void msg_stage2_bf16(const float (&h)[32],
+                                                const __nv_bfloat16* w2_s,
+                                                float (&d)[32]) {
+  uint32_t a[4][4];
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      a[kk][q] = bf16_pair(h[8 * kk + 2 * q], h[8 * kk + 2 * q + 1]);
+      fence_reg(a[kk][q]);
+    }
+  const uint32_t wa = smem_u32(w2_s);
+#pragma unroll
+  for (int i = 0; i < 32; ++i) d[i] = 0.f;
+  fence_acc(d);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_rs64<1>(d, a[kk], gmma_desc(wa + kk * 16 * MSG_H * 2, 16 * MSG_H, 128), kk > 0);
+  wgmma_commit();
+  wgmma_wait_all();
+  fence_acc(d);
+}
+
+// Rounding near a bf16 midpoint. A wgmma's f32 sum is not the k-ascending
+// FMA chain that the plain versions' f32 products agree with (and that the
+// f32 kernels compute), and where a sum lies within a few f32 ulps of a
+// midpoint between two bf16 values the two round to neighbouring bf16
+// values: one bf16 ulp of a product, which a per-node sum carries to the
+// output. So a fragment element that a caller rounds to bf16 is recomputed
+// by that chain when it lies within MSG_TIE f32 ulps of a midpoint (about
+// 0.4% of them): the rounded value then is the chain's wherever the two
+// sums differ by less than MSG_TIE ulps of the result.
+constexpr uint32_t MSG_TIE = 128;
+
+__device__ __forceinline__ bool near_bf16_midpoint(float v) {
+  return (__float_as_uint(v) & 0xFFFFu) - (0x8000u - MSG_TIE) < 2 * MSG_TIE;
+}
+
+// d[i] = sum_k a(row, k) w(k, col), a product with w_s [kp, 64] (tiled,
+// zero past k_end), recomputed as the chain over k < k_end from 0 where the
+// value the caller rounds, post(i, d[i]), lies near a midpoint (rows <
+// `rows` only: the others hold padding); a_group(row, g) is the 16 bytes of
+// the A operand's row holding k = 8 g .. 8 g + 7 (bf16, zero past k_end).
+// The loads of the next 8 k are issued before the FMAs of these 8.
+template <typename A, typename P>
+__device__ __forceinline__ void msg_fix_ties(float (&d)[32], A a_group,
+                                             const __nv_bfloat16* w_s, int k_end, int rows,
+                                             P post) {
+  unsigned flags = 0;
+#pragma unroll
+  for (int i = 0; i < 32; ++i)
+    flags |= (unsigned)(msg_row(i) < rows && near_bf16_midpoint(post(i, d[i]))) << i;
+  // each lane walks its own flagged elements, the warp's lanes side by
+  // side: about one chain per warp and product
+  const int groups = (k_end + 7) / 8;
+  while (flags) {
+    const int i = __ffs(flags) - 1;
+    flags &= flags - 1;
+    const int row = msg_row(i), col = msg_col(i);
+    // w(k, col) for k = 8 g + e: tiled_off(8 g + e, col, 64)
+    const __nv_bfloat16* wc = w_s + (col >> 3) * 64 + (col & 7);
+    auto load = [&](int g, uint4& av, float (&wv)[8]) {
+      av = a_group(row, g);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) wv[e] = __bfloat162float(wc[g * 8 * MSG_H + e * 8]);
+    };
+    uint4 av;
+    float wv[8];
+    load(0, av, wv);
+    float acc = 0.f;
+    for (int g = 0; g < groups; ++g) {
+      uint4 an = av;
+      float wn[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) wn[e] = wv[e];
+      if (g + 1 < groups) load(g + 1, an, wn);
+      const uint32_t u[4] = {av.x, av.y, av.z, av.w};
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        if (8 * g + e < k_end)
+          acc = fmaf(__uint_as_float(e & 1 ? u[e >> 1] & 0xffff0000u : u[e >> 1] << 16),
+                     wv[e], acc);
+      av = an;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) wv[e] = wn[e];
+    }
+#pragma unroll
+    for (int j = 0; j < 32; ++j)
+      if (j == i) d[j] = acc;
+  }
+}
+
+// the fragment's (bf16) values into a [64, MSG_HS] bf16 row tile
+__device__ __forceinline__ void msg_store_rows(const float (&h)[32], __nv_bfloat16* h_s) {
+#pragma unroll
+  for (int i = 0; i < 32; i += 2)
+    *reinterpret_cast<uint32_t*>(h_s + msg_row(i) * MSG_HS + msg_col(i)) =
+        bf16_pair(h[i], h[i + 1]);
+}
+
+// The per-node sum of one tile, by all 128 threads: rows [0, cnt) of h_s
+// belong to nodes node[r] (a node's rows contiguous), and thread (column
+// j, half q) walks rows [0, r1) (q = 0) or [r1, cnt) (q = 1), r1 a row
+// where a node begins, adding each node's rows one by one, in row order, to
+// a running sum that begins as start(r, v, j) (0, or what an earlier tile
+// left of node v) and ends in finish(r_end, v, j, sum): the order of a
+// sequential loop, with no float atomics.
+template <typename Start, typename Finish>
+__device__ __forceinline__ void msg_run_sum(const __nv_bfloat16* h_s, const int* node, int r1,
+                                            int cnt, Start start, Finish finish) {
+  const int j = threadIdx.x & (MSG_H - 1), q = threadIdx.x >> 6;
+  const int lo = q ? r1 : 0, hi = q ? cnt : min(r1, cnt);
+  int cur = -1;
+  float run = 0.f;
+  // rows in chunks of 8: the chunk's loads first, then its adds in order
+  for (int r0 = lo; r0 < hi; r0 += 8) {
+    int v[8];
+    float hv[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int r = min(r0 + e, hi - 1);
+      v[e] = node[r];
+      hv[e] = __bfloat162float(h_s[r * MSG_HS + j]);
+    }
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      if (r0 + e >= hi) break;
+      if (v[e] != cur) {
+        if (cur >= 0) finish(r0 + e, cur, j, run);
+        cur = v[e];
+        run = start(r0 + e, cur, j);
+      }
+      run += hv[e];
+    }
+  }
+  if (cur >= 0) finish(hi, cur, j, run);
+}
+
 // zero n bytes (a multiple of 16) of shared memory
 __device__ __forceinline__ void zero_smem(void* p, int n) {
   for (int i = threadIdx.x; i < n / 16; i += WG_THREADS)

@@ -148,6 +148,8 @@ def library() -> ctypes.CDLL:
         lib.yk_fused_dense_message.restype = i
         lib.yk_dense_message_smem_bytes.argtypes = [i] * 2
         lib.yk_dense_message_smem_bytes.restype = ctypes.c_long
+        lib.yk_dense_message_work.argtypes = [p, i]
+        lib.yk_dense_message_work.restype = i
         lib.yk_banded_message_sum.argtypes = [p] * 18 + [i] * 6 + [p]
         lib.yk_banded_message_sum.restype = i
         lib.yk_banded_message_smem_bytes.argtypes = [i] * 2

@@ -25,6 +25,8 @@ product or sum; products and sums are f32; sc1, sc2 and br are read as f32.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from yolat_tpu_torch.ops import _build
@@ -123,3 +125,14 @@ def fused_dense_message(x, nbr_idx, nbr_attr, nbr_mask, w1, sc1, w2, sc2, wr,
     _build.check(lib, rc, "fused_dense_message")
     _build.launch_counts["fused_dense_message"] += 1
     return out
+
+
+def dense_message_work(reset: bool = False) -> tuple:
+    """(MLP rows, 64-row pair tiles) that kernel 4's bf16 route computed
+    since the last reset: one row per used slot. Synchronises the device;
+    `reset` then sets both to 0."""
+    lib = _build.library()
+    out = (ctypes.c_longlong * 2)()
+    _build.check(lib, lib.yk_dense_message_work(out, int(reset)),
+                 "dense_message_work")
+    return int(out[0]), int(out[1])
