@@ -9,7 +9,8 @@ no jax. Phases, each of which raises on failure (non-zero exit):
      nvidia-smi; TF32 off for matmuls and cuDNN;
   2. build: nvcc builds the kernels from yolat_tpu_torch/csrc; for the
      kernels with a tensor-core route at bf16 (the pool head 2, 3, 11 and
-     the message MLPs 4, 5, 6) the count of warpgroup (HGMMA) and warp
+     the message MLPs 1, 4, 5, 6 with kernel 1's probe variants, kernel
+     12) the count of warpgroup (HGMMA) and warp
      (HMMA) tensor-core instructions in each one's SASS (`cuobjdump
      -sass`), with ptxas's registers, spills and static shared memory: each
      bf16 kernel must have HGMMA, spill nothing and keep its wgmma pipeline
@@ -17,7 +18,9 @@ no jax. Phases, each of which raises on failure (non-zero exit):
   3. kernels: on one packed batch of 4 bench-scale synthetic floorplans
      (2000x1500, 6 rooms, 1-3 symbols per room, seed 7, sampling step 10),
      each kernel against its plain PyTorch version at the shapes the
-     serving path gives it, f32 and bf16, with median times;
+     serving path gives it, f32 and bf16, with median times; for kernel 1
+     also each route's shared memory per CTA and CTAs per SM (CUDA's
+     occupancy query) and the largest and mean edges per window;
   4. serve: a seeded random canonical detector (64 channels, 2 blocks,
      17 classes, randomised BN statistics) saved as a reference-format
      .pth and served through `yolat_tpu_torch.cli.infer` on the 8 SVGs
@@ -137,8 +140,10 @@ no jax. Phases, each of which raises on failure (non-zero exit):
      its plain version, and unlike `full` (noband, noonehot); paired median
      times of `full` at bf16; then
      `yolat_tpu_torch.scripts.ew_kernel_decomp` (the probe: its own copy of
-     the bench batch, 40 CUDA-event spans per variant, in turns) prints its
-     line, on the same N and E, every time finite and kernel 1 not
+     the bench batch; per variant the profiler's device time per launch
+     over 40 calls after 3 unprofiled ones, three rounds, in turns; not its
+     source edits, which run only when the probe runs as a program) prints
+     its line, on the same N and E, every time finite and kernel 1 not
      launched.
 Everything it runs comes from yolat_tpu_torch, the synthetic SVG writer
 included: it imports neither jax nor the JAX package yolat_tpu.
@@ -278,11 +283,13 @@ def check(cond: bool, what: str) -> None:
 
 
 # the kernels with two routes: bf16 on the tensor cores (the pool head 2, 3,
-# 11; the message MLPs 4, 5, 6), f32 on IEEE FMA
+# 11; the message MLPs 1 with its probe variants 12, 4, 5, 6), f32 on IEEE
+# FMA
 TC_KERNELS = ("block_max_tc_kernel", "bwd_rows_tc_kernel", "bwd_dw_tc_kernel",
-              "dense_message_tc_kernel", "banded_tc_kernel")
+              "edge_window_tc_kernel", "dense_message_tc_kernel",
+              "banded_tc_kernel")
 F32_KERNELS = ("block_max_kernel", "bwd_rows_kernel", "bwd_dw_kernel",
-               "dense_message_kernel", "banded_kernel")
+               "edge_window_kernel", "dense_message_kernel", "banded_kernel")
 
 
 def _cuobjdump() -> str:
@@ -394,10 +401,15 @@ def kernel_phase(folded, batch, dev_line):
     from yolat_tpu_torch.ops.block_max import (folded_mlp_block_max2,
                                                folded_mlp_block_max2_plain)
     from yolat_tpu_torch.ops.edge_window import (edge_window_message_sum,
-                                                 edge_window_message_sum_plain)
+                                                 edge_window_message_sum_plain,
+                                                 route_info)
     from yolat_tpu_torch.ops.plans import ew_of
 
     ew = ew_of(batch)
+    per_window = torch.diff(ew[3]).float()
+    print(f"edge windows: {per_window.numel()} of {ew[4]} nodes, edges per "
+          f"window largest {int(per_window.max().item())}, mean "
+          f"{per_window.mean().item():.2f}")
     cnt = torch.clamp(batch["dst_count"].float(), min=1.0)[:, None]
     maskf = batch["node_mask"].float()[:, None]
     res = {k: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, device_ms=0.0)
@@ -409,6 +421,10 @@ def kernel_phase(folded, batch, dev_line):
         for i, c in enumerate(folded["convs"]):
             c = {k: v.to(dt) for k, v in c.items()}  # as fast_forward casts
             args = (f, ew, c["w1"], c["sc1"], c["w2"], c["sc2"])
+            info = route_info(f.shape[1], ew[2].shape[1], ew[4], dt)
+            print(f"kernel edge_window_message_sum conv{i} {name} route: "
+                  f"{info['smem_bytes']} bytes of shared memory per CTA, "
+                  f"{info['ctas_per_sm']} CTAs per SM")
             got = edge_window_message_sum(*args)
             want = edge_window_message_sum_plain(*args)
             torch.cuda.synchronize()

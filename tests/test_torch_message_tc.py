@@ -361,14 +361,14 @@ def test_banded_plain_matches_jax_with_a_node_over_many_tiles(two_stage):
 
 
 def test_message_decomp_variants_apply_to_the_sources():
-    from yolat_tpu_torch.scripts import message_decomp
+    from yolat_tpu_torch.scripts import message_decomp, source_edits
 
-    src = message_decomp.variant_sources()
+    src = source_edits.variant_sources(message_decomp.EDITS)
     assert set(src) == {e[0] for e in message_decomp.EDITS}
     base = src["k5_base"]
     for name, files in src.items():
         assert (files == base) == (name == "k5_base"), name
-    assert "MSG_TIE = 16;" in src["k5_tie16"]["common.cuh"]
+    assert "MSG_TIE = 16;" in src["k5_tie16"][1]["common.cuh"]
     edge, attr = message_decomp.clique_family()
     assert 150_000 < len(edge) < 260_000 and attr.shape == (len(edge), 4)
     assert edge.max() < message_decomp.N

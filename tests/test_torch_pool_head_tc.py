@@ -240,10 +240,10 @@ ptxas info    : Used 225 registers, used 1 barriers
 
 
 def test_pool_head_decomp_variants_apply_to_the_sources():
-    from yolat_tpu_torch.scripts import pool_head_decomp
+    from yolat_tpu_torch.scripts import pool_head_decomp, source_edits
 
-    src = pool_head_decomp.variant_sources()
+    src = source_edits.variant_sources(pool_head_decomp.EDITS)
     assert set(src) == {e[0] for e in pool_head_decomp.EDITS}
-    for name, (fn, text) in src.items():
-        base = src["bm_base" if fn == "block_max.cu" else "k11_base"][1]
-        assert (text == base) == name.endswith("_base"), name
+    for name, (fn, files) in src.items():
+        base = src["bm_base" if fn == "block_max.cu" else "k11_base"][1][fn]
+        assert (files[fn] == base) == name.endswith("_base"), name

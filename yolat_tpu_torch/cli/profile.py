@@ -91,7 +91,8 @@ _REPO = os.path.dirname(os.path.dirname(os.path.dirname(
 
 # the __global__ functions of yolat_tpu_torch/csrc/*.cu
 _OWN_KERNEL_RE = re.compile(
-    r"\b(edge_window_kernel|block_max_kernel|bwd_rows_kernel|bwd_dw_kernel"
+    r"\b(edge_window_kernel|edge_window_tc_kernel|block_max_kernel"
+    r"|bwd_rows_kernel|bwd_dw_kernel"
     r"|block_max_tc_kernel|bwd_rows_tc_kernel|bwd_dw_tc_kernel"
     r"|sum_parts_kernel|dense_message_kernel|dense_message_tc_kernel"
     r"|pair_fwd_kernel|pair_bwd_kernel"

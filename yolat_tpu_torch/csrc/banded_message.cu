@@ -509,8 +509,6 @@ struct Args {
   int n, c, na, nc, wn;
 };
 
-bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
-
 // kernel 6's second launch: the other endpoint's sums of the stored h rows
 template <typename T>
 int launch_oth(const Args& a, cudaStream_t stream) {
@@ -547,7 +545,8 @@ int launch_tc(const Args& a, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       banded_tc_kernel<TWO, BOTH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const bool vec_w = aligned16(a.w_own) && aligned16(a.w_halo) && (!TWO || aligned16(a.w2));
+  const bool vec_w = yk::aligned16(a.w_own) && yk::aligned16(a.w_halo) &&
+                     (!TWO || yk::aligned16(a.w2));
   banded_tc_kernel<TWO, BOTH><<<a.nc, yk::WG_THREADS, smem, stream>>>(
       static_cast<const bf16*>(a.x), static_cast<const int*>(a.own),
       static_cast<const int*>(a.oth), static_cast<const float*>(a.attr),
@@ -556,7 +555,8 @@ int launch_tc(const Args& a, cudaStream_t stream) {
       static_cast<const bf16*>(a.w_halo), static_cast<const bf16*>(a.w_attr),
       static_cast<const float*>(a.sc1), static_cast<const bf16*>(a.w2),
       static_cast<const float*>(a.sc2), static_cast<float*>(a.out),
-      static_cast<bf16*>(a.hbuf), a.n, a.c, a.na, a.c % 8 == 0 && aligned16(a.x), vec_w);
+      static_cast<bf16*>(a.hbuf), a.n, a.c, a.na, a.c % 8 == 0 && yk::aligned16(a.x),
+      vec_w);
   err = cudaGetLastError();
   if (err != cudaSuccess || !BOTH) return (int)err;
   return launch_oth<bf16>(a, stream);

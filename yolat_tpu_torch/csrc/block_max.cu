@@ -245,8 +245,6 @@ __global__ void __launch_bounds__(yk::WG_THREADS) block_max_tc_kernel(
   }
 }
 
-bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
-
 int launch_tc(const void* x, const void* mask, const void* w, const void* sc, void* outh,
               void* outx, int n, int ci, int h, cudaStream_t stream) {
   const int kp = (ci + 15) & ~15;
@@ -269,8 +267,8 @@ int launch_tc(const void* x, const void* mask, const void* w, const void* sc, vo
   block_max_tc_kernel<<<dim3(slabs, chunks), yk::WG_THREADS, smem, stream>>>(
       static_cast<const bf16*>(x), static_cast<const float*>(mask),
       static_cast<const bf16*>(w), static_cast<const float*>(sc), static_cast<bf16*>(outh),
-      static_cast<bf16*>(outx), ci, h, tiles, per, ci % 8 == 0 && aligned16(x),
-      aligned16(w));
+      static_cast<bf16*>(outx), ci, h, tiles, per, ci % 8 == 0 && yk::aligned16(x),
+      yk::aligned16(w));
   return (int)cudaGetLastError();
 }
 

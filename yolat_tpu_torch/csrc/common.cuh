@@ -490,6 +490,10 @@ __device__ __forceinline__ void msg_run_sum(const __nv_bfloat16* h_s, const int*
   if (cur >= 0) finish(hi, cur, j, run);
 }
 
+// whether p starts on a 16-byte boundary (the launches' condition for
+// 16-byte copies)
+inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
 // zero n bytes (a multiple of 16) of shared memory
 __device__ __forceinline__ void zero_smem(void* p, int n) {
   for (int i = threadIdx.x; i < n / 16; i += WG_THREADS)

@@ -437,8 +437,6 @@ __global__ void __launch_bounds__(yk::WG_THREADS) dense_message_tc_kernel(
   yk::cp_async_wait<0>();
 }
 
-bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
-
 int launch_tc(const void* x, const void* nbr_idx, const void* nbr_attr,
               const void* nbr_mask, const void* w1s, const void* sc1, const void* w2,
               const void* sc2, const void* wr, const void* br, void* out, int n, int c,
@@ -450,14 +448,15 @@ int launch_tc(const void* x, const void* nbr_idx, const void* nbr_attr,
   if (err != cudaSuccess) return (int)err;
   const int n_tiles = (n + TM - 1) / TM;
   const int grid = n_tiles < max_ctas ? n_tiles : max_ctas;
-  const bool vec_w = aligned16(w1s) && aligned16(w2) && aligned16(wr);
+  const bool vec_w = yk::aligned16(w1s) && yk::aligned16(w2) && yk::aligned16(wr);
   dense_message_tc_kernel<<<grid, yk::WG_THREADS, smem, stream>>>(
       static_cast<const bf16*>(x), static_cast<const int*>(nbr_idx),
       static_cast<const float*>(nbr_attr), static_cast<const uint8_t*>(nbr_mask),
       static_cast<const bf16*>(w1s), static_cast<const float*>(sc1),
       static_cast<const bf16*>(w2), static_cast<const float*>(sc2),
       static_cast<const bf16*>(wr), static_cast<const float*>(br),
-      static_cast<float*>(out), n, c, d, na, n_tiles, c % 8 == 0 && aligned16(x), vec_w);
+      static_cast<float*>(out), n, c, d, na, n_tiles, c % 8 == 0 && yk::aligned16(x),
+      vec_w);
   return (int)cudaGetLastError();
 }
 

@@ -124,8 +124,10 @@ def library() -> ctypes.CDLL:
         lib.yk_edge_window_message_sum.restype = i
         lib.yk_edge_window_decomp.argtypes = [i] + [p] * 10 + [i] * 6 + [p]
         lib.yk_edge_window_decomp.restype = i
-        lib.yk_edge_window_smem_bytes.argtypes = [i] * 3
+        lib.yk_edge_window_smem_bytes.argtypes = [i] * 4
         lib.yk_edge_window_smem_bytes.restype = ctypes.c_long
+        lib.yk_edge_window_ctas_per_sm.argtypes = [i] * 4
+        lib.yk_edge_window_ctas_per_sm.restype = ctypes.c_long
         lib.yk_folded_mlp_block_max2.argtypes = [p] * 6 + [i] * 4 + [p]
         lib.yk_folded_mlp_block_max2.restype = i
         lib.yk_folded_mlp_block_max.argtypes = [p] * 5 + [i] * 4 + [p]

@@ -13,8 +13,12 @@ per-window offsets). The caller divides by the in-degree and adds the
 `edge_window_message_sum` launches the CUDA kernel
 (`csrc/edge_window.cu`) for CUDA tensors and runs
 `edge_window_message_sum_plain` for CPU tensors; any other device raises.
-Both follow the TPU kernel's rounding: W1 split as (W1a - W1b, W1b, W1c)
-in x's type, x_i/x_j/attr, h1 and h2 rounded to x's type, f32 sums.
+A bf16 x takes the kernel's tensor-core route (`edge_window_tc_kernel`,
+wgmma), an f32 x its IEEE FMA route (`edge_window_kernel`); a failed build
+or launch raises, with no fallback to the other route or to the plain
+version. Both follow the TPU kernel's rounding: W1 split as (W1a - W1b,
+W1b, W1c) in x's type, x_i/x_j/attr, h1 and h2 rounded to x's type, f32
+sums.
 
 `edge_window_decomp` is the same kernel with parts of its row loads
 switched off, the counterpart of the probe kernel of
@@ -101,6 +105,19 @@ def edge_window_decomp(x, ew, w1, sc1, w2, sc2, variant: str):
                    sc1, w2, sc2)
 
 
+def route_info(c: int, na: int, wn: int, dtype) -> dict:
+    """The shared memory per CTA (bytes) and the CTAs per SM of the route
+    that x of `dtype` takes at these shapes (CUDA occupancy query; needs
+    the card)."""
+    lib = _build.library()
+    bf16 = int(dtype == torch.bfloat16)
+    ctas = lib.yk_edge_window_ctas_per_sm(c, na, wn, bf16)
+    if ctas < 0:
+        _build.check(lib, -ctas, "edge_window occupancy query")
+    return {"smem_bytes": lib.yk_edge_window_smem_bytes(c, na, wn, bf16),
+            "ctas_per_sm": ctas}
+
+
 def _launch(name, variant, x, ew, w1, sc1, w2, sc2):
     """Check the inputs and launch kernel 1 (variant None) or its
     decomposition variant; counts the launch under `name`."""
@@ -136,7 +153,8 @@ def _launch(name, variant, x, ew, w1, sc1, w2, sc2):
     if n == 0:
         return out
     lib = _build.library()
-    smem = lib.yk_edge_window_smem_bytes(c, na, wn)
+    bf16 = int(x.dtype == torch.bfloat16)
+    smem = lib.yk_edge_window_smem_bytes(c, na, wn, bf16)
     if smem > _build.SMEM_LIMIT:
         raise ValueError(f"edge window of WN={wn}, C={c} needs {smem} bytes "
                          f"of shared memory (> {_build.SMEM_LIMIT})")
@@ -149,8 +167,7 @@ def _launch(name, variant, x, ew, w1, sc1, w2, sc2):
     sc1c, sc2c = sc1.float().contiguous(), sc2.float().contiguous()
     args = (_build.ptr(x), *[_build.ptr(t) for t in ins], _build.ptr(w1s),
             _build.ptr(sc1c), _build.ptr(w2c), _build.ptr(sc2c),
-            _build.ptr(out), n, c, nw, wn, na, int(x.dtype == torch.bfloat16),
-            _build.stream_of(x))
+            _build.ptr(out), n, c, nw, wn, na, bf16, _build.stream_of(x))
     if variant is None:
         rc = lib.yk_edge_window_message_sum(*args)
     else:

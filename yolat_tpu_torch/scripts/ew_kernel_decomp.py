@@ -12,8 +12,9 @@ packs batch 0 with the edge-window plan (`ops/plans.edge_window_plan`, 256
 destination nodes per window) and draws x [N, 64], w1 [132, 64], w2 [64, 64]
 and sc1 = sc2 = [ones; zeros] from `np.random.default_rng(0)` as the JAX
 probe does (:26-31), x and the weights in bf16. Then it times the three
-variants of `ops.edge_window.edge_window_decomp` (kernel 1's CUDA kernel
-with parts of its row loads switched off):
+variants of `ops.edge_window.edge_window_decomp` (kernel 1's CUDA kernel,
+at bf16 its tensor-core route `edge_window_tc_kernel`, with parts of its
+row loads switched off):
 
   full      kernel 1 itself;
   noband    the source-row gather off (x_j = x_i, the probe's ohs = ohl);
@@ -22,9 +23,14 @@ with parts of its row loads switched off):
             0.001-scaled window sums: the port's variant computes a defined
             function, kernel 1 on x filled with 0.001);
 
-each as the median of `--reps` CUDA-event spans of one launch, the variants
-in turns (the order rotates every repetition), in one call. Prints one JSON
-line: N, E (real edges), C, wn, nw, `<variant>_us`, the shares
+each as the median over 3 rounds of the profiler's device time per
+launch of the variant's kernel (`source_edits.device_us`: torch.profiler,
+CUDA activity, over `--reps` calls of the wrapper after 3 that are not
+profiled), the variants in turns (the order rotates every round), in one
+call; a profile without the kernel raises. The kernel runs shorter than
+its wrapper's host work (~0.1 ms a call), so a CUDA-event span of one call
+would time the host.
+Prints one JSON line: N, E (real edges), C, wn, nw, `<variant>_us`, the shares
 `gather_src_us` = full - noband and `gather_both_us` = full - noonehot, each
 variant's bound (`<variant>_bound_us` and `_bound_by`: the larger of its
 bytes, each input read once and the output written once, over 3.35 TB/s
@@ -34,14 +40,40 @@ H100 SXM data sheet) and `device`, the card's
 per-window edge capacity) and `gsz` (windows per grid step) have no
 counterpart: the port's plan has neither a capacity nor window groups.
 
-`--device cpu` runs the plain versions and times them on the host clock
-(`device` then says so); it exists for the tests. `--device cuda` without
+Run as a program on the card, it also times kernel 1's bf16 route with
+one part taken out, for what the template variants cannot switch off
+(`main(edits=True)`; `main()`, as `chip_smoke.py` phase 17 calls it, runs
+the variants only). An edit is `csrc/edge_window.cu` with one or two
+statements of `edge_window_tc_kernel` replaced (each must match exactly
+once, so an edit of the kernel that moves one fails here first):
+
+  k1_base        kernel 1 as it is;
+  k1_tiles0      no edge tile: each CTA's fixed cost (shared memory
+                 zeroed, weights staged, the window's nodes marked, the
+                 zero rows of nodes without an in-edge written);
+  k1_noproduct   neither product (the first stage's accumulator zero, the
+                 second stage's the rounded first-stage values);
+  k1_noepilogue  neither epilogue (no fold, ReLU or rounding: h = acc);
+  k1_nosum       no per-node sum (the tile's rows are not added or
+                 stored).
+
+Each is built by `source_edits` with the package's nvcc flags into its own
+library under build/ew_kernel_decomp/ (one nvcc per edit, all started
+together) and called through its C entry point on the probe's inputs, not
+through the wrapper (its launches are not counted); its outputs are
+wrong by design and only its time is read, as above, the edits in turns.
+The line then also holds `edits_us` {edit: µs}.
+
+`--device cpu` runs the plain versions and times them on the host clock,
+the median of `--reps` calls (`device` then says so); it exists for the
+tests. `--device cuda` without
 a card raises, and a failed build or launch raises.
 """
 
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import os
 import statistics
@@ -54,8 +86,11 @@ import torch
 from yolat_tpu_torch.cli.profile import nvidia_smi, write_bench_svgs
 from yolat_tpu_torch.data.dataset import SESYDDataset
 from yolat_tpu_torch.data.loader import PackedLoader
-from yolat_tpu_torch.ops.edge_window import VARIANTS, edge_window_decomp
+from yolat_tpu_torch.ops import _build
+from yolat_tpu_torch.ops.edge_window import (VARIANTS, _split_w1,
+                                             edge_window_decomp)
 from yolat_tpu_torch.ops.plans import ew_of
+from yolat_tpu_torch.scripts import source_edits
 
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -63,6 +98,49 @@ C = H = 64  # the serving conv's second layer, as the JAX probe takes it
 N_ATTR = 4
 # NVIDIA's H100 SXM data sheet: HBM bytes/s, dense bf16 tensor-core FLOP/s
 PEAK_BYTES, PEAK_BF16 = 3.35e12, 989e12
+ROUNDS = 3  # rounds of `--reps` profiled calls per variant
+KERNEL = "edge_window_tc_kernel"  # the bf16 route the variants launch
+OUT = os.path.join(os.path.dirname(_build.BUILD_DIR), "ew_kernel_decomp")
+_SRC = "edge_window.cu"
+_EPI1 = ("      h[i] = yk::round_to<bf16>(fmaxf(fmaf(acc[i], sc_s[col], "
+         "sc_s[H + col]), 0.f));")
+_EPI2 = ("      h[i] = yk::round_to<bf16>(\n          fmaxf(fmaf(acc[i], "
+         "sc_s[2 * H + col], sc_s[3 * H + col]), 0.f));")
+# the edit list of `source_edits`
+EDITS = (
+    ("k1_base", _SRC, ()),
+    ("k1_tiles0", _SRC, ((_SRC, "for (int t = 0; t < n_tiles; ++t) {",
+                          "for (int t = 0; t < 0; ++t) {"),)),
+    ("k1_noproduct", _SRC, (
+        (_SRC, "yk::msg_tile_bf16(a_s + buf * TM * kp, w1_s, kp, acc);",
+         "for (int i = 0; i < 32; ++i) acc[i] = 0.f;"),
+        (_SRC, "yk::msg_stage2_bf16(h, w2_s, acc);",
+         "for (int i = 0; i < 32; ++i) acc[i] = h[i];"))),
+    ("k1_noepilogue", _SRC, ((_SRC, _EPI1, "      h[i] = acc[i];"),
+                             (_SRC, _EPI2, "      h[i] = acc[i];"))),
+    ("k1_nosum", _SRC, ((_SRC, ("    yk::msg_run_sum(\n        h_s, node_s + buf * TM,",
+                                "  }\n  yk::cp_async_wait<0>();\n}"), ""),)),
+)
+SIGS = {_SRC: {"yk_edge_window_message_sum": [ctypes.c_void_p] * 10
+               + [ctypes.c_int] * 6 + [ctypes.c_void_p]}}
+
+
+def edit_calls(libs: dict, x, ew, w1, sc1, w2, sc2) -> dict:
+    """{edit: a call of its kernel 1 on these inputs (bf16)}."""
+    src, dst, attr, wptr, wn = ew
+    n, c = x.shape
+    out = torch.empty(n, H, device=x.device)
+    w1s = _split_w1(w1, c, x.dtype).contiguous()
+    P = _build.ptr
+    args = (P(x), P(src), P(dst), P(attr), P(wptr), P(w1s), P(sc1),
+            P(w2.contiguous()), P(sc2), P(out), n, c, wptr.shape[0] - 1, wn,
+            attr.shape[1], 1, _build.stream_of(x))
+
+    def call(name, lib):
+        source_edits.check(lib.yk_edge_window_message_sum(*args), name)
+
+    return {name: (lambda name=name, lib=lib: call(name, lib))
+            for name, lib in libs.items()}
 
 
 def bench_plan(root: str, n_svgs: int, batch_size: int, dev):
@@ -108,35 +186,39 @@ def variant_bound_us(variant: str, n: int, c: int, e: int, nw: int,
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def _spans_us(fns: dict, reps: int, cuda: bool) -> dict:
-    """Median span (us) of one call of each fn, in turns."""
+def _host_us(fns: dict, reps: int) -> dict:
+    """Median host-clock span (us) of one call of each fn, in turns."""
     names = list(fns)
-    for v in names:  # warm-up (and the build, at the first launch)
+    for v in names:  # warm-up
         fns[v]()
     spans = {v: [] for v in names}
-    if cuda:
-        torch.cuda.synchronize()
     for r in range(reps):
         for v in names[r % len(names):] + names[:r % len(names)]:
-            if cuda:
-                s = torch.cuda.Event(enable_timing=True)
-                t = torch.cuda.Event(enable_timing=True)
-                s.record()
-                fns[v]()
-                t.record()
-                spans[v].append((s, t))
-            else:
-                t0 = time.perf_counter()
-                fns[v]()
-                spans[v].append(time.perf_counter() - t0)
-    if cuda:
-        torch.cuda.synchronize()
-        return {v: statistics.median(s.elapsed_time(t) * 1e3
-                                     for s, t in spans[v]) for v in names}
+            t0 = time.perf_counter()
+            fns[v]()
+            spans[v].append(time.perf_counter() - t0)
     return {v: statistics.median(spans[v]) * 1e6 for v in names}
 
 
-def main(argv=None) -> dict:
+def _device_us(fns: dict, reps: int) -> dict:
+    """Median over ROUNDS rounds of the profiler's device time (us) per
+    launch of each fn's edge-window kernel over `reps` calls
+    (`source_edits.device_us`), fns in turns, the order rotated each
+    round; raises unless each profile holds that kernel."""
+    names = list(fns)
+    us = {v: [] for v in names}
+    for r in range(ROUNDS):
+        for v in names[r % len(names):] + names[:r % len(names)]:
+            t = source_edits.device_us(fns[v], reps)
+            if KERNEL not in t:
+                raise RuntimeError(f"{v}: no {KERNEL} in the profile: {sorted(t)}")
+            us[v].append(t[KERNEL])
+    return {v: statistics.median(us[v]) for v in names}
+
+
+def main(argv=None, edits: bool = False) -> dict:
+    """The probe; with `edits` (as a program) on the card also the source
+    edits."""
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     p.add_argument("--n_svgs", type=int, default=8)
@@ -155,17 +237,24 @@ def main(argv=None) -> dict:
                            args.batch_size, dev)
     x, w1, sc1, w2, sc2 = probe_inputs(n, dev)
     e, nw = ew[0].shape[0], ew[3].shape[0] - 1
-    times = _spans_us({v: (lambda v=v: edge_window_decomp(
-        x, ew, w1, sc1, w2, sc2, v)) for v in VARIANTS}, args.reps, cuda)
+    fns = {v: (lambda v=v: edge_window_decomp(x, ew, w1, sc1, w2, sc2, v))
+           for v in VARIANTS}
+    times = _device_us(fns, args.reps) if cuda else _host_us(fns, args.reps)
 
     res = {"N": n, "E": e, "C": C, "wn": ew[4], "nw": nw,
-           "dtype": "bfloat16", "reps": args.reps}
+           "dtype": "bfloat16", "reps": args.reps,
+           "timing": ("profiler device time per launch" if cuda
+                      else "host clock per call")}
     res.update({f"{v}_us": times[v] for v in VARIANTS})
     res["gather_src_us"] = times["full"] - times["noband"]
     res["gather_both_us"] = times["full"] - times["noonehot"]
     for v in VARIANTS:
         res[f"{v}_bound_us"], res[f"{v}_bound_by"] = variant_bound_us(
             v, n, C, e, nw, x.element_size())
+    if cuda and edits:
+        libs = source_edits.build(source_edits.variant_sources(EDITS), OUT, SIGS)
+        res["edits_us"] = _device_us(
+            edit_calls(libs, x, ew, w1, sc1, w2, sc2), args.reps)
     res["device"] = (nvidia_smi() if cuda else
                      "cpu: plain versions, host clock (not a device time)")
     print(json.dumps(res))
@@ -173,4 +262,4 @@ def main(argv=None) -> dict:
 
 
 if __name__ == "__main__":
-    main()
+    main(edits=True)

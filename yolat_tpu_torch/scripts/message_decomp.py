@@ -44,7 +44,6 @@ import argparse
 import ctypes
 import json
 import os
-import subprocess
 
 import numpy as np
 import torch
@@ -54,81 +53,30 @@ from yolat_tpu_torch.ops import _build
 from yolat_tpu_torch.ops.banded_message import (message_rows_plain,
                                                 plan_tensors)
 from yolat_tpu_torch.ops.plans import banded_plan
+from yolat_tpu_torch.scripts import source_edits
 
 N, C, H, A = 72704, 64, 64, 4
 OUT = os.path.join(os.path.dirname(_build.BUILD_DIR), "message_decomp")
 _SRC = "banded_message.cu"
 _ZERO = "for (int i = 0; i < 32; ++i) {}[i] = 0.f;"
-# (variant, file, statement, replacement); None: the sources as they are
+_TIE = "constexpr uint32_t MSG_TIE = 128;"
+# the edit list of `source_edits`
 EDITS = (
-    ("k5_base", _SRC, None, None),
-    ("k5_nofix", "common.cuh", "constexpr uint32_t MSG_TIE = 128;",
-     "constexpr uint32_t MSG_TIE = 0;"),
-    *((f"k5_tie{t}", "common.cuh", "constexpr uint32_t MSG_TIE = 128;",
-       f"constexpr uint32_t MSG_TIE = {t};") for t in (16, 32, 64)),
-    ("k5_noown", _SRC, "yk::msg_tile_issue(ao, wo_s, kc, acc_o);",
-     _ZERO.format("acc_o")),
-    ("k5_nooth", _SRC, "yk::msg_tile_issue(ax, wh_s, kc, acc);",
-     _ZERO.format("acc")),
-    ("k5_nosum", _SRC, ("    yk::msg_run_sum(\n        h_s, nd, r1, cnt,",
-                        "    if constexpr (BOTH) {\n      for (int i = tid; i < cnt"),
-     ""),
+    ("k5_base", _SRC, ()),
+    ("k5_nofix", _SRC, (("common.cuh", _TIE, "constexpr uint32_t MSG_TIE = 0;"),)),
+    *((f"k5_tie{t}", _SRC, (("common.cuh", _TIE,
+                              f"constexpr uint32_t MSG_TIE = {t};"),))
+      for t in (16, 32, 64)),
+    ("k5_noown", _SRC, ((_SRC, "yk::msg_tile_issue(ao, wo_s, kc, acc_o);",
+                         _ZERO.format("acc_o")),)),
+    ("k5_nooth", _SRC, ((_SRC, "yk::msg_tile_issue(ax, wh_s, kc, acc);",
+                         _ZERO.format("acc")),)),
+    ("k5_nosum", _SRC, ((_SRC, ("    yk::msg_run_sum(\n        h_s, nd, r1, cnt,",
+                                "    if constexpr (BOTH) {\n      for (int i = tid; i < cnt"),
+                         ""),)),
 )
-
-
-def variant_sources() -> dict:
-    """{variant: {file name: text}} of banded_message.cu and common.cuh;
-    raises unless each statement to replace occurs exactly once (a span:
-    from its first part up to, not including, its second)."""
-    base = {}
-    for fn in (_SRC, "common.cuh"):
-        with open(os.path.join(_build.CSRC, fn)) as f:
-            base[fn] = f.read()
-    out = {}
-    for name, fn, old, new in EDITS:
-        files = dict(base)
-        text = files[fn]
-        if isinstance(old, tuple):
-            if any(text.count(o) != 1 for o in old):
-                raise ValueError(f"{name}: {old} not found once in {fn}")
-            i0, i1 = text.index(old[0]), text.index(old[1])
-            text = text[:i0] + new + text[i1:]
-        elif old is not None:
-            if text.count(old) != 1:
-                raise ValueError(f"{name}: {old!r} not found once in {fn}")
-            text = text.replace(old, new)
-        files[fn] = text
-        out[name] = files
-    return out
-
-
-def build(sources: dict) -> dict:
-    """{variant: ctypes library}, one nvcc per variant, all started
-    together."""
-    nvcc = _build._nvcc()
-    procs = {}
-    for name, files in sources.items():
-        d = os.path.join(OUT, name)
-        os.makedirs(d, exist_ok=True)
-        for fn, body in files.items():
-            with open(os.path.join(d, fn), "w") as f:
-                f.write(body)
-        so = os.path.join(d, "lib.so")
-        cmd = [nvcc, *_build.NVCC_FLAGS, "-shared", "-o", so, os.path.join(d, _SRC)]
-        procs[name] = (so, cmd, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    logs = {name: p.communicate()[0] for name, (_, _, p) in procs.items()}
-    libs = {}
-    for name, (so, cmd, p) in procs.items():
-        if p.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({p.returncode}): {' '.join(cmd)}\n"
-                               f"{logs[name]}")
-        lib = ctypes.CDLL(os.path.abspath(so))
-        lib.yk_banded_message_sum.argtypes = ([ctypes.c_void_p] * 18
-                                              + [ctypes.c_int] * 6 + [ctypes.c_void_p])
-        lib.yk_banded_message_sum.restype = ctypes.c_int
-        libs[name] = lib
-    return libs
+SIGS = {_SRC: {"yk_banded_message_sum": [ctypes.c_void_p] * 18 + [ctypes.c_int] * 6
+               + [ctypes.c_void_p]}}
 
 
 def clique_family(seed: int = 0):
@@ -157,11 +105,12 @@ def main(argv=None) -> dict:
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("message_decomp needs a CUDA device")
-    from torch.profiler import ProfilerActivity, profile
 
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain version in f32
     wanted = args.variants.split(",")
-    libs = build({k: v for k, v in variant_sources().items() if k in wanted})
+    libs = source_edits.build(
+        {k: v for k, v in source_edits.variant_sources(EDITS).items() if k in wanted},
+        OUT, SIGS)
     dev = torch.device("cuda")
     edge, attr = clique_family()
     bm = plan_tensors(banded_plan(edge, np.ones(len(edge), bool), attr, N,
@@ -176,11 +125,11 @@ def main(argv=None) -> dict:
     nc = bm.cnode.shape[0] - 1
     P, st = _build.ptr, _build.stream_of(x)
 
-    def call(lib):
-        return lib.yk_banded_message_sum(
+    def call(name, lib):
+        source_edits.check(lib.yk_banded_message_sum(
             P(x), P(bm.own), P(bm.oth), P(bm.attr), None, P(bm.nptr), P(bm.cnode),
             *map(P, w), P(sc1), None, None, P(out), None, None, None, None,
-            N, C, A, nc, 0, 1, st)
+            N, C, A, nc, 0, 1, st), name)
 
     # the per-edge messages of kernel 6 against the plain version's
     h_plain = message_rows_plain(x, bm, *w, sc1)[0]
@@ -189,30 +138,17 @@ def main(argv=None) -> dict:
     flips = {}
     for name, lib in libs.items():
         if name == "k5_base" or name == "k5_nofix" or name.startswith("k5_tie"):
-            rc = lib.yk_banded_message_sum(
+            source_edits.check(lib.yk_banded_message_sum(
                 P(x), P(bm.own), P(bm.oth), P(bm.attr), None, P(bm.nptr),
                 P(bm.cnode), *map(P, w), P(sc1), None, None, P(out), P(hbuf),
-                P(bm.tperm), P(bm.tptr), P(out_oth), N, C, A, nc, 0, 1, st)
-            if rc != 0:
-                _build.check(_build.library(), rc, name)
+                P(bm.tperm), P(bm.tptr), P(out_oth), N, C, A, nc, 0, 1, st), name)
             flips[name] = int((hbuf.float() != h_plain).sum())
 
     us: dict = {}
     for _ in range(args.rounds):
         for name, lib in libs.items():
-            for _ in range(3):
-                rc = call(lib)
-                if rc != 0:
-                    _build.check(_build.library(), rc, name)
-                torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                for _ in range(args.reps):
-                    call(lib)
-                torch.cuda.synchronize()
-            t = [e.device_time_total / e.count for e in prof.key_averages()
-                 if e.device_type == torch.autograd.DeviceType.CUDA and e.count
-                 and "banded_tc_kernel" in e.key]
-            us.setdefault(name, []).append(t[0] if t else None)
+            t = source_edits.device_us(lambda: call(name, lib), args.reps)
+            us.setdefault(name, []).append(t["banded_tc_kernel"])
     res = {"us": us, "flips": flips, "N": N, "E": int(bm.n_edges), "blocks": nc,
            "device": nvidia_smi()}
     print(json.dumps(res))

@@ -44,107 +44,48 @@ import argparse
 import ctypes
 import json
 import os
-import re
-import subprocess
 
 import torch
 
 from yolat_tpu_torch.cli.profile import nvidia_smi
 from yolat_tpu_torch.ops import _build
+from yolat_tpu_torch.scripts import source_edits
 
 N, CI, H, KCHUNKS = 72704, 128, 1024, 32
 OUT = os.path.join(os.path.dirname(_build.BUILD_DIR), "pool_head_decomp")
 _SYN = ("for (int i = 0; i < 64; ++i) z[i] = (float)(({t} * 64 + i + tid) & 255)"
         " * 1e-2f - 1.f;")
 _BM_Z = "yk::pool_z_tile_bf16(xt, w_s, kp, z);"
-# (variant, source, statement, replacement); None: the source as it is
+_BM, _K11 = "block_max.cu", "fused_pool_train.cu"
+# the edit list of `source_edits`
 EDITS = (
-    ("bm_base", "block_max.cu", None, None),
-    ("bm_nomma", "block_max.cu", _BM_Z, _SYN.format(t="t")),
-    ("bm_mma2", "block_max.cu", _BM_Z, _BM_Z + " " + _BM_Z),
-    ("bm_noepi", "block_max.cu",
-     ("    // rows 16 warp + g (block 2 warp)", "    __syncthreads();\n"
-      "    {  // [BLOCK, COLS] bf16"),
-     "    { float zs = 0.f; for (int i = 0; i < 64; ++i) zs += z[i];\n"
-     "      if (zs == 1234.5f) o_s[tid] = __float2bfloat16(zs); }\n"),
-    ("bm_per1", "block_max.cu", "const int per = (tiles + fit - 1) / fit;",
-     "const int per = 1;"),
-    ("bm_noload", "block_max.cu", "load_tile(t + 1, buf ^ 1);",
-     "yk::cp_async_commit();"),
-    ("k11_base", "fused_pool_train.cu", None, None),
-    ("k11_nozA", "fused_pool_train.cu", "yk::pool_z_tile_bf16(x_s, wb, kp, z);",
-     _SYN.format(t="sl")),
-    ("k11_nodx", "fused_pool_train.cu",
-     "yk::wgmma_rs<0>(dacc, a[kk], yk::gmma_desc(wa + kk * 256, 128, 16 * COLS), 1);",
-     "dacc[kk] += __uint_as_float(a[kk][0]);"),
-    ("k11_noldA", "fused_pool_train.cu", "load_slab(sl + 1, buf ^ 1);",
-     "yk::cp_async_commit();"),
-    ("k11_nozB", "fused_pool_train.cu", "yk::pool_z_tile_bf16(xt, w_s, kp, z);",
-     _SYN.format(t="t")),
+    ("bm_base", _BM, ()),
+    ("bm_nomma", _BM, ((_BM, _BM_Z, _SYN.format(t="t")),)),
+    ("bm_mma2", _BM, ((_BM, _BM_Z, _BM_Z + " " + _BM_Z),)),
+    ("bm_noepi", _BM, ((_BM,
+      ("    // rows 16 warp + g (block 2 warp)", "    __syncthreads();\n"
+       "    {  // [BLOCK, COLS] bf16"),
+      "    { float zs = 0.f; for (int i = 0; i < 64; ++i) zs += z[i];\n"
+      "      if (zs == 1234.5f) o_s[tid] = __float2bfloat16(zs); }\n"),)),
+    ("bm_per1", _BM, ((_BM, "const int per = (tiles + fit - 1) / fit;",
+                       "const int per = 1;"),)),
+    ("bm_noload", _BM, ((_BM, "load_tile(t + 1, buf ^ 1);",
+                         "yk::cp_async_commit();"),)),
+    ("k11_base", _K11, ()),
+    ("k11_nozA", _K11, ((_K11, "yk::pool_z_tile_bf16(x_s, wb, kp, z);",
+                         _SYN.format(t="sl")),)),
+    ("k11_nodx", _K11, ((_K11,
+      "yk::wgmma_rs<0>(dacc, a[kk], yk::gmma_desc(wa + kk * 256, 128, 16 * COLS), 1);",
+      "dacc[kk] += __uint_as_float(a[kk][0]);"),)),
+    ("k11_noldA", _K11, ((_K11, "load_slab(sl + 1, buf ^ 1);",
+                          "yk::cp_async_commit();"),)),
+    ("k11_nozB", _K11, ((_K11, "yk::pool_z_tile_bf16(xt, w_s, kp, z);",
+                         _SYN.format(t="t")),)),
 )
-
-
-def variant_sources() -> dict:
-    """{variant: (source file name, edited text)}; raises unless each
-    statement to replace occurs exactly once (a span: from its first part
-    up to, not including, its second)."""
-    out = {}
-    for name, fn, old, new in EDITS:
-        with open(os.path.join(_build.CSRC, fn)) as f:
-            text = f.read()
-        if isinstance(old, tuple):
-            if any(text.count(o) != 1 for o in old):
-                raise ValueError(f"{name}: {old} not found once in {fn}")
-            i0, i1 = text.index(old[0]), text.index(old[1])
-            text = text[:i0] + new + text[i1:]
-        elif old is not None:
-            if text.count(old) != 1:
-                raise ValueError(f"{name}: {old!r} not found once in {fn}")
-            text = text.replace(old, new)
-        out[name] = (fn, text)
-    return out
-
-
-def build(sources: dict) -> dict:
-    """{variant: ctypes library}, one nvcc per variant, all started
-    together."""
-    nvcc = _build._nvcc()
-    with open(os.path.join(_build.CSRC, "common.cuh")) as f:
-        common = f.read()
-    procs = {}
-    for name, (fn, text) in sources.items():
-        d = os.path.join(OUT, name)
-        os.makedirs(d, exist_ok=True)
-        for file, body in ((fn, text), ("common.cuh", common)):
-            with open(os.path.join(d, file), "w") as f:
-                f.write(body)
-        so = os.path.join(d, "lib.so")
-        cmd = [nvcc, *_build.NVCC_FLAGS, "-shared", "-o", so, os.path.join(d, fn)]
-        procs[name] = (so, cmd, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    logs = {name: p.communicate()[0] for name, (_, _, p) in procs.items()}
-    libs = {}
-    vp, i = ctypes.c_void_p, ctypes.c_int
-    for name, (so, cmd, p) in procs.items():
-        if p.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({p.returncode}): {' '.join(cmd)}\n"
-                               f"{logs[name]}")
-        lib = ctypes.CDLL(os.path.abspath(so))
-        if sources[name][0] == "block_max.cu":
-            sigs = {"yk_folded_mlp_block_max2": [vp] * 6 + [i] * 4 + [vp],
-                    "yk_folded_mlp_block_max": [vp] * 5 + [i] * 4 + [vp]}
-        else:
-            sigs = {"yk_fused_pool_train_bwd": [vp] * 11 + [i] * 5 + [vp]}
-        for fn, argtypes in sigs.items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = i
-        libs[name] = lib
-    return libs
-
-
-def _check(rc: int, what: str) -> None:
-    if rc != 0:  # the error's name from the package's library
-        _build.check(_build.library(), rc, what)
+_VP, _I = ctypes.c_void_p, ctypes.c_int
+SIGS = {_BM: {"yk_folded_mlp_block_max2": [_VP] * 6 + [_I] * 4 + [_VP],
+              "yk_folded_mlp_block_max": [_VP] * 5 + [_I] * 4 + [_VP]},
+        _K11: {"yk_fused_pool_train_bwd": [_VP] * 11 + [_I] * 5 + [_VP]}}
 
 
 def main(argv=None) -> dict:
@@ -154,9 +95,8 @@ def main(argv=None) -> dict:
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("pool_head_decomp needs a CUDA device")
-    from torch.profiler import ProfilerActivity, profile
 
-    libs = build(variant_sources())
+    libs = source_edits.build(source_edits.variant_sources(EDITS), OUT, SIGS)
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
     x = torch.randn(N, CI, device=dev, generator=g).bfloat16()
@@ -167,7 +107,7 @@ def main(argv=None) -> dict:
     outh = torch.empty(N // 8, H, dtype=torch.bfloat16, device=dev)
     outx = torch.empty(N // 8, CI, dtype=torch.bfloat16, device=dev)
     pb = torch.empty_like(outh)
-    _check(libs["bm_base"].yk_folded_mlp_block_max2(
+    source_edits.check(libs["bm_base"].yk_folded_mlp_block_max2(
         *map(_build.ptr, (x, m, w, sc, pb, outx)), N, CI, H, 1, _build.stream_of(x)),
         "bm_base")
     gp = torch.randn(N // 8, H, device=dev, generator=g)
@@ -180,32 +120,24 @@ def main(argv=None) -> dict:
 
     def call(name, lib, with_x):
         if name.startswith("bm") and with_x:
-            return lib.yk_folded_mlp_block_max2(P(x), P(m), P(w), P(sc), P(outh), P(outx),
-                                                N, CI, H, 1, st)
-        if name.startswith("bm"):
-            return lib.yk_folded_mlp_block_max(P(x), P(m), P(w), P(sc), P(outh),
-                                               N, CI, H, 1, st)
-        return lib.yk_fused_pool_train_bwd(P(x), P(m), P(w), P(sc), P(pb), P(gp),
-                                           *map(P, scratch), N, CI, H, KCHUNKS, 1, st)
+            rc = lib.yk_folded_mlp_block_max2(P(x), P(m), P(w), P(sc), P(outh), P(outx),
+                                              N, CI, H, 1, st)
+        elif name.startswith("bm"):
+            rc = lib.yk_folded_mlp_block_max(P(x), P(m), P(w), P(sc), P(outh),
+                                             N, CI, H, 1, st)
+        else:
+            rc = lib.yk_fused_pool_train_bwd(P(x), P(m), P(w), P(sc), P(pb), P(gp),
+                                             *map(P, scratch), N, CI, H, KCHUNKS, 1, st)
+        source_edits.check(rc, name)
 
     us: dict = {}
     for _ in range(args.rounds):
         for name, lib in libs.items():
             for with_x in ((True, False) if name.startswith("bm") else (True,)):
-                for _ in range(3):
-                    _check(call(name, lib, with_x), name)
-                torch.cuda.synchronize()
-                with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                    for _ in range(args.reps):
-                        call(name, lib, with_x)
-                    torch.cuda.synchronize()
+                t = source_edits.device_us(lambda: call(name, lib, with_x), args.reps)
                 key = name if with_x else f"{name} (no x)"
-                for e in prof.key_averages():
-                    if e.device_type == torch.autograd.DeviceType.CUDA and e.count:
-                        kern = re.search(r"(\w+_kernel)\b", e.key)
-                        kern = kern.group(1) if kern else e.key
-                        us.setdefault(key, {}).setdefault(kern, []).append(
-                            e.device_time_total / e.count)
+                for kern, v in t.items():
+                    us.setdefault(key, {}).setdefault(kern, []).append(v)
     res = {"us": us, "device": nvidia_smi()}
     print(json.dumps(res))
     return res
