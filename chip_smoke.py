@@ -14,7 +14,10 @@ no jax. Phases, each of which raises on failure (non-zero exit):
      (HMMA) tensor-core instructions in each one's SASS (`cuobjdump
      -sass`), with ptxas's registers, spills and static shared memory: each
      bf16 kernel must have HGMMA, spill nothing and keep its wgmma pipeline
-     unserialised (no C7515), each f32 kernel must have neither;
+     unserialised (no C7515), each f32 kernel must have neither; and
+     ptxas's registers and spills of every instantiation of the window row
+     kernels (9, 10: f32 and bf16, 16-byte and narrow-row routes), none of
+     which may spill;
   3. kernels: on one packed batch of 4 bench-scale synthetic floorplans
      (2000x1500, 6 rooms, 1-3 symbols per room, seed 7, sampling step 10),
      each kernel against its plain PyTorch version at the shapes the
@@ -51,7 +54,10 @@ no jax. Phases, each of which raises on failure (non-zero exit):
      bf16, one ulp, with at most 1e-3 of the elements differing at all,
      beside the reading of a planted fault), each twice, bit-identical;
      paired median times and the library call's time
-     (`index_select`, `index_add_`);
+     (`index_select`, `index_add_`); then each kernel's and each library
+     call's profiler device time per call, warm (40 back-to-back calls)
+     and L2-flushed (40 calls, each after a 128 MB scratch write that the
+     profiler does not count), and the flushed time over the bound;
   8. window conv: the second conv layer (64 -> 64) in the window layout
      against the sparse layout on the same weights and the first layer's
      real activations: eval-mode outputs, train-mode outputs and BN
@@ -111,7 +117,8 @@ no jax. Phases, each of which raises on failure (non-zero exit):
      endpoint swapped, one row dropped); each twice, bit-identical; an
      empty family (E = 0) through all four; rows per node and per thread
      block on both sides; paired median times, the library call's time
-     (`index_select`, `index_add_`) and the bound;
+     (`index_select`, `index_add_`) and the bound; the profiler's warm and
+     L2-flushed device times, as in phase 7;
  15. pp train route: the train-mode YOLaT++ module on its banded route
      (kernels 7 and 8 with their backward kernels) against its sparse route
      on the same weights and batch, f32 and bf16: `prim_at_node`,
@@ -155,7 +162,8 @@ phase 16's banded run for kernels 7 and 8, phase 17's probe run for
 kernel 12, `edge_window_decomp`)
 comes before the nvidia-smi line; the last line is
 {"ok": true, "device": {...}}. Each kernel's bound_ms is the larger of its
-bytes (each input read once, each output written once) over 3.35 TB/s and
+bytes (each input read once, each output written once; of a gathered
+input, the rows that this run's indices reach) over 3.35 TB/s and
 its operations over the H100 SXM data-sheet peak for its type (989 TFLOP/s
 on the bf16 tensor cores for the MLP kernels, whose times are taken at
 bf16; 67 TFLOP/s in float32 for the gathers' and sums' additions), from
@@ -164,7 +172,11 @@ function where there is one, timed here and used nowhere in the port.
 `ms` and `plain_ms` are medians of synchronised spans of one call (each
 holds the wrapper's host time); `device_ms` is the median of queued spans,
 one CUDA-event pair around 40 back-to-back calls divided by 40, six per
-kernel in turns with the plain version's.
+kernel in turns with the plain version's, except for kernels 7-10b
+(phases 7 and 14), whose wrappers issue slower than the kernels run: there
+`device_ms` is the profiler's L2-flushed device time, `warm_ms` its
+back-to-back reading, `queued_ms` the queued span and `library_device_ms`
+the library call's L2-flushed profiler time.
 """
 
 from __future__ import annotations
@@ -261,6 +273,22 @@ def paired_ms(kernel_fn, plain_fn) -> tuple:
     return statistics.median(k), statistics.median(p), statistics.median(dk)
 
 
+# the wrappers' modules, as `profiled_ms` names a function ("module:name")
+EWT = "yolat_tpu_torch.ops.edge_window_train:"
+BT = "yolat_tpu_torch.ops.banded_train:"
+
+
+def profiled_ms(specs: dict) -> dict:
+    """{key: (warm, flushed)}: the profiler's device ms per call of each of
+    `specs` ({key: (function, args)}), over 40 back-to-back calls and over
+    40 calls each after a 128 MB L2-flushing write that is not counted, in
+    a process of its own (`scripts/profiled_calls.py`: this process's
+    profiler drops records once it has run a while)."""
+    from yolat_tpu_torch.scripts.profiled_calls import in_child
+
+    return {k: tuple(v) for k, v in in_child(specs).items()}
+
+
 def bound(nbytes: float, ops: float, peak_ops: float) -> dict:
     """The least time the card could take: bytes over the memory rate or
     operations over their peak rate, whichever is larger."""
@@ -290,6 +318,11 @@ TC_KERNELS = ("block_max_tc_kernel", "bwd_rows_tc_kernel", "bwd_dw_tc_kernel",
               "banded_tc_kernel")
 F32_KERNELS = ("block_max_kernel", "bwd_rows_kernel", "bwd_dw_kernel",
                "edge_window_kernel", "dense_message_kernel", "banded_kernel")
+# the window layout's row kernels (9 and 10, forward and backward): no
+# product, so no tensor-core route; every instantiation (f32 and bf16, the
+# 16-byte route and the narrow-row route) must spill nothing
+ROW_KERNELS = ("pair_fwd_kernel", "pair_bwd_kernel", "wsum_fwd_kernel",
+               "wsum_bwd_kernel")
 
 
 def _cuobjdump() -> str:
@@ -355,7 +388,9 @@ def tensor_core_report() -> dict:
     instructions in the SASS of the kernels with a tensor-core route, with
     ptxas's registers, spills and static shared memory; fails unless every
     bf16 kernel has HGMMA, spills nothing and runs its wgmma pipeline
-    unserialised, and no f32 kernel has either instruction."""
+    unserialised, and no f32 kernel has either instruction. Then ptxas's
+    registers and spills of every instantiation of the window row kernels
+    (ROW_KERNELS); a spill fails."""
     import re
 
     from yolat_tpu_torch.ops import _build
@@ -389,6 +424,19 @@ def tensor_core_report() -> dict:
             else:
                 check(ops[f]["HGMMA"] + ops[f]["HMMA"] == 0,
                       f"{name}: the f32 kernel uses the tensor cores")
+    for name in ROW_KERNELS:
+        fns = functions_of(name, ops)
+        check(bool(fns), f"{name} not in the SASS of {so}")
+        for f in fns:
+            p = props.get(f, {})
+            out[f] = dict(ops[f], **p)
+            print(f"ptxas {name} ({f}): {p.get('registers')} registers, "
+                  f"{p.get('spill_stores')} / {p.get('spill_loads')} bytes "
+                  f"spilled (stores / loads), {p.get('smem')} bytes static "
+                  f"smem")
+            check(bool(p), f"{name}: no ptxas report for {f}")
+            check(p["spill_stores"] + p["spill_loads"] == 0,
+                  f"{name}: ptxas spills registers in {f}")
     return out
 
 
@@ -867,6 +915,11 @@ def window_kernel_phase(model, batch, dev_line):
     src, dst, dptr, sperm, sptr = plan
     srcl, dstl = src.long(), dst.long()
     n, e = batch["x"].shape[0], src.shape[0]
+    # the node rows a gather reads: the bound counts these, not all n
+    n_pair = int(torch.unique(torch.cat([srcl, dstl])).numel())
+    n_dst = int(torch.unique(dstl).numel())
+    print(f"window plan: {n} nodes, {n_pair} on an edge, {n_dst} with an "
+          f"in-edge (the gathers' bounds read these rows)")
     with torch.no_grad():
         f1, _ = model.cls_net.head.gconv(
             batch["x"], batch["x"], batch["edge"], batch["e_attr"],
@@ -876,7 +929,8 @@ def window_kernel_phase(model, batch, dev_line):
     names = ("ew_pair_features", "ew_pair_features_bwd",
              "ew_window_segment_sum", "ew_window_segment_sum_bwd")
     res = {k: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, device_ms=0.0,
-                   library_ms=0.0) for k in names}
+                   queued_ms=0.0, warm_ms=0.0, library_ms=0.0,
+                   library_device_ms=0.0) for k in names}
     # calls per step: kernel 9 forward at C 5 and 64, its backward at C 64
     # (the first layer's input needs no gradient); kernel 10 forward and
     # backward at C 64, once per layer
@@ -884,7 +938,11 @@ def window_kernel_phase(model, batch, dev_line):
              "ew_window_segment_sum": {64: N_BLOCKS},
              "ew_window_segment_sum_bwd": {64: N_BLOCKS}}
 
-    def note(name, c, dt, err, ok, limit, ms, pms, dms, lms, b):
+    # the profiler's readings, taken after the loop (`profiled_ms`): the
+    # kernel's and the library call's (function, args) under one key each
+    specs, pending = {}, []
+
+    def note(name, c, dt, err, ok, limit, ms, pms, dms, lms, b, kspec, lspec):
         tag = "f32" if dt == torch.float32 else "bf16"
         print(f"kernel {name} {tag} C={c} N={n} E={e}: max_abs_err={err:.3e} "
               f"({limit}) {'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms (queued {dms:.4f}), plain "
@@ -893,14 +951,17 @@ def window_kernel_phase(model, batch, dev_line):
         check(ok, f"{name} {tag} C={c} disagrees with its plain version")
         r = res[name]
         r["max_abs_err"] = max(r["max_abs_err"], err)
-        k = calls[name].get(c, 0)
-        if dt == torch.bfloat16 and k:
+        k = calls[name].get(c, 0) if dt == torch.bfloat16 else 0
+        if k:
             r["ms"] += k * ms
             r["plain_ms"] += k * pms
-            r["device_ms"] += k * dms
+            r["queued_ms"] += k * dms
             r["library_ms"] += k * lms
             for _ in range(k):
                 add_bound(r, b)
+        key = f"{name} {tag} C={c}"
+        specs[key], specs[key + " library"] = kspec, lspec
+        pending.append((key, name, k, b))
 
     for dt in (torch.float32, torch.bfloat16):
         s = 4 if dt == torch.float32 else 2
@@ -913,13 +974,16 @@ def window_kernel_phase(model, batch, dev_line):
             torch.cuda.synchronize()
             ok = torch.equal(g, want) and torch.equal(g, g2)
             err = (g.float() - want.float()).abs().max().item()
-            ms, pms, dms = paired_ms(lambda: ewt.pair_fwd(x, src, dst),
+            kfn = lambda: ewt.pair_fwd(x, src, dst)
+            ms, pms, dms = paired_ms(kfn,
                                 lambda: ewt.pair_fwd_plain(x, src, dst))
-            lms = _library_ms(lambda: (x.index_select(0, dstl),
-                                       x.index_select(0, srcl)))
+            lfn = lambda: (x.index_select(0, dstl), x.index_select(0, srcl))
+            lms = _library_ms(lfn)
             note("ew_pair_features", c, dt, err, ok,
                  "exact, two runs bit-identical", ms, pms, dms, lms,
-                 bound(s * (n * c + 2 * e * c) + 8 * e, e * c, PEAK_F32))
+                 bound(s * (n_pair * c + 2 * e * c) + 8 * e, e * c,
+                       PEAK_F32), (EWT + "pair_fwd", (x, src, dst)),
+                 ("gather2", (x, dstl, srcl)))
 
             # kernel 9 backward: sums in the plan's order, rounded to dt
             dg = torch.randn(e, 2 * c, device=x.device, generator=gen).to(dt)
@@ -944,16 +1008,18 @@ def window_kernel_phase(model, batch, dev_line):
                 limit = (f"one bf16 ulp, {frac:.2e} of the elements differ "
                          f"(<= 1e-3; the planted fault reads {pfrac:.2e})")
             ok = ok and torch.equal(dx, dx2)
+            kfn = lambda: ewt.pair_bwd(dg, src, dst, dptr, sperm, sptr, n)
             ms, pms, dms = paired_ms(
-                lambda: ewt.pair_bwd(dg, src, dst, dptr, sperm, sptr, n),
-                lambda: ewt.pair_bwd_plain(dg, src, dst, n))
+                kfn, lambda: ewt.pair_bwd_plain(dg, src, dst, n))
             d_xi, d_xj = dg[:, :c].float(), dg[:, c:].float()
-            lms = _library_ms(lambda: torch.zeros(
-                n, c, device=x.device).index_add_(0, dstl, d_xi
-                                                  ).index_add_(0, srcl, d_xj))
+            lfn = lambda: torch.zeros(n, c, device=x.device).index_add_(
+                0, dstl, d_xi).index_add_(0, srcl, d_xj)
+            lms = _library_ms(lfn)
             note("ew_pair_features_bwd", c, dt, err, ok, limit, ms, pms, dms, lms,
                  bound(s * (2 * e * c + n * c) + 4 * (2 * n + 2 + e),
-                       3 * e * c, PEAK_F32))
+                       3 * e * c, PEAK_F32),
+                 (EWT + "pair_bwd", (dg, src, dst, dptr, sperm, sptr, n)),
+                 ("index_add2", (n, c, dstl, d_xi, srcl, d_xj)))
 
         # kernel 10 at C 64 (messages) and C 1 (edge counts)
         for c in (64, 1):
@@ -965,15 +1031,18 @@ def window_kernel_phase(model, batch, dev_line):
             diff = (out - want).abs()
             ok = bool((diff <= 1e-5 + 1e-5 * want.abs()).all()) \
                 and torch.equal(out, out2)
-            ms, pms, dms = paired_ms(lambda: ewt.wsum_fwd(h, dst, dptr, n),
+            kfn = lambda: ewt.wsum_fwd(h, dst, dptr, n)
+            ms, pms, dms = paired_ms(kfn,
                                 lambda: ewt.wsum_fwd_plain(h, dst, n))
             hf = h.float()
-            lms = _library_ms(lambda: torch.zeros(
-                n, c, device=h.device).index_add_(0, dstl, hf))
+            lfn = lambda: torch.zeros(n, c, device=h.device).index_add_(
+                0, dstl, hf)
+            lms = _library_ms(lfn)
             note("ew_window_segment_sum", c, dt, diff.max().item(), ok,
                  "|err| <= 1e-5 + 1e-5|ref|, two runs bit-identical", ms, pms,
                  dms, lms, bound(s * e * c + 4 * (n + 1) + 4 * n * c, e * c,
-                            PEAK_F32))
+                            PEAK_F32), (EWT + "wsum_fwd", (h, dst, dptr, n)),
+                 ("index_add", (n, c, dstl, hf)))
 
             g = torch.randn(n, c, device=f1.device, generator=gen)
             dh = ewt.wsum_bwd(g, dst, dt)
@@ -982,12 +1051,27 @@ def window_kernel_phase(model, batch, dev_line):
             torch.cuda.synchronize()
             ok = torch.equal(dh, want) and torch.equal(dh, dh2)
             err = (dh.float() - want.float()).abs().max().item()
-            ms, pms, dms = paired_ms(lambda: ewt.wsum_bwd(g, dst, dt),
+            kfn = lambda: ewt.wsum_bwd(g, dst, dt)
+            ms, pms, dms = paired_ms(kfn,
                                 lambda: ewt.wsum_bwd_plain(g, dst, dt))
-            lms = _library_ms(lambda: g.index_select(0, dstl))
+            lfn = lambda: g.index_select(0, dstl)
+            lms = _library_ms(lfn)
             note("ew_window_segment_sum_bwd", c, dt, err, ok,
                  "exact, two runs bit-identical", ms, pms, dms, lms,
-                 bound(4 * n * c + 4 * e + s * e * c, 0.0, PEAK_F32))
+                 bound(4 * n_dst * c + 4 * e + s * e * c, 0.0, PEAK_F32),
+                 (EWT + "wsum_bwd", (g, dst, dt)), ("gather", (g, dstl)))
+
+    times = profiled_ms(specs)
+    for key, name, k, b in pending:
+        (kw, kf), (lw, lf) = times[key], times[key + " library"]
+        print(f"profiler {key}: device ms per call, in a process of its own: "
+              f"kernel {kw:.4f} warm, {kf:.4f} L2-flushed "
+              f"({kf / b['bound_ms']:.2f}x its bound), library {lw:.4f} "
+              f"warm, {lf:.4f} L2-flushed [{dev_line}]")
+        r = res[name]
+        r["device_ms"] += k * kf
+        r["warm_ms"] += k * kw
+        r["library_device_ms"] += k * lf
     return res
 
 
@@ -1637,6 +1721,11 @@ def banded_train_kernel_phase(model, batch, dev_line):
     s_f = _pp_activations(model, batch)
     n, c = s_f.shape
     e = bm.n_edges
+    # the node rows a gather reads: the bound counts these, not all n
+    n_pair = int(torch.unique(torch.cat([ownl, othl])).numel())
+    n_own = int(torch.unique(ownl).numel())
+    print(f"banded train plan: {n} nodes, {n_pair} on a row, {n_own} as its "
+          f"own endpoint (the gathers' bounds read these rows)")
     check(e == int(batch["super_mask"].sum()), "the plan holds the real edges")
     dev = s_f.device
 
@@ -1657,8 +1746,10 @@ def banded_train_kernel_phase(model, batch, dev_line):
              "banded_scatter_own_bwd")
     res = {k: dict(max_abs_err=0.0) for k in names}
     gen = torch.Generator(device=dev).manual_seed(14)
+    # the profiler's readings, taken after the loop (`profiled_ms`)
+    specs, pending = {}, []
 
-    def note(name, dt, err, ok, limit, ms, pms, dms, lms, b):
+    def note(name, dt, err, ok, limit, ms, pms, dms, lms, b, kspec, lspec):
         tag = "f32" if dt == torch.float32 else "bf16"
         print(f"kernel {name} {tag} C={c} N={n} E={e}: max_abs_err={err:.3e} "
               f"({limit}) {'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms (queued {dms:.4f}), plain "
@@ -1668,8 +1759,11 @@ def banded_train_kernel_phase(model, batch, dev_line):
         r = res[name]
         r["max_abs_err"] = max(r["max_abs_err"], err)
         if dt == torch.bfloat16:
-            r.update(ms=ms, plain_ms=pms, device_ms=dms, library_ms=lms)
+            r.update(ms=ms, plain_ms=pms, queued_ms=dms, library_ms=lms)
             add_bound(r, b)
+        key = f"{name} {tag} C={c}"
+        specs[key], specs[key + " library"] = kspec, lspec
+        pending.append((key, name, dt == torch.bfloat16, b))
 
     def sum_check(got, terms, want_plain, out_bf16):
         """got [n, c] against the float64 sum of `terms` (([E, c], index)
@@ -1715,12 +1809,14 @@ def banded_train_kernel_phase(model, batch, dev_line):
         check(not torch.equal(got[0], got[1]), "own and other rows differ")
         err = max((a.float() - w.float()).abs().max().item()
                   for a, w in zip(got, want))
-        ms, pms, dms = paired_ms(lambda: bt.gather_fwd(x, own, oth),
-                            lambda: bt.gather_plain(x, own, oth))
-        lms = _library_ms(lambda: (x.index_select(0, ownl),
-                                   x.index_select(0, othl)))
+        kfn = lambda: bt.gather_fwd(x, own, oth)
+        ms, pms, dms = paired_ms(kfn, lambda: bt.gather_plain(x, own, oth))
+        lfn = lambda: (x.index_select(0, ownl), x.index_select(0, othl))
+        lms = _library_ms(lfn)
         note("banded_gather", dt, err, ok, "exact, two runs bit-identical",
-             ms, pms, dms, lms, bound(s * (n * c + 2 * e * c) + 8 * e, 0.0, PEAK_F32))
+             ms, pms, dms, lms,
+             bound(s * (n_pair * c + 2 * e * c) + 8 * e, 0.0, PEAK_F32),
+             (BT + "gather_fwd", (x, own, oth)), ("gather2", (x, ownl, othl)))
 
         # kernel 7b: two sums per node, rounded once to dt
         g_own = torch.randn(e, c, device=dev, generator=gen).to(dt)
@@ -1732,15 +1828,18 @@ def banded_train_kernel_phase(model, batch, dev_line):
         err, ok, text = sum_check(dx, [(g_own, ownl), (g_oth, othl)], want,
                                   dt == torch.bfloat16)
         ok = ok and torch.equal(dx, dx2) and dx.dtype == dt
-        ms, pms, dms = paired_ms(lambda: bt.gather_bwd(*args),
+        kfn = lambda: bt.gather_bwd(*args)
+        ms, pms, dms = paired_ms(kfn,
                             lambda: bt.gather_bwd_plain(g_own, g_oth, own,
                                                         oth, n))
         gf_own, gf_oth = g_own.float(), g_oth.float()
-        lms = _library_ms(lambda: torch.zeros(n, c, device=dev).index_add_(
-            0, ownl, gf_own).index_add_(0, othl, gf_oth))
+        lfn = lambda: torch.zeros(n, c, device=dev).index_add_(
+            0, ownl, gf_own).index_add_(0, othl, gf_oth)
+        lms = _library_ms(lfn)
         note("banded_gather_bwd", dt, err, ok, text, ms, pms, dms, lms,
              bound(s * (2 * e * c + n * c) + 4 * (2 * (n + 1) + e),
-                   2 * e * c, PEAK_F32))
+                   2 * e * c, PEAK_F32), (BT + "gather_bwd", args),
+             ("index_add2", (n, c, ownl, gf_own, othl, gf_oth)))
 
         # kernel 8: one sum per node, f32
         rows = torch.randn(e, c, device=dev, generator=gen).to(dt)
@@ -1750,13 +1849,16 @@ def banded_train_kernel_phase(model, batch, dev_line):
         torch.cuda.synchronize()
         err, ok, text = sum_check(out, [(rows, ownl)], want, False)
         ok = ok and torch.equal(out, out2) and out.dtype == torch.float32
-        ms, pms, dms = paired_ms(lambda: bt.scatter_own_fwd(rows, own, nptr, n),
+        kfn = lambda: bt.scatter_own_fwd(rows, own, nptr, n)
+        ms, pms, dms = paired_ms(kfn,
                             lambda: bt.scatter_own_plain(rows, own, n))
         rf = rows.float()
-        lms = _library_ms(lambda: torch.zeros(n, c, device=dev).index_add_(
-            0, ownl, rf))
+        lfn = lambda: torch.zeros(n, c, device=dev).index_add_(0, ownl, rf)
+        lms = _library_ms(lfn)
         note("banded_scatter_own", dt, err, ok, text, ms, pms, dms, lms,
-             bound(s * e * c + 4 * (n + 1) + 4 * n * c, e * c, PEAK_F32))
+             bound(s * e * c + 4 * (n + 1) + 4 * n * c, e * c, PEAK_F32),
+             (BT + "scatter_own_fwd", (rows, own, nptr, n)),
+             ("index_add", (n, c, ownl, rf)))
 
         # kernel 8b: a gather of the f32 cotangent, rounded to dt: exact
         g = torch.randn(n, c, device=dev, generator=gen)
@@ -1766,12 +1868,25 @@ def banded_train_kernel_phase(model, batch, dev_line):
         torch.cuda.synchronize()
         ok = torch.equal(d_rows, want) and torch.equal(d_rows, d_rows2)
         err = (d_rows.float() - want.float()).abs().max().item()
-        ms, pms, dms = paired_ms(lambda: bt.scatter_own_bwd(g, own, dt),
+        kfn = lambda: bt.scatter_own_bwd(g, own, dt)
+        ms, pms, dms = paired_ms(kfn,
                             lambda: bt.scatter_own_bwd_plain(g, own, dt))
-        lms = _library_ms(lambda: g.index_select(0, ownl))
+        lfn = lambda: g.index_select(0, ownl)
+        lms = _library_ms(lfn)
         note("banded_scatter_own_bwd", dt, err, ok,
              "exact, two runs bit-identical", ms, pms, dms, lms,
-             bound(4 * n * c + 4 * e + s * e * c, 0.0, PEAK_F32))
+             bound(4 * n_own * c + 4 * e + s * e * c, 0.0, PEAK_F32),
+             (BT + "scatter_own_bwd", (g, own, dt)), ("gather", (g, ownl)))
+
+    times = profiled_ms(specs)
+    for key, name, at_bf16, b in pending:
+        (kw, kf), (lw, lf) = times[key], times[key + " library"]
+        print(f"profiler {key}: device ms per call, in a process of its own: "
+              f"kernel {kw:.4f} warm, {kf:.4f} L2-flushed "
+              f"({kf / b['bound_ms']:.2f}x its bound), library {lw:.4f} "
+              f"warm, {lf:.4f} L2-flushed [{dev_line}]")
+        if at_bf16:
+            res[name].update(device_ms=kf, warm_ms=kw, library_device_ms=lf)
 
     # an empty family: no launch, zero sums, empty gathers
     empty = plan_tensors(banded_plan(
@@ -2033,7 +2148,6 @@ def decomp_phase(batch, dev_line):
     over the probe's run)."""
     import torch
 
-    from yolat_tpu_torch.ops import _build
     from yolat_tpu_torch.ops.edge_window import (VARIANTS, decomp_inputs,
                                                  edge_window_decomp,
                                                  edge_window_decomp_plain,
@@ -2083,20 +2197,35 @@ def decomp_phase(batch, dev_line):
                   f"ms (queued {r['device_ms']:.4f}), plain {r['plain_ms']:.4f} ms, bound "
                   f"{r['bound_ms']:.4f} ms ({r['bound_by']}) [{dev_line}]")
 
-    _build.reset_launch_counts()
-    out = probe.main([])
-    launches = _build.launch_counts["edge_window_decomp"]
+    # the probe reads the profiler: in a process of its own (`profiled_ms`),
+    # which prints its launch counts after the probe's line
+    child = subprocess.run([sys.executable, "-c", PROBE_CHILD], cwd=REPO,
+                           capture_output=True, text=True)
+    check(child.returncode == 0, f"the probe failed ({child.returncode}):\n"
+          f"{child.stdout[-4000:]}\n{child.stderr[-4000:]}")
+    out, counts = (json.loads(line)
+                   for line in child.stdout.strip().splitlines()[-2:])
+    launches = counts["edge_window_decomp"]
     check(out["N"] == n and out["E"] == e, "the probe ran on the bench batch")
     check(all(_finite(out[f"{v}_us"]) and out[f"{v}_us"] > 0 for v in VARIANTS),
           "the probe's times are finite")
-    check(launches > 0 and _build.launch_counts["edge_window_message_sum"] == 0,
-          f"the probe ran kernel 12, not kernel 1: {_build.launch_counts}")
+    check(launches > 0 and counts["edge_window_message_sum"] == 0,
+          f"the probe ran kernel 12, not kernel 1: {counts}")
     print(f"probe: {launches} launches of edge_window_decomp; full "
           f"{out['full_us']:.2f} us, noband {out['noband_us']:.2f}, noonehot "
           f"{out['noonehot_us']:.2f}; source-row gather "
           f"{out['gather_src_us']:.2f} us, both gathers "
           f"{out['gather_both_us']:.2f} us [{dev_line}]")
     return r, launches
+
+
+# phase 17's probe run: the variants only (no source edits), then the
+# wrappers' launch counts of that process
+PROBE_CHILD = ("import json\n"
+               "from yolat_tpu_torch.ops import _build\n"
+               "from yolat_tpu_torch.scripts import ew_kernel_decomp\n"
+               "ew_kernel_decomp.main([])\n"
+               "print(json.dumps(dict(_build.launch_counts)))\n")
 
 
 def _finite(v) -> bool:
@@ -2303,9 +2432,16 @@ def main() -> int:
                 "replaces": sources[k][1], "launches": counts[k],
                 "max_abs_err": res[k]["max_abs_err"], "ms": res[k]["ms"],
                 "device_ms": res[k]["device_ms"],
+                # rows 7-10b: the profiler's L2-flushed time (their queued
+                # span is queued_ms); the others: the queued span
+                "device_ms_by": ("profiler_flushed" if "queued_ms" in res[k]
+                                 else "queued_span"),
                 "plain_ms": res[k]["plain_ms"],
                 "bound_ms": res[k]["bound_ms"], "bound_by": res[k]["bound_by"],
-                "library_ms": res[k].get("library_ms")} for k in sources]
+                "library_ms": res[k].get("library_ms"),
+                **{x: res[k][x] for x in ("queued_ms", "warm_ms",
+                                          "library_device_ms")
+                   if x in res[k]}} for k in sources]
     print(json.dumps({"kernels": kernels}))
     print(dev_line)
     print(json.dumps({"ok": True, "device": {

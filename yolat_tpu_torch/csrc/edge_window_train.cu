@@ -17,18 +17,40 @@
 // Rounding follows the TPU kernels: x_j - x_i is taken in x's type;
 // dg0 - dg1 is taken in dg's type before the f32 sum; dx is rounded to x's
 // type at the end; the sum accumulates and returns f32; its backward rounds
-// g to h's type.
+// g to h's type. Per channel, a sum adds a node's in-edges in dptr order,
+// then its out-edges in sperm order, left to right in f32.
 //
 // What bounds them on the H100: bytes. Each moves O(E * C) values once and
-// does one add per value. The TPU kernels turn every gather and its
-// transpose into one-hot MXU contractions over a 3-window band of
+// does at most one add per value; there is no product, so nothing for the
+// tensor cores, and TMA has no row gather. The TPU kernels turn every gather
+// and its transpose into one-hot MXU contractions over a 3-window band of
 // capacity-padded windows, because a TPU has no fast row gather and no
-// scatter; Hopper reads rows directly, so each kernel here is one thread per
-// output element (consecutive threads on consecutive channels of one row:
-// coalesced row reads and writes) over the real edges only. The sums run in
-// the plan's fixed order (a node's in-edges, then its out-edges in sperm
-// order), in registers: no float atomics, bit-identical across runs.
+// scatter; Hopper reads rows directly, over the real edges only. The design
+// is about Hopper's memory system:
+//   * 16-byte route (VEC; a row is a whole number of 16-byte pieces, at
+//     most 32 of them, and every value array starts on a 16-byte
+//     boundary): a row is split into pieces of 8 bf16 or 4 f32 channels, and
+//     a group of 2^lg lanes (the least power of two >= the pieces in a row)
+//     serves one edge row (9 forward, 10 backward) or one node row (9
+//     backward, 10 forward). The group reads its row's indices once, one
+//     broadcast load per index for all its lanes (the one-thread-per-element
+//     kernels reloaded them for every channel), and every value piece by
+//     one ld.global.nc 16-byte load; it stores 16-byte pieces. All index
+//     arithmetic is int (the wrappers hold e * 2c and n * c below 2^31).
+//     The sums keep 8 or 4 f32 accumulators a lane and
+//     walk their edge lists two rows at a time, so that two pieces (and,
+//     through sperm, the next row's index) are in flight before the first
+//     is added; the adds stay in list order.
+//   * narrow route (rows of 5 or 1 channels, or a view whose data is not
+//     16-byte aligned): one thread per row and a loop over the channels, in
+//     int; kernel 9's forward one thread per (row, channel), in int.
+// The C entries choose the route from c, the type and the pointers.
+// Every output row is written once, by one group or thread, in a fixed
+// order: no float atomics, bit-identical across runs and to the one-thread-
+// per-element kernels this design replaced.
 #include <stdint.h>
+
+#include <initializer_list>
 
 #include "common.cuh"
 
@@ -37,98 +59,330 @@ namespace {
 constexpr int THREADS = 256;
 constexpr int MAX_BLOCKS = 132 * 16;
 
-int blocks_for(long total) {
-  long b = (total + THREADS - 1) / THREADS;
-  return (int)(b < 1 ? 1 : (b > MAX_BLOCKS ? MAX_BLOCKS : b));
+int blocks_for(int rows, int per_block) {
+  const int b = (rows + per_block - 1) / per_block;
+  return b < 1 ? 1 : (b > MAX_BLOCKS ? MAX_BLOCKS : b);
 }
 
 __device__ __forceinline__ int clampi(int v, int hi) { return min(max(v, 0), hi); }
 
-// rows are clamped into range for memory safety only: edge_window_plan
-// rejects endpoints outside [0, n)
-template <typename T>
-__global__ void __launch_bounds__(THREADS) pair_fwd_kernel(
-    const T* __restrict__ x, const int* __restrict__ src,
-    const int* __restrict__ dst, T* __restrict__ g, int n, int e, int c) {
-  const long total = (long)e * c;
-  const long stride = (long)gridDim.x * THREADS;
-  for (long i = (long)blockIdx.x * THREADS + threadIdx.x; i < total; i += stride) {
-    const int ee = (int)(i / c), k = (int)(i - (long)ee * c);
-    const T xi = x[(size_t)clampi(dst[ee], n - 1) * c + k];
-    const float xj = yk::to_f(x[(size_t)clampi(src[ee], n - 1) * c + k]);
-    g[(size_t)ee * 2 * c + k] = xi;
-    g[(size_t)ee * 2 * c + c + k] = yk::from_f<T>(xj - yk::to_f(xi));
+// ---- 16-byte pieces: K = 16 / sizeof(T) channels ----
+
+template <typename T> struct Piece {
+  static constexpr int K = 16 / (int)sizeof(T);
+};
+
+__device__ __forceinline__ uint4 ld16(const uint4* p) { return __ldg(p); }
+
+__device__ __forceinline__ void unpack(const uint4& v, float (&f)[4]) {
+  f[0] = __uint_as_float(v.x);
+  f[1] = __uint_as_float(v.y);
+  f[2] = __uint_as_float(v.z);
+  f[3] = __uint_as_float(v.w);
+}
+// bf16 -> f32 is exact: the bf16 bits are the high half of the float
+__device__ __forceinline__ void unpack(const uint4& v, float (&f)[8]) {
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(w[i] << 16);
+    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
   }
 }
 
+template <typename T> __device__ __forceinline__ uint4 pack(const float (&f)[Piece<T>::K]);
+template <> __device__ __forceinline__ uint4 pack<float>(const float (&f)[4]) {
+  return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]),
+                    __float_as_uint(f[2]), __float_as_uint(f[3]));
+}
+// round to nearest even, as yk::from_f
+template <> __device__ __forceinline__ uint4 pack<__nv_bfloat16>(const float (&f)[8]) {
+  return make_uint4(yk::bf16_pair(f[0], f[1]), yk::bf16_pair(f[2], f[3]),
+                    yk::bf16_pair(f[4], f[5]), yk::bf16_pair(f[6], f[7]));
+}
+
+// acc += round_to<T>(a - b), channel by channel
 template <typename T>
+__device__ __forceinline__ void add_diff(float (&acc)[Piece<T>::K], const uint4& a,
+                                         const uint4& b) {
+  float fa[Piece<T>::K], fb[Piece<T>::K];
+  unpack(a, fa);
+  unpack(b, fb);
+#pragma unroll
+  for (int k = 0; k < Piece<T>::K; ++k) acc[k] += yk::round_to<T>(fa[k] - fb[k]);
+}
+
+template <typename T>
+__device__ __forceinline__ void add_piece(float (&acc)[Piece<T>::K], const uint4& a) {
+  float fa[Piece<T>::K];
+  unpack(a, fa);
+#pragma unroll
+  for (int k = 0; k < Piece<T>::K; ++k) acc[k] += fa[k];
+}
+
+// ---- the kernels: VEC the 16-byte route, else the narrow route ----
+// lg: log2 of the lanes a row's group has (16-byte route). Rows are clamped
+// into range for memory safety only: edge_window_plan rejects endpoints
+// outside [0, n).
+
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(THREADS) pair_fwd_kernel(
+    const T* __restrict__ x, const int* __restrict__ src,
+    const int* __restrict__ dst, T* __restrict__ g, int n, int e, int c,
+    int lg) {
+  if constexpr (VEC) {
+    const int p = c / Piece<T>::K, pc = threadIdx.x & ((1 << lg) - 1);
+    const int per = THREADS >> lg;
+    const uint4* xv = reinterpret_cast<const uint4*>(x);
+    uint4* gv = reinterpret_cast<uint4*>(g);
+    for (int r = blockIdx.x * per + (threadIdx.x >> lg); r < e; r += gridDim.x * per) {
+      if (pc >= p) continue;
+      const int i = clampi(__ldg(dst + r), n - 1), j = clampi(__ldg(src + r), n - 1);
+      const uint4 a = ld16(xv + i * p + pc), b = ld16(xv + j * p + pc);
+      float fa[Piece<T>::K], fb[Piece<T>::K];
+      unpack(a, fa);
+      unpack(b, fb);
+#pragma unroll
+      for (int k = 0; k < Piece<T>::K; ++k) fb[k] -= fa[k];
+      gv[r * 2 * p + pc] = a;
+      gv[r * 2 * p + p + pc] = pack<T>(fb);
+    }
+  } else {
+    // one thread per (row, channel)
+    for (int i = blockIdx.x * THREADS + threadIdx.x; i < e * c; i += gridDim.x * THREADS) {
+      const int r = i / c, k = i - r * c;
+      const T xi = x[clampi(__ldg(dst + r), n - 1) * c + k];
+      const float xj = yk::to_f(x[clampi(__ldg(src + r), n - 1) * c + k]);
+      g[r * 2 * c + k] = xi;
+      g[r * 2 * c + c + k] = yk::from_f<T>(xj - yk::to_f(xi));
+    }
+  }
+}
+
+template <typename T, bool VEC>
 __global__ void __launch_bounds__(THREADS) pair_bwd_kernel(
     const T* __restrict__ dg, const int* __restrict__ dptr,
     const int* __restrict__ sperm, const int* __restrict__ sptr,
-    T* __restrict__ dx, int n, int e, int c) {
-  const long total = (long)n * c;
-  const long stride = (long)gridDim.x * THREADS;
-  for (long i = (long)blockIdx.x * THREADS + threadIdx.x; i < total; i += stride) {
-    const int v = (int)(i / c), k = (int)(i - (long)v * c);
-    float acc = 0.f;
-    const int d0 = clampi(dptr[v], e), d1 = clampi(dptr[v + 1], e);
-    for (int ee = d0; ee < d1; ++ee) {
-      const size_t row = (size_t)ee * 2 * c;
-      acc += yk::round_to<T>(yk::to_f(dg[row + k]) - yk::to_f(dg[row + c + k]));
+    T* __restrict__ dx, int n, int e, int c, int lg) {
+  if constexpr (VEC) {
+    constexpr int K = Piece<T>::K;
+    const int p = c / K, pc = threadIdx.x & ((1 << lg) - 1);
+    const int per = THREADS >> lg;
+    // piece pc of row ee's dg0 half at in[ee * 2p], of its dg1 half at + p
+    const uint4* in = reinterpret_cast<const uint4*>(dg) + pc;
+    for (int v = blockIdx.x * per + (threadIdx.x >> lg); v < n; v += gridDim.x * per) {
+      if (pc >= p) continue;
+      const int d0 = clampi(__ldg(dptr + v), e), d1 = clampi(__ldg(dptr + v + 1), e);
+      const int s0 = clampi(__ldg(sptr + v), e), s1 = clampi(__ldg(sptr + v + 1), e);
+      // the first two out-edge rows, loaded beside the in-edge pieces
+      int q = s0;
+      int r0 = q < s1 ? clampi(__ldg(sperm + q), e - 1) : 0;
+      int r1 = q + 1 < s1 ? clampi(__ldg(sperm + q + 1), e - 1) : 0;
+      float acc[K];
+#pragma unroll
+      for (int k = 0; k < K; ++k) acc[k] = 0.f;
+      int ee = d0;
+      for (; ee + 1 < d1; ee += 2) {
+        const uint4 a0 = ld16(in + ee * 2 * p), b0 = ld16(in + ee * 2 * p + p);
+        const uint4 a1 = ld16(in + (ee + 1) * 2 * p), b1 = ld16(in + (ee + 1) * 2 * p + p);
+        add_diff<T>(acc, a0, b0);
+        add_diff<T>(acc, a1, b1);
+      }
+      if (ee < d1) add_diff<T>(acc, ld16(in + ee * 2 * p), ld16(in + ee * 2 * p + p));
+      for (; q + 1 < s1; q += 2) {
+        const uint4 b0 = ld16(in + r0 * 2 * p + p), b1 = ld16(in + r1 * 2 * p + p);
+        // the next two rows' indices before this pair is added
+        r0 = q + 2 < s1 ? clampi(__ldg(sperm + q + 2), e - 1) : 0;
+        r1 = q + 3 < s1 ? clampi(__ldg(sperm + q + 3), e - 1) : 0;
+        add_piece<T>(acc, b0);
+        add_piece<T>(acc, b1);
+      }
+      if (q < s1) add_piece<T>(acc, ld16(in + r0 * 2 * p + p));
+      reinterpret_cast<uint4*>(dx)[v * p + pc] = pack<T>(acc);
     }
-    const int s0 = clampi(sptr[v], e), s1 = clampi(sptr[v + 1], e);
-    for (int q = s0; q < s1; ++q)
-      acc += yk::to_f(dg[(size_t)clampi(sperm[q], e - 1) * 2 * c + c + k]);
-    dx[i] = yk::from_f<T>(acc);
+  } else {
+    constexpr int CH = 8;  // channels a thread sums at once
+    for (int v = blockIdx.x * THREADS + threadIdx.x; v < n; v += gridDim.x * THREADS) {
+      const int d0 = clampi(dptr[v], e), d1 = clampi(dptr[v + 1], e);
+      const int s0 = clampi(sptr[v], e), s1 = clampi(sptr[v + 1], e);
+      for (int k0 = 0; k0 < c; k0 += CH) {
+        float acc[CH];
+#pragma unroll
+        for (int j = 0; j < CH; ++j) acc[j] = 0.f;
+        for (int ee = d0; ee < d1; ++ee) {
+          const T* row = dg + ee * 2 * c + k0;
+#pragma unroll
+          for (int j = 0; j < CH; ++j)
+            if (k0 + j < c)
+              acc[j] += yk::round_to<T>(yk::to_f(row[j]) - yk::to_f(row[c + j]));
+        }
+        for (int q = s0; q < s1; ++q) {
+          const T* row = dg + clampi(sperm[q], e - 1) * 2 * c + c + k0;
+#pragma unroll
+          for (int j = 0; j < CH; ++j)
+            if (k0 + j < c) acc[j] += yk::to_f(row[j]);
+        }
+#pragma unroll
+        for (int j = 0; j < CH; ++j)
+          if (k0 + j < c) dx[v * c + k0 + j] = yk::from_f<T>(acc[j]);
+      }
+    }
   }
 }
 
-template <typename T>
+template <typename T, bool VEC>
 __global__ void __launch_bounds__(THREADS) wsum_fwd_kernel(
     const T* __restrict__ h, const int* __restrict__ dptr,
-    float* __restrict__ out, int n, int e, int c) {
-  const long total = (long)n * c;
-  const long stride = (long)gridDim.x * THREADS;
-  for (long i = (long)blockIdx.x * THREADS + threadIdx.x; i < total; i += stride) {
-    const int v = (int)(i / c), k = (int)(i - (long)v * c);
-    float acc = 0.f;
-    const int d0 = clampi(dptr[v], e), d1 = clampi(dptr[v + 1], e);
-    for (int ee = d0; ee < d1; ++ee) acc += yk::to_f(h[(size_t)ee * c + k]);
-    out[i] = acc;
+    float* __restrict__ out, int n, int e, int c, int lg) {
+  if constexpr (VEC) {
+    constexpr int K = Piece<T>::K;
+    const int p = c / K, pc = threadIdx.x & ((1 << lg) - 1);
+    const int per = THREADS >> lg;
+    const uint4* in = reinterpret_cast<const uint4*>(h) + pc;
+    for (int v = blockIdx.x * per + (threadIdx.x >> lg); v < n; v += gridDim.x * per) {
+      if (pc >= p) continue;
+      const int d0 = clampi(__ldg(dptr + v), e), d1 = clampi(__ldg(dptr + v + 1), e);
+      float acc[K];
+#pragma unroll
+      for (int k = 0; k < K; ++k) acc[k] = 0.f;
+      int ee = d0;
+      for (; ee + 1 < d1; ee += 2) {
+        const uint4 a0 = ld16(in + ee * p), a1 = ld16(in + (ee + 1) * p);
+        add_piece<T>(acc, a0);
+        add_piece<T>(acc, a1);
+      }
+      if (ee < d1) add_piece<T>(acc, ld16(in + ee * p));
+      // K f32 channels: K / 4 16-byte stores (a zero row too)
+      float4* o = reinterpret_cast<float4*>(out) + (v * p + pc) * (K / 4);
+#pragma unroll
+      for (int s = 0; s < K / 4; ++s)
+        o[s] = make_float4(acc[4 * s], acc[4 * s + 1], acc[4 * s + 2], acc[4 * s + 3]);
+    }
+  } else {
+    constexpr int CH = 8;
+    for (int v = blockIdx.x * THREADS + threadIdx.x; v < n; v += gridDim.x * THREADS) {
+      const int d0 = clampi(dptr[v], e), d1 = clampi(dptr[v + 1], e);
+      for (int k0 = 0; k0 < c; k0 += CH) {
+        float acc[CH];
+#pragma unroll
+        for (int j = 0; j < CH; ++j) acc[j] = 0.f;
+        for (int ee = d0; ee < d1; ++ee) {
+#pragma unroll
+          for (int j = 0; j < CH; ++j)
+            if (k0 + j < c) acc[j] += yk::to_f(h[ee * c + k0 + j]);
+        }
+#pragma unroll
+        for (int j = 0; j < CH; ++j)
+          if (k0 + j < c) out[v * c + k0 + j] = acc[j];
+      }
+    }
   }
 }
 
-template <typename T>
+template <typename T, bool VEC>
 __global__ void __launch_bounds__(THREADS) wsum_bwd_kernel(
     const float* __restrict__ g, const int* __restrict__ dst,
-    T* __restrict__ dh, int n, int e, int c) {
-  const long total = (long)e * c;
-  const long stride = (long)gridDim.x * THREADS;
-  for (long i = (long)blockIdx.x * THREADS + threadIdx.x; i < total; i += stride) {
-    const int ee = (int)(i / c), k = (int)(i - (long)ee * c);
-    dh[i] = yk::from_f<T>(g[(size_t)clampi(dst[ee], n - 1) * c + k]);
+    T* __restrict__ dh, int n, int e, int c, int lg) {
+  if constexpr (VEC) {
+    constexpr int K = Piece<T>::K;
+    const int p = c / K, pc = threadIdx.x & ((1 << lg) - 1);
+    const int per = THREADS >> lg;
+    for (int r = blockIdx.x * per + (threadIdx.x >> lg); r < e; r += gridDim.x * per) {
+      if (pc >= p) continue;
+      const int i = clampi(__ldg(dst + r), n - 1);
+      // K f32 channels of g's row i: K / 4 16-byte loads
+      const uint4* gi = reinterpret_cast<const uint4*>(g) + (i * p + pc) * (K / 4);
+      float f[K];
+#pragma unroll
+      for (int s = 0; s < K / 4; ++s) {
+        float q[4];
+        unpack(ld16(gi + s), q);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) f[4 * s + k] = q[k];
+      }
+      reinterpret_cast<uint4*>(dh)[r * p + pc] = pack<T>(f);
+    }
+  } else {
+    for (int r = blockIdx.x * THREADS + threadIdx.x; r < e; r += gridDim.x * THREADS) {
+      const int i = clampi(dst[r], n - 1);
+      for (int k = 0; k < c; ++k) dh[r * c + k] = yk::from_f<T>(g[i * c + k]);
+    }
   }
+}
+
+// The 16-byte route's group: pieces p = c / K per row (K channels a piece),
+// 1 <= p <= 32, lanes 2^lg >= p. False where a row of c values is not such.
+template <typename T> bool vector_shape(int c, int* lg) {
+  constexpr int K = Piece<T>::K;
+  if (c % K != 0 || c / K < 1 || c / K > 32) return false;
+  *lg = 0;
+  while ((1 << *lg) < c / K) ++*lg;
+  return true;
+}
+
+// Launch a kernel of this file on the 16-byte route where c makes a row
+// whole pieces and every value array in `vals` starts on a 16-byte boundary
+// (one group of 2^lg lanes per row), else on the narrow route (`items`
+// threads: rows, or kernel 9 forward's row elements).
+template <typename T, typename KV, typename KN, typename... A>
+int launch(KV vec_kernel, KN narrow_kernel, std::initializer_list<const void*> vals,
+           int rows, int items, int c, cudaStream_t st, A... args) {
+  int lg;
+  bool vec = vector_shape<T>(c, &lg);
+  for (const void* p : vals) vec = vec && yk::aligned16(p);
+  if (vec)
+    vec_kernel<<<blocks_for(rows, THREADS >> lg), THREADS, 0, st>>>(args..., lg);
+  else
+    narrow_kernel<<<blocks_for(items, THREADS), THREADS, 0, st>>>(args..., 0);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int pair_fwd(const void* x, const void* src, const void* dst, void* g, int n,
+             int e, int c, cudaStream_t st) {
+  return launch<T>(pair_fwd_kernel<T, true>, pair_fwd_kernel<T, false>, {x, g}, e,
+                   e * c, c, st, static_cast<const T*>(x), static_cast<const int*>(src),
+                   static_cast<const int*>(dst), static_cast<T*>(g), n, e, c);
+}
+
+template <typename T>
+int pair_bwd(const void* dg, const void* dptr, const void* sperm,
+             const void* sptr, void* dx, int n, int e, int c, cudaStream_t st) {
+  return launch<T>(pair_bwd_kernel<T, true>, pair_bwd_kernel<T, false>, {dg, dx}, n, n,
+                   c, st, static_cast<const T*>(dg), static_cast<const int*>(dptr),
+                   static_cast<const int*>(sperm), static_cast<const int*>(sptr),
+                   static_cast<T*>(dx), n, e, c);
+}
+
+template <typename T>
+int wsum_fwd(const void* h, const void* dptr, void* out, int n, int e, int c,
+             cudaStream_t st) {
+  return launch<T>(wsum_fwd_kernel<T, true>, wsum_fwd_kernel<T, false>, {h, out}, n, n,
+                   c, st, static_cast<const T*>(h), static_cast<const int*>(dptr),
+                   static_cast<float*>(out), n, e, c);
+}
+
+template <typename T>
+int wsum_bwd(const void* g, const void* dst, void* dh, int n, int e, int c,
+             cudaStream_t st) {
+  return launch<T>(wsum_bwd_kernel<T, true>, wsum_bwd_kernel<T, false>, {g, dh}, e, e,
+                   c, st, static_cast<const float*>(g), static_cast<const int*>(dst),
+                   static_cast<T*>(dh), n, e, c);
 }
 
 }  // namespace
 
 extern "C" {
 
+// Each returns the CUDA error code of its launch.
+
 // x [n, c] (f32, or bf16 when bf16 != 0); src/dst [e] i32; g [e, 2c] in x's
-// type. Each returns the CUDA error code of its launch.
+// type.
 int yk_ew_pair_fwd(const void* x, const void* src, const void* dst, void* g,
                    int n, int e, int c, int bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int blocks = blocks_for((long)e * c);
-  if (bf16)
-    pair_fwd_kernel<__nv_bfloat16><<<blocks, THREADS, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<const int*>(src),
-        static_cast<const int*>(dst), static_cast<__nv_bfloat16*>(g), n, e, c);
-  else
-    pair_fwd_kernel<float><<<blocks, THREADS, 0, st>>>(
-        static_cast<const float*>(x), static_cast<const int*>(src),
-        static_cast<const int*>(dst), static_cast<float*>(g), n, e, c);
-  return (int)cudaGetLastError();
+  return bf16 ? pair_fwd<__nv_bfloat16>(x, src, dst, g, n, e, c, st)
+              : pair_fwd<float>(x, src, dst, g, n, e, c, st);
 }
 
 // dg [e, 2c] (f32 or bf16); dptr/sptr [n + 1] i32; sperm [e] i32; dx [n, c]
@@ -137,50 +391,24 @@ int yk_ew_pair_bwd(const void* dg, const void* dptr, const void* sperm,
                    const void* sptr, void* dx, int n, int e, int c, int bf16,
                    void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int blocks = blocks_for((long)n * c);
-  if (bf16)
-    pair_bwd_kernel<__nv_bfloat16><<<blocks, THREADS, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(dg), static_cast<const int*>(dptr),
-        static_cast<const int*>(sperm), static_cast<const int*>(sptr),
-        static_cast<__nv_bfloat16*>(dx), n, e, c);
-  else
-    pair_bwd_kernel<float><<<blocks, THREADS, 0, st>>>(
-        static_cast<const float*>(dg), static_cast<const int*>(dptr),
-        static_cast<const int*>(sperm), static_cast<const int*>(sptr),
-        static_cast<float*>(dx), n, e, c);
-  return (int)cudaGetLastError();
+  return bf16 ? pair_bwd<__nv_bfloat16>(dg, dptr, sperm, sptr, dx, n, e, c, st)
+              : pair_bwd<float>(dg, dptr, sperm, sptr, dx, n, e, c, st);
 }
 
 // h [e, c] (f32 or bf16); dptr [n + 1] i32; out [n, c] f32.
 int yk_ew_wsum_fwd(const void* h, const void* dptr, void* out, int n, int e,
                    int c, int bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int blocks = blocks_for((long)n * c);
-  if (bf16)
-    wsum_fwd_kernel<__nv_bfloat16><<<blocks, THREADS, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(h), static_cast<const int*>(dptr),
-        static_cast<float*>(out), n, e, c);
-  else
-    wsum_fwd_kernel<float><<<blocks, THREADS, 0, st>>>(
-        static_cast<const float*>(h), static_cast<const int*>(dptr),
-        static_cast<float*>(out), n, e, c);
-  return (int)cudaGetLastError();
+  return bf16 ? wsum_fwd<__nv_bfloat16>(h, dptr, out, n, e, c, st)
+              : wsum_fwd<float>(h, dptr, out, n, e, c, st);
 }
 
 // g [n, c] f32; dst [e] i32; dh [e, c] (f32, or bf16 when bf16 != 0).
 int yk_ew_wsum_bwd(const void* g, const void* dst, void* dh, int n, int e,
                    int c, int bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int blocks = blocks_for((long)e * c);
-  if (bf16)
-    wsum_bwd_kernel<__nv_bfloat16><<<blocks, THREADS, 0, st>>>(
-        static_cast<const float*>(g), static_cast<const int*>(dst),
-        static_cast<__nv_bfloat16*>(dh), n, e, c);
-  else
-    wsum_bwd_kernel<float><<<blocks, THREADS, 0, st>>>(
-        static_cast<const float*>(g), static_cast<const int*>(dst),
-        static_cast<float*>(dh), n, e, c);
-  return (int)cudaGetLastError();
+  return bf16 ? wsum_bwd<__nv_bfloat16>(g, dst, dh, n, e, c, st)
+              : wsum_bwd<float>(g, dst, dh, n, e, c, st);
 }
 
 }  // extern "C"

@@ -28,7 +28,10 @@ Each of the four wrappers launches its CUDA kernel
 (`csrc/edge_window_train.cu`) for CUDA tensors and runs its plain version
 for CPU tensors; any other device raises. A comparison of a kernel with its
 plain version calls `pair_fwd_plain`, `pair_bwd_plain`, `wsum_fwd_plain` or
-`wsum_bwd_plain` directly.
+`wsum_bwd_plain` directly. The kernel picks its route: 16-byte pieces of
+a row where the row and the value arrays allow it, else one thread per row.
+Either route returns the same bits: per channel, a node's in-edges in dptr
+order, then its out-edges in sperm order, added left to right in f32.
 """
 
 from __future__ import annotations
@@ -64,6 +67,13 @@ def wsum_bwd_plain(g, dst, dtype):
     return g.to(dtype).index_select(0, dst.long())
 
 
+def _check_int31(name: str, *sizes: int) -> None:
+    """The kernels index in 32-bit int: every size must be below 2^31."""
+    if max(sizes) >= 2 ** 31:
+        raise ValueError(f"{name}: {max(sizes)} elements do not fit the "
+                         f"kernel's 32-bit indices")
+
+
 def _route(t, name: str) -> bool:
     """True for the kernel route (a CUDA tensor), False for the plain one
     (a CPU tensor); any other device raises."""
@@ -96,6 +106,7 @@ def pair_fwd(x, src, dst):
         return g
     if n == 0:
         raise ValueError("ew_pair_features: edges over an empty node set")
+    _check_int31("ew_pair_features", e * 2 * c, n * c)
     lib = _build.library()
     rc = lib.yk_ew_pair_fwd(
         _build.ptr(x.contiguous()), _build.ptr(src.contiguous()),
@@ -117,6 +128,7 @@ def pair_bwd(dg, src, dst, dptr, sperm, sptr, n: int):
     dx = torch.empty(n, c, dtype=dg.dtype, device=dg.device)
     if n == 0 or c == 0:
         return dx
+    _check_int31("ew_pair_features_bwd", e * 2 * c, n * c)
     lib = _build.library()
     rc = lib.yk_ew_pair_bwd(
         _build.ptr(dg.contiguous()), _build.ptr(dptr.contiguous()),
@@ -137,6 +149,7 @@ def wsum_fwd(h, dst, dptr, n: int):
     out = torch.empty(n, c, dtype=torch.float32, device=h.device)
     if n == 0 or c == 0:
         return out
+    _check_int31("ew_window_segment_sum", e * c, n * c)
     lib = _build.library()
     rc = lib.yk_ew_wsum_fwd(
         _build.ptr(h.contiguous()), _build.ptr(dptr.contiguous()),
@@ -160,6 +173,7 @@ def wsum_bwd(g, dst, dtype):
     dh = torch.empty(e, c, dtype=dtype, device=g.device)
     if e == 0 or c == 0:
         return dh
+    _check_int31("ew_window_segment_sum_bwd", e * c, n * c)
     lib = _build.library()
     rc = lib.yk_ew_wsum_bwd(
         _build.ptr(g.contiguous()), _build.ptr(dst.contiguous()),

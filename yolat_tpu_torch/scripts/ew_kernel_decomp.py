@@ -27,9 +27,9 @@ each as the median over 3 rounds of the profiler's device time per
 launch of the variant's kernel (`source_edits.device_us`: torch.profiler,
 CUDA activity, over `--reps` calls of the wrapper after 3 that are not
 profiled), the variants in turns (the order rotates every round), in one
-call; a profile without the kernel raises. The kernel runs shorter than
-its wrapper's host work (~0.1 ms a call), so a CUDA-event span of one call
-would time the host.
+call; a profile that misses records raises (`source_edits`). The kernel
+runs shorter than its wrapper's host work (~0.1 ms a call), so a CUDA-event
+span of one call would time the host.
 Prints one JSON line: N, E (real edges), C, wn, nw, `<variant>_us`, the shares
 `gather_src_us` = full - noband and `gather_both_us` = full - noonehot, each
 variant's bound (`<variant>_bound_us` and `_bound_by`: the larger of its

@@ -1,6 +1,7 @@
 """Edited copies of the port's CUDA sources, built and timed: what the
 decomposition probes (`pool_head_decomp`, `message_decomp`,
-`ew_kernel_decomp`) share.
+`ew_kernel_decomp`) share; `call_us` also times kernels 7-10b and their
+library calls for `chip_smoke.py` (`profiled_calls`), warm and L2-flushed.
 
 An edit list is `((variant, source, ((file, statement, replacement), ...)),
 ...)`: `source` is the file under `csrc/` that nvcc compiles, and each
@@ -16,6 +17,7 @@ import ctypes
 import os
 import re
 import subprocess
+import time
 
 from yolat_tpu_torch.ops import _build
 
@@ -82,29 +84,98 @@ def check(rc: int, what: str) -> None:
         _build.check(_build.library(), rc, what)
 
 
-def device_us(fn, reps: int) -> dict:
-    """{kernel: the profiler's device time (us) per launch} of the CUDA
-    kernels that `reps` calls of fn launch (torch.profiler, CUDA activity),
-    after three calls that are not profiled; a kernel is named by its
-    `*_kernel` identifier, its instantiations together. Raises if the
-    profile holds no kernel."""
+# the profiler's name for a device-to-device copy (a flush's record)
+COPY_RECORD = "Memcpy DtoD"
+# Host seconds between a profile's start and its first call, and between
+# its last call's end and its stop. The profiler keeps a device record only
+# inside the profile's window on the host's clock, and a record's time,
+# taken on the card and converted, can fall milliseconds off; without the
+# margin a profile loses its first or its last records now and then
+# (`scripts/profiler_records.py`; PERF.md §7).
+MARGIN = 0.05
+
+
+def kernel_name(key: str) -> str:
+    """A profiler record's kernel: its `*_kernel` identifier (all its
+    instantiations together), else the record's own name."""
+    m = re.search(r"(\w+_kernel)\b", key)
+    return m.group(1) if m else key
+
+
+def _records(fn, calls: int, flush=None, margin: float = MARGIN) -> tuple:
+    """({kernel: (device us, records)}, copy records, the profile) of one
+    profile (torch.profiler, CUDA activity) of `calls` calls of fn, each
+    after flush() where `flush` is given, `margin` host seconds before the
+    first call and after the last one's end. Copies are counted, not
+    timed."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    def call():
+        flush()
+        fn()
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(margin)
+        for _ in range(calls):
+            (fn if flush is None else call)()
+        torch.cuda.synchronize()
+        time.sleep(margin)
+    got, copies = {}, 0
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA or not e.count:
+            continue
+        if e.key.startswith(COPY_RECORD):
+            copies += e.count
+        else:
+            t, c = got.get(kernel_name(e.key), (0.0, 0))
+            got[kernel_name(e.key)] = (t + e.device_time_total, c + e.count)
+    return got, copies, prof
+
+
+def _profile(fn, reps: int, flush=None) -> dict:
+    """{kernel: (device us, launches)} over `reps` calls of fn after three
+    that are not profiled (`_records`, with its margins); with `flush` (one
+    device-to-device copy, as `profiled_calls.l2_flush`), flush() runs before
+    every call and its copies are left out. fn must launch the same kernels
+    on every call and no copy.
+
+    The profile is held to a reference profile of one call: each kernel
+    that the reference holds must have `reps` times its records, no other
+    kernel may appear, and there must be one copy per flush. Any difference
+    raises, naming both profiles' counts."""
+    import torch
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total, count = {}, {}
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA and e.count:
-            kern = re.search(r"(\w+_kernel)\b", e.key)
-            kern = kern.group(1) if kern else e.key
-            total[kern] = total.get(kern, 0.0) + e.device_time_total
-            count[kern] = count.get(kern, 0) + e.count
-    if not total:
-        raise RuntimeError(f"the profile of {reps} calls holds no CUDA kernel")
-    return {k: total[k] / count[k] for k in total}
+    ref, ref_copies, _ = _records(fn, 1)
+    got, copies, _ = _records(fn, reps, flush)
+    if ref_copies:
+        raise RuntimeError("fn launches a device-to-device copy")
+    per_call = {k: c for k, (_, c) in ref.items()}
+    have = {k: c for k, (_, c) in got.items()}
+    want_copies = 0 if flush is None else reps
+    if not per_call or have != {k: c * reps for k, c in per_call.items()} \
+            or copies != want_copies:
+        raise RuntimeError(
+            f"the profile of {reps} calls held the kernel records {have} and "
+            f"{copies} flush copies; a reference profile of one call holds "
+            f"{per_call}, and {want_copies} flushes ran: the profiler "
+            f"dropped records")
+    return got
+
+
+def device_us(fn, reps: int) -> dict:
+    """{kernel: the profiler's device time (us) per launch} of the CUDA
+    kernels that `reps` calls of fn launch (`_profile`: three unprofiled
+    calls first; a profile that misses records raises)."""
+    return {k: t / c for k, (t, c) in _profile(fn, reps).items()}
+
+
+def call_us(fn, reps: int, flush=None) -> float:
+    """The profiler's device time (us) per call of fn: every kernel it
+    launches, summed (`_profile`; with `flush`, an L2 flush before every
+    call, not counted)."""
+    return sum(t for t, _ in _profile(fn, reps, flush).values()) / reps
