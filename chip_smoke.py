@@ -15,9 +15,9 @@ no jax. Phases, each of which raises on failure (non-zero exit):
      -sass`), with ptxas's registers, spills and static shared memory: each
      bf16 kernel must have HGMMA, spill nothing and keep its wgmma pipeline
      unserialised (no C7515), each f32 kernel must have neither; and
-     ptxas's registers and spills of every instantiation of the window row
-     kernels (9, 10: f32 and bf16, 16-byte and narrow-row routes), none of
-     which may spill;
+     ptxas's registers and spills of every instantiation of the row
+     kernels (9, 10, whose bodies 8 and 8b run, and 7b: f32 and bf16,
+     16-byte and narrow-row routes), none of which may spill;
   3. kernels: on one packed batch of 4 bench-scale synthetic floorplans
      (2000x1500, 6 rooms, 1-3 symbols per room, seed 7, sampling step 10),
      each kernel against its plain PyTorch version at the shapes the
@@ -115,10 +115,15 @@ no jax. Phases, each of which raises on failure (non-zero exit):
      for the most terms k any node adds, plus one rounding of the output
      where it is bf16, beside the readings of two planted faults (own and other
      endpoint swapped, one row dropped); each twice, bit-identical; an
-     empty family (E = 0) through all four; rows per node and per thread
-     block on both sides; paired median times, the library call's time
+     empty family (E = 0) through all four; the runs per node on both
+     sides, and what 4 or 2 nodes a warp add to 7b's chains (a node's
+     longer run); paired median times, the library call's time
      (`index_select`, `index_add_`) and the bound; the profiler's warm and
-     L2-flushed device times, as in phase 7;
+     L2-flushed device times, as in phase 7; then 7b, 8 and 8b at an odd
+     width (C = 5, the narrow route) against their plain versions, 7b and 8
+     also against the float64 limit, and at C = 64 with every value input a
+     view off a 16-byte boundary (the narrow route), bit-identical to the
+     aligned inputs' results;
  15. pp train route: the train-mode YOLaT++ module on its banded route
      (kernels 7 and 8 with their backward kernels) against its sparse route
      on the same weights and batch, f32 and bf16: `prim_at_node`,
@@ -318,11 +323,12 @@ TC_KERNELS = ("block_max_tc_kernel", "bwd_rows_tc_kernel", "bwd_dw_tc_kernel",
               "banded_tc_kernel")
 F32_KERNELS = ("block_max_kernel", "bwd_rows_kernel", "bwd_dw_kernel",
                "edge_window_kernel", "dense_message_kernel", "banded_kernel")
-# the window layout's row kernels (9 and 10, forward and backward): no
-# product, so no tensor-core route; every instantiation (f32 and bf16, the
-# 16-byte route and the narrow-row route) must spill nothing
+# the row kernels (9 and 10, forward and backward, whose bodies 8 and 8b
+# run, and 7b): no product, so no tensor-core route; every instantiation
+# (f32 and bf16, the 16-byte route and the narrow-row route) must spill
+# nothing
 ROW_KERNELS = ("pair_fwd_kernel", "pair_bwd_kernel", "wsum_fwd_kernel",
-               "wsum_bwd_kernel")
+               "wsum_bwd_kernel", "gather_bwd_kernel")
 
 
 def _cuobjdump() -> str:
@@ -389,7 +395,7 @@ def tensor_core_report() -> dict:
     ptxas's registers, spills and static shared memory; fails unless every
     bf16 kernel has HGMMA, spills nothing and runs its wgmma pipeline
     unserialised, and no f32 kernel has either instruction. Then ptxas's
-    registers and spills of every instantiation of the window row kernels
+    registers and spills of every instantiation of the row kernels
     (ROW_KERNELS); a spill fails."""
     import re
 
@@ -1729,16 +1735,23 @@ def banded_train_kernel_phase(model, batch, dev_line):
     check(e == int(batch["super_mask"].sum()), "the plan holds the real edges")
     dev = s_f.device
 
-    # one warp per node: the rows a warp adds, and a thread block's 8 warps
-    for side, ptr in (("own (nptr)", nptr), ("other (tptr)", tptr)):
-        deg = (ptr[1:] - ptr[:-1]).float()
-        blk = torch.nn.functional.pad(deg, (0, -n % 8)).reshape(-1, 8).sum(1)
+    # the runs a node's lanes walk; 7b walks both side by side, so a node's
+    # chain is its longer run, and a warp (4 nodes at bf16 C = 64, 8 lanes
+    # each; 2 at f32) waits for its longest chain
+    runs = [(ptr[1:] - ptr[:-1]).float() for ptr in (nptr, tptr)]
+    for side, deg in zip(("own (nptr)", "other (tptr)"), runs):
         print(f"banded train plan, {side} side: {e} rows over {n} nodes, "
               f"{int((deg > 0).sum())} nodes with rows, largest run "
               f"{int(deg.max())}, median of the others' "
-              f"{float(deg[deg > 0].median()):.0f}; per thread block of 8 "
-              f"nodes: largest {int(blk.max())} rows, median "
-              f"{float(blk[blk > 0].median()):.0f}")
+              f"{float(deg[deg > 0].median()):.0f}")
+    chain = torch.maximum(*runs)
+    for per in (4, 2):
+        warp = torch.nn.functional.pad(chain, (0, -n % per)).reshape(-1, per)
+        ratio = per * float(warp.max(1).values.sum()) / float(chain.sum())
+        print(f"banded train plan, 7b at {per} nodes a warp: the warps' "
+              f"longest chains add to {ratio:.3f}x the nodes' chains (what "
+              f"the warps' imbalance adds), largest chain "
+              f"{int(chain.max())} rows")
     # the most terms any node's sums add: its own run plus its other run
     k_max = int(((nptr[1:] - nptr[:-1]) + (tptr[1:] - tptr[:-1])).max())
 
@@ -1769,7 +1782,7 @@ def banded_train_kernel_phase(model, batch, dev_line):
         """got [n, c] against the float64 sum of `terms` (([E, c], index)
         pairs) -> (max |err| against the plain version, within the limit,
         the limit and the planted faults' readings as text)."""
-        want = torch.zeros(n, c, dtype=torch.float64, device=dev)
+        want = torch.zeros(got.shape, dtype=torch.float64, device=dev)
         mass = torch.zeros_like(want)
         for t, i in terms:
             want.index_add_(0, i, t.double())
@@ -1795,6 +1808,15 @@ def banded_train_kernel_phase(model, batch, dev_line):
                 f"two runs bit-identical")
         check(min(faults) > 1.0, "a planted fault passes the limit")
         return (got.float() - want_plain.float()).abs().max().item(), ok, text
+
+    def shifted(t):
+        """t as a view one element into a buffer: its data off a 16-byte
+        boundary, so the kernels take their narrow route."""
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+        buf[1:] = t.reshape(-1)
+        v = buf[1:].view(t.shape)
+        check(v.data_ptr() % 16 != 0, "the view is off a 16-byte boundary")
+        return v
 
     for dt in (torch.float32, torch.bfloat16):
         s = 4 if dt == torch.float32 else 2
@@ -1827,7 +1849,10 @@ def banded_train_kernel_phase(model, batch, dev_line):
         torch.cuda.synchronize()
         err, ok, text = sum_check(dx, [(g_own, ownl), (g_oth, othl)], want,
                                   dt == torch.bfloat16)
-        ok = ok and torch.equal(dx, dx2) and dx.dtype == dt
+        off = bt.gather_bwd(shifted(g_own), shifted(g_oth), *args[2:])
+        ok = ok and torch.equal(dx, dx2) and torch.equal(off, dx) \
+            and dx.dtype == dt
+        text += "; inputs off a 16-byte boundary bit-identical"
         kfn = lambda: bt.gather_bwd(*args)
         ms, pms, dms = paired_ms(kfn,
                             lambda: bt.gather_bwd_plain(g_own, g_oth, own,
@@ -1848,7 +1873,10 @@ def banded_train_kernel_phase(model, batch, dev_line):
         want = bt.scatter_own_plain(rows, own, n)
         torch.cuda.synchronize()
         err, ok, text = sum_check(out, [(rows, ownl)], want, False)
-        ok = ok and torch.equal(out, out2) and out.dtype == torch.float32
+        off = bt.scatter_own_fwd(shifted(rows), own, nptr, n)
+        ok = ok and torch.equal(out, out2) and torch.equal(off, out) \
+            and out.dtype == torch.float32
+        text += "; inputs off a 16-byte boundary bit-identical"
         kfn = lambda: bt.scatter_own_fwd(rows, own, nptr, n)
         ms, pms, dms = paired_ms(kfn,
                             lambda: bt.scatter_own_plain(rows, own, n))
@@ -1866,7 +1894,8 @@ def banded_train_kernel_phase(model, batch, dev_line):
         d_rows2 = bt.scatter_own_bwd(g, own, dt)
         want = bt.scatter_own_bwd_plain(g, own, dt)
         torch.cuda.synchronize()
-        ok = torch.equal(d_rows, want) and torch.equal(d_rows, d_rows2)
+        ok = torch.equal(d_rows, want) and torch.equal(d_rows, d_rows2) \
+            and torch.equal(bt.scatter_own_bwd(shifted(g), own, dt), d_rows)
         err = (d_rows.float() - want.float()).abs().max().item()
         kfn = lambda: bt.scatter_own_bwd(g, own, dt)
         ms, pms, dms = paired_ms(kfn,
@@ -1874,7 +1903,8 @@ def banded_train_kernel_phase(model, batch, dev_line):
         lfn = lambda: g.index_select(0, ownl)
         lms = _library_ms(lfn)
         note("banded_scatter_own_bwd", dt, err, ok,
-             "exact, two runs bit-identical", ms, pms, dms, lms,
+             "exact, two runs bit-identical, an input off a 16-byte "
+             "boundary bit-identical", ms, pms, dms, lms,
              bound(4 * n_own * c + 4 * e + s * e * c, 0.0, PEAK_F32),
              (BT + "scatter_own_bwd", (g, own, dt)), ("gather", (g, ownl)))
 
@@ -1887,6 +1917,38 @@ def banded_train_kernel_phase(model, batch, dev_line):
               f"warm, {lf:.4f} L2-flushed [{dev_line}]")
         if at_bf16:
             res[name].update(device_ms=kf, warm_ms=kw, library_device_ms=lf)
+
+    # an odd width: the narrow route of 7b, 8 and 8b
+    c5 = 5
+    for dt in (torch.float32, torch.bfloat16):
+        tag = "f32" if dt == torch.float32 else "bf16"
+        g_own, g_oth, rows = (torch.randn(e, c5, device=dev, generator=gen
+                                          ).to(dt) for _ in range(3))
+        g = torch.randn(n, c5, device=dev, generator=gen)
+        args = (g_own, g_oth, own, oth, nptr, tperm, tptr, n)
+        runs = [(bt.gather_bwd(*args), bt.scatter_own_fwd(rows, own, nptr, n),
+                 bt.scatter_own_bwd(g, own, dt)) for _ in range(2)]
+        dx, out, d_rows = runs[0]
+        torch.cuda.synchronize()
+        twice = all(torch.equal(a, b) for a, b in zip(*runs))
+        for name, got, terms, want, rounded in (
+                ("banded_gather_bwd", dx, [(g_own, ownl), (g_oth, othl)],
+                 bt.gather_bwd_plain(g_own, g_oth, own, oth, n),
+                 dt == torch.bfloat16),
+                ("banded_scatter_own", out, [(rows, ownl)],
+                 bt.scatter_own_plain(rows, own, n), False)):
+            err, ok, text = sum_check(got, terms, want, rounded)
+            print(f"kernel {name} {tag} C={c5}: max_abs_err={err:.3e} "
+                  f"({text}) {'ok' if ok and twice else 'FAIL'} "
+                  f"[{dev_line}]")
+            check(ok and twice and got.shape == (n, c5),
+                  f"{name} {tag} C={c5} disagrees")
+            res[name]["max_abs_err"] = max(res[name]["max_abs_err"], err)
+        ok = torch.equal(d_rows, bt.scatter_own_bwd_plain(g, own, dt))
+        print(f"kernel banded_scatter_own_bwd {tag} C={c5}: "
+              f"{'exact' if ok else 'FAIL'}, two runs bit-identical {twice} "
+              f"[{dev_line}]")
+        check(ok and twice, f"banded_scatter_own_bwd {tag} C={c5} disagrees")
 
     # an empty family: no launch, zero sums, empty gathers
     empty = plan_tensors(banded_plan(
@@ -2418,10 +2480,10 @@ def main() -> int:
                    "yolat_tpu_torch/csrc/banded_train.cu",
                    "yolat_tpu/ops/banded_train.py:294"),
                "banded_scatter_own": (
-                   "yolat_tpu_torch/csrc/banded_train.cu",
+                   "yolat_tpu_torch/csrc/edge_window_train.cu",
                    "yolat_tpu/ops/banded_train.py:257"),
                "banded_scatter_own_bwd": (
-                   "yolat_tpu_torch/csrc/banded_train.cu",
+                   "yolat_tpu_torch/csrc/edge_window_train.cu",
                    "yolat_tpu/ops/banded_train.py:319"),
                "edge_window_decomp": (
                    "yolat_tpu_torch/csrc/edge_window.cu",

@@ -39,6 +39,7 @@ Tolerances, kernel vs plain version on the same card and inputs:
     versions with float atomics in any order, over runs of up to 1500 rows:
     f32 |err| <= 1e-5 * (1 + |ref|) * sqrt(longest run); at bf16 7 backward
     rounds its f32 sum once — one output ulp (2^-7) over the same floor.
+    The same at an odd width (C = 5, the kernels' narrow route).
 """
 
 import numpy as np
@@ -651,9 +652,19 @@ def test_banded_train_wrappers_refuse_what_the_kernels_do_not_take(
         bt.banded_gather(x.half(), bm)
     with pytest.raises(TypeError, match="own"):
         bt.gather_fwd(x, bm.own.long(), bm.oth)
+    # an odd width is taken, as the JAX kernels take it: kernel 8 and 7b
+    # (their narrow route) against their plain versions
     rows = torch.randn(bm.n_edges, 5, device=dev)
-    with pytest.raises(ValueError, match="even width"):
-        bt.banded_scatter_own(rows, bm, n)
+    run = max(int(torch.bincount(bm.own.long()).max()),
+              int(torch.bincount(bm.oth.long()).max())) ** 0.5
+    want = bt.scatter_own_plain(rows, bm.own, n)
+    total = bt.banded_scatter_own(rows, bm, n)
+    assert bool(((total - want).abs() <= 1e-5 * (1 + want.abs()) * run).all())
+    g_oth = torch.randn_like(rows)
+    dx = bt.gather_bwd(rows, g_oth, bm.own, bm.oth, bm.nptr, bm.tperm,
+                       bm.tptr, n)
+    want = bt.gather_bwd_plain(rows, g_oth, bm.own, bm.oth, n)
+    assert bool(((dx - want).abs() <= 1e-5 * (1 + want.abs()) * run).all())
     with pytest.raises(TypeError, match="nptr"):
         bt.banded_scatter_own(rows[:, :4].contiguous(), bm, n + 1)
     cpu_plan = plan_tensors(banded_plan(edge, mask, attr, n, transpose=True))

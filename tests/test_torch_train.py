@@ -335,6 +335,45 @@ def test_resume_continues_from_the_right_epoch(tmp_path, synthetic_root):
         assert np.isfinite(second[k])
 
 
+def _jax_loss_means(losses, steps_per_epoch, print_freq):
+    """The LossMean values the JAX trainer logs (yolat_tpu/train/trainer.py,
+    `maybe_log` and the epoch's end) for these per-step losses: every
+    print_freq steps of an epoch the mean of the meter, which then resets;
+    an epoch's unlogged losses stay in the meter for the next log."""
+    means, meter = [], []
+    for e0 in range(0, len(losses), steps_per_epoch):
+        pending = []
+        for loss in losses[e0:e0 + steps_per_epoch]:
+            pending.append(loss)
+            if len(pending) >= print_freq:
+                meter += pending
+                pending = []
+                means.append(sum(meter) / len(meter))
+                meter = []
+        meter += pending
+    return means
+
+
+def test_loss_mean_carries_an_epochs_remainder_as_jax_does(tmp_path,
+                                                           synthetic_root):
+    """Two epochs of 3 steps (3 training files, batch 1) logged every 2
+    steps: the second epoch's LossMean holds the first epoch's third loss,
+    as the JAX trainer's meter does."""
+    cfg = Config(data_dir=synthetic_root, n_filters=8, batch_size=1,
+                 total_epochs=2, data_aug=False, print_freq=2)
+    exp = tmp_path / "exp"
+    _, res = run_training(cfg, "cpu", exp_dir=str(exp))
+    losses = res["losses"]
+    assert res["steps"] == len(losses) == 6
+    with open(exp / "exp.log") as f:
+        logged = [line.split("LossMean:")[1].split()[0]
+                  for line in f if "LossMean:" in line]
+    want = _jax_loss_means(losses, 3, 2)
+    assert logged == [f"{m:.4f}" for m in want]
+    # the rule the port had: the second log without the first epoch's rest
+    assert f"{(losses[3] + losses[4]) / 2:.4f}" != logged[1]
+
+
 def test_train_cli_on_cpu(tmp_path, synthetic_root, capsys):
     res = train_cli.main(["--data_dir", synthetic_root, "--device", "cpu",
                           "--n_filters", "8", "--batch_size", "2",

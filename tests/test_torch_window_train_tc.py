@@ -351,11 +351,18 @@ def _chip_smoke():
 
 
 def test_phase2_finds_each_row_kernel_instantiation():
+    """Each row kernel's four instantiations, in the anonymous namespace of
+    the source that defines it (the two sources include row_kernels.cuh,
+    each in its own namespace): kernels 9 and 10 in edge_window_train.cu,
+    7b in banded_train.cu."""
     cs = _chip_smoke()
     ns = "_ZN52_GLOBAL__N__0a1b2c3d_20_edge_window_train_cu_9e8f7a6b"
     fns = [f"{ns}15{k[0]}_kernelI{t}Lb{v}EEEvPKT_PKiS6_PS1_iiii"
            for k in (("pair_fwd",), ("pair_bwd",), ("wsum_fwd",), ("wsum_bwd",))
            for t in ("f", "13__nv_bfloat16") for v in (0, 1)]
+    ns = "_ZN50_GLOBAL__N__0a1b2c3d_15_banded_train_cu_9e8f7a6b"
+    fns += [f"{ns}17gather_bwd_kernelI{t}Lb{v}EEEvPKT_S4_PKiS6_S6_PS2_iiii"
+            for t in ("f", "13__nv_bfloat16") for v in (0, 1)]
     for name in cs.ROW_KERNELS:
         got = cs.functions_of(name, fns)
         assert len(got) == 4 and all(name in f for f in got), (name, got)

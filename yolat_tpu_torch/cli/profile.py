@@ -98,8 +98,7 @@ _OWN_KERNEL_RE = re.compile(
     r"|pair_fwd_kernel|pair_bwd_kernel"
     r"|wsum_fwd_kernel|wsum_bwd_kernel|banded_kernel|banded_tc_kernel"
     r"|sum_rows_by_perm_kernel"
-    r"|gather_pair_kernel|gather_bwd_kernel|scatter_own_kernel"
-    r"|scatter_own_bwd_kernel)(<[^>(]*>)?")
+    r"|gather_pair_kernel|gather_bwd_kernel)(<[^>(]*>)?")
 
 
 def nvidia_smi() -> str:

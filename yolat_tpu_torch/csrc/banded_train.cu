@@ -1,14 +1,14 @@
 // Trainable banded ops for sm_90a: the endpoint-row gather of one edge family
-// and the per-node sum of its rows at the sorted endpoint, each with its
-// backward (kernels 7, 7b, 8, 8b).
+// and its backward, the sum of the cotangents at both endpoints (kernels 7
+// and 7b). The per-node sum at the sorted endpoint and its backward
+// (kernels 8 and 8b) compute kernel 10's two functions over this plan and
+// run its kernels: their entries are in edge_window_train.cu.
 //
 // Replaces: yolat_tpu/ops/banded_train.py
 //   banded_gather       (_gather_kernel :64, pallas_call at :143; its VJP
 //                        _gather_bwd :294 = _scatter_call :216 twice, the
 //                        _scatter_kernel :157 with pallas_call at :257 and the
 //                        spill-tile combination at :264-272)
-//   banded_scatter_own  (_scatter_call with target_oth False; its VJP
-//                        _scatter_own_bwd :319 = _gather_impl, own_only)
 // over the plan of ops/plans.banded_plan(transpose=True): the family's E real
 // edges sorted by the endpoint `own`, absolute node rows own/oth [E], the
 // per-node offsets nptr [n + 1] of that list, and its transpose by the other
@@ -16,13 +16,11 @@
 //   7   x_own[r] = x[own r],  x_oth[r] = x[oth r]                  (x's type)
 //   7b  dx[v] = sum_{own r = v} g_own[r] + sum_{oth r = v} g_oth[r]
 //               (two f32 sums, added, rounded to x's type)
-//   8   out[v] = sum_{own r = v} rows[r]                           (f32)
-//   8b  d_rows[r] = round(g[own r])                                (rows' type)
 // Rounding follows the TPU kernels: a gathered row is a copy, exact in any
-// type (they return it in f32 and the caller rounds it back); every sum
-// accumulates in f32 over terms of the working type; 7b rounds once at the
-// end, after adding its two sums (:298-300); 8b rounds g before it gathers
-// (:324).
+// type (they return it in f32 and the caller rounds it back); 7b sums its
+// terms in f32, the own run in nptr order and the other run in tperm order,
+// each from 0, and rounds once at the end, after adding the two sums as
+// own + other (:298-300).
 //
 // What bounds them on the H100: bytes. Each moves O(E * C) values once and
 // adds at most once per value. The TPU kernels turn each gather and each sum
@@ -31,49 +29,46 @@
 // and collect the other endpoint's sums in spill tiles, because a TPU has no
 // fast row gather and no scatter. Hopper reads rows directly, so none of that
 // is carried over, and there is no masked row:
-//   * the gathers (7, 8b) are one thread per 16 bytes (7) or per element (8b)
-//     of the output, consecutive threads on consecutive addresses of one row;
-//   * the sums (8, 7b) take one warp per node: the clique family is
-//     lower-triangular all-pairs per proposal, so a node's run is anything
-//     from 0 to hundreds of rows, and a thread per (node, channel) would make
-//     a block wait for its longest node. A lane owns two neighbouring
-//     channels (one 4- or 8-byte load per row, a warp reads 128 or 256
-//     contiguous bytes), keeps four independent row loads in flight and adds
-//     them in list order: own rows are contiguous (nptr), other-endpoint rows
-//     come through tperm in ascending row order. A node's sum is formed by
-//     one warp in a fixed order, in registers: no float atomics,
+//   * 7, the gather: one thread per 16 bytes of the output where a row is a
+//     whole number of 16-byte units, else per element; consecutive threads on
+//     consecutive addresses of one row; 64-bit indices;
+//   * 7b, the sums, on the row kernels' routes (row_kernels.cuh). The clique
+//     family is lower-triangular all-pairs per proposal, so a node's runs
+//     are anything from 0 to tens of rows, and the time is set by chains of
+//     dependent misses (the offsets, the first tperm indices, then each
+//     step of a run) over the nodes in flight. On the 16-byte route a group
+//     of 2^lg lanes serves one node: it reads nptr[v], nptr[v + 1], tptr[v],
+//     tptr[v + 1] once by broadcast, then walks the own run (contiguous
+//     rows) and the other run (through tperm) side by side, STEP rows of
+//     each in flight before any is added, so that a node's chain is its
+//     longer run over STEP. The next STEP tperm indices are loaded before
+//     the current rows are added, and kept as loaded until the next step
+//     forms its addresses: clamping them right after the load let the
+//     compiler wait for the index before requesting the rows. A lane keeps
+//     K f32 accumulators per sum and stores one 16-byte piece. Rows in
+//     flight per lane set the time more than threads in flight: two rows a
+//     step, or the two runs one after the other, read slower at full
+//     occupancy; so 7b runs 128-thread blocks with registers enough for
+//     its rows in flight (bwd_blocks). The narrow route is one thread per node and a loop over the
+//     channels. A node's sums are formed by one lane (per piece) or one
+//     thread in a fixed order, in registers: no float atomics,
 //     bit-identical across runs, and every output row is written once.
-#include <stdint.h>
-
-#include "common.cuh"
+#include "row_kernels.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
-constexpr int MAX_BLOCKS = 132 * 64;
-constexpr int UNROLL = 4;  // row loads a lane keeps in flight
+constexpr int GATHER_MAX_BLOCKS = 132 * 64;
+// 7b: rows of each run a lane keeps in flight, and its blocks: 128 threads,
+// 7 blocks a SM at bf16 (72 registers a thread, which its 16-byte route
+// needs without a spill) and 8 at f32 (64: left unbounded, ptxas gives the
+// f32 route 40 and fewer rows in flight)
+constexpr int STEP = 4;
+constexpr int BWD_THREADS = 128;
+template <typename T> constexpr int bwd_blocks() { return sizeof(T) == 2 ? 7 : 8; }
 
-int blocks_for(long total, int per_block) {
-  long b = (total + per_block - 1) / per_block;
-  return (int)(b < 1 ? 1 : (b > MAX_BLOCKS ? MAX_BLOCKS : b));
-}
-
-__device__ __forceinline__ int clampi(int v, int hi) { return min(max(v, 0), hi); }
-
-template <typename T> __device__ __forceinline__ float2 load2(const T* p);
-template <> __device__ __forceinline__ float2 load2<float>(const float* p) {
-  return *reinterpret_cast<const float2*>(p);
-}
-template <> __device__ __forceinline__ float2 load2<__nv_bfloat16>(const __nv_bfloat16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
-
-__device__ __forceinline__ void store2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+int gather_blocks(long total) {
+  long b = (total + THREADS - 1) / THREADS;
+  return (int)(b < 1 ? 1 : (b > GATHER_MAX_BLOCKS ? GATHER_MAX_BLOCKS : b));
 }
 
 // Kernel 7. V is the copy unit: uint4 when a row is a whole number of
@@ -93,89 +88,99 @@ __global__ void __launch_bounds__(THREADS) gather_pair_kernel(
   }
 }
 
-// The f32 sums of channels k, k + 1 over rows[row(i)] for i in [p0, p1), in
-// that order; row(i) = perm[i], or i without a permutation.
-template <typename T, bool PERM>
-__device__ __forceinline__ float2 sum_rows(const T* __restrict__ rows,
-                                           const int* __restrict__ perm, int p0, int p1,
-                                           int e, int c, int k) {
-  float2 acc = make_float2(0.f, 0.f);
-  int i = p0;
-  for (; i + UNROLL <= p1; i += UNROLL) {
-    float2 v[UNROLL];
-#pragma unroll
-    for (int j = 0; j < UNROLL; ++j) {
-      const int r = PERM ? clampi(perm[i + j], e - 1) : i + j;
-      v[j] = load2<T>(rows + (size_t)r * c + k);
-    }
-#pragma unroll
-    for (int j = 0; j < UNROLL; ++j) {
-      acc.x += v[j].x;
-      acc.y += v[j].y;
-    }
-  }
-  for (; i < p1; ++i) {
-    const int r = PERM ? clampi(perm[i], e - 1) : i;
-    const float2 v = load2<T>(rows + (size_t)r * c + k);
-    acc.x += v.x;
-    acc.y += v.y;
-  }
-  return acc;
-}
-
-// Kernel 8: one warp per node, c even.
-template <typename T>
-__global__ void __launch_bounds__(THREADS) scatter_own_kernel(
-    const T* __restrict__ rows, const int* __restrict__ nptr, float* __restrict__ out,
-    int n, int e, int c) {
-  const int lane = threadIdx.x & 31;
-  const int warps = gridDim.x * WARPS;
-  for (int v = blockIdx.x * WARPS + (threadIdx.x >> 5); v < n; v += warps) {
-    const int p0 = clampi(nptr[v], e), p1 = clampi(nptr[v + 1], e);
-    for (int k = 2 * lane; k < c; k += 64) {
-      const float2 s = sum_rows<T, false>(rows, nullptr, p0, p1, e, c, k);
-      store2(out + (size_t)v * c + k, s.x, s.y);
-    }
-  }
-}
-
-// Kernel 7b: one warp per node, c even; the own-endpoint sum over the node's
-// run of the sorted list, the other-endpoint sum through the transpose.
-template <typename T>
-__global__ void __launch_bounds__(THREADS) gather_bwd_kernel(
+// Kernel 7b; lg: log2 of the lanes a node's group has (16-byte route). Rows
+// are clamped into range for memory safety only: banded_plan rejects
+// endpoints outside [0, n).
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(BWD_THREADS, bwd_blocks<T>()) gather_bwd_kernel(
     const T* __restrict__ g_own, const T* __restrict__ g_oth,
     const int* __restrict__ nptr, const int* __restrict__ tperm,
-    const int* __restrict__ tptr, T* __restrict__ dx, int n, int e, int c) {
-  const int lane = threadIdx.x & 31;
-  const int warps = gridDim.x * WARPS;
-  for (int v = blockIdx.x * WARPS + (threadIdx.x >> 5); v < n; v += warps) {
-    const int p0 = clampi(nptr[v], e), p1 = clampi(nptr[v + 1], e);
-    const int t0 = clampi(tptr[v], e), t1 = clampi(tptr[v + 1], e);
-    for (int k = 2 * lane; k < c; k += 64) {
-      const float2 a = sum_rows<T, false>(g_own, nullptr, p0, p1, e, c, k);
-      const float2 b = sum_rows<T, true>(g_oth, tperm, t0, t1, e, c, k);
-      store2(dx + (size_t)v * c + k, a.x + b.x, a.y + b.y);
+    const int* __restrict__ tptr, T* __restrict__ dx, int n, int e, int c, int lg) {
+  if constexpr (VEC) {
+    constexpr int K = Piece<T>::K;
+    const int p = c / K, pc = threadIdx.x & ((1 << lg) - 1);
+    const int per = BWD_THREADS >> lg;
+    const uint4* own_in = reinterpret_cast<const uint4*>(g_own) + pc;
+    const uint4* oth_in = reinterpret_cast<const uint4*>(g_oth) + pc;
+    for (int v = blockIdx.x * per + (threadIdx.x >> lg); v < n; v += gridDim.x * per) {
+      if (pc >= p) continue;
+      int i = clampi(__ldg(nptr + v), e), q = clampi(__ldg(tptr + v), e);
+      const int i1 = clampi(__ldg(nptr + v + 1), e), q1 = clampi(__ldg(tptr + v + 1), e);
+      // the other run's next rows, as loaded: each is clamped where the
+      // next step forms its address, so that no instruction waits for the
+      // index before this step's rows are requested (a clamp right after
+      // the load let the compiler do just that: two misses a step)
+      int r[STEP];
+#pragma unroll
+      for (int j = 0; j < STEP; ++j) r[j] = q + j < q1 ? __ldg(tperm + q + j) : 0;
+      float a[K], b[K];
+#pragma unroll
+      for (int k = 0; k < K; ++k) a[k] = b[k] = 0.f;
+      for (; i < i1 || q < q1; i += STEP, q += STEP) {
+        uint4 ga[STEP], gb[STEP];
+#pragma unroll
+        for (int j = 0; j < STEP; ++j) {
+          ga[j] = i + j < i1 ? ld16(own_in + (i + j) * p) : make_uint4(0, 0, 0, 0);
+          gb[j] = q + j < q1 ? ld16(oth_in + clampi(r[j], e - 1) * p) : make_uint4(0, 0, 0, 0);
+        }
+        // the next rows' indices before these rows are added
+#pragma unroll
+        for (int j = 0; j < STEP; ++j)
+          r[j] = q + STEP + j < q1 ? __ldg(tperm + q + STEP + j) : 0;
+#pragma unroll
+        for (int j = 0; j < STEP; ++j) {
+          if (i + j < i1) add_piece<T>(a, ga[j]);
+          if (q + j < q1) add_piece<T>(b, gb[j]);
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < K; ++k) a[k] += b[k];
+      reinterpret_cast<uint4*>(dx)[v * p + pc] = pack<T>(a);
+    }
+  } else {
+    constexpr int CH = 8;  // channels a thread sums at once
+    for (int v = blockIdx.x * BWD_THREADS + threadIdx.x; v < n;
+         v += gridDim.x * BWD_THREADS) {
+      const int i0 = clampi(nptr[v], e), i1 = clampi(nptr[v + 1], e);
+      const int q0 = clampi(tptr[v], e), q1 = clampi(tptr[v + 1], e);
+      for (int k0 = 0; k0 < c; k0 += CH) {
+        float a[CH], b[CH];
+#pragma unroll
+        for (int j = 0; j < CH; ++j) a[j] = b[j] = 0.f;
+        for (int i = i0; i < i1; ++i) {
+          const T* row = g_own + i * c + k0;
+#pragma unroll
+          for (int j = 0; j < CH; ++j)
+            if (k0 + j < c) a[j] += yk::to_f(row[j]);
+        }
+        for (int q = q0; q < q1; ++q) {
+          const T* row = g_oth + clampi(tperm[q], e - 1) * c + k0;
+#pragma unroll
+          for (int j = 0; j < CH; ++j)
+            if (k0 + j < c) b[j] += yk::to_f(row[j]);
+        }
+#pragma unroll
+        for (int j = 0; j < CH; ++j)
+          if (k0 + j < c) dx[v * c + k0 + j] = yk::from_f<T>(a[j] + b[j]);
+      }
     }
   }
 }
 
-// Kernel 8b: one thread per output element.
 template <typename T>
-__global__ void __launch_bounds__(THREADS) scatter_own_bwd_kernel(
-    const float* __restrict__ g, const int* __restrict__ own, T* __restrict__ out,
-    int n, int e, int c) {
-  const long total = (long)e * c;
-  const long stride = (long)gridDim.x * THREADS;
-  for (long i = (long)blockIdx.x * THREADS + threadIdx.x; i < total; i += stride) {
-    const int r = (int)(i / c), k = (int)(i - (long)r * c);
-    out[i] = yk::from_f<T>(g[(size_t)clampi(own[r], n - 1) * c + k]);
-  }
+int gather_bwd(const void* g_own, const void* g_oth, const void* nptr, const void* tperm,
+               const void* tptr, void* dx, int n, int e, int c, cudaStream_t st) {
+  return launch<T, BWD_THREADS>(gather_bwd_kernel<T, true>, gather_bwd_kernel<T, false>,
+                   {g_own, g_oth, dx}, n, n, c, st, static_cast<const T*>(g_own),
+                   static_cast<const T*>(g_oth), static_cast<const int*>(nptr),
+                   static_cast<const int*>(tperm), static_cast<const int*>(tptr),
+                   static_cast<T*>(dx), n, e, c);
 }
 
 template <typename V>
 int launch_gather(const void* x, const void* own, const void* oth, void* out_own,
                   void* out_oth, int n, int e, int vpr, cudaStream_t st) {
-  gather_pair_kernel<V><<<blocks_for((long)e * vpr, THREADS), THREADS, 0, st>>>(
+  gather_pair_kernel<V><<<gather_blocks((long)e * vpr), THREADS, 0, st>>>(
       static_cast<const V*>(x), static_cast<const int*>(own),
       static_cast<const int*>(oth), static_cast<V*>(out_own),
       static_cast<V*>(out_oth), n, e, vpr);
@@ -204,57 +209,13 @@ int yk_banded_gather(const void* x, const void* own, const void* oth, void* out_
 }
 
 // Kernel 7b. g_own/g_oth [e, c] (f32 or bf16); nptr/tptr [n + 1] i32; tperm
-// [e] i32; dx [n, c] in g's type. c must be even.
+// [e] i32; dx [n, c] in g's type.
 int yk_banded_gather_bwd(const void* g_own, const void* g_oth, const void* nptr,
                          const void* tperm, const void* tptr, void* dx, int n, int e,
                          int c, int bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int blocks = blocks_for(n, WARPS);
-  if (bf16)
-    gather_bwd_kernel<__nv_bfloat16><<<blocks, THREADS, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(g_own), static_cast<const __nv_bfloat16*>(g_oth),
-        static_cast<const int*>(nptr), static_cast<const int*>(tperm),
-        static_cast<const int*>(tptr), static_cast<__nv_bfloat16*>(dx), n, e, c);
-  else
-    gather_bwd_kernel<float><<<blocks, THREADS, 0, st>>>(
-        static_cast<const float*>(g_own), static_cast<const float*>(g_oth),
-        static_cast<const int*>(nptr), static_cast<const int*>(tperm),
-        static_cast<const int*>(tptr), static_cast<float*>(dx), n, e, c);
-  return (int)cudaGetLastError();
-}
-
-// Kernel 8. rows [e, c] (f32 or bf16); nptr [n + 1] i32; out [n, c] f32. c
-// must be even.
-int yk_banded_scatter_own(const void* rows, const void* nptr, void* out, int n, int e,
-                          int c, int bf16, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int blocks = blocks_for(n, WARPS);
-  if (bf16)
-    scatter_own_kernel<__nv_bfloat16><<<blocks, THREADS, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(rows), static_cast<const int*>(nptr),
-        static_cast<float*>(out), n, e, c);
-  else
-    scatter_own_kernel<float><<<blocks, THREADS, 0, st>>>(
-        static_cast<const float*>(rows), static_cast<const int*>(nptr),
-        static_cast<float*>(out), n, e, c);
-  return (int)cudaGetLastError();
-}
-
-// Kernel 8b. g [n, c] f32; own [e] i32; out [e, c] (f32, or bf16 when
-// bf16 != 0).
-int yk_banded_scatter_own_bwd(const void* g, const void* own, void* out, int n, int e,
-                              int c, int bf16, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int blocks = blocks_for((long)e * c, THREADS);
-  if (bf16)
-    scatter_own_bwd_kernel<__nv_bfloat16><<<blocks, THREADS, 0, st>>>(
-        static_cast<const float*>(g), static_cast<const int*>(own),
-        static_cast<__nv_bfloat16*>(out), n, e, c);
-  else
-    scatter_own_bwd_kernel<float><<<blocks, THREADS, 0, st>>>(
-        static_cast<const float*>(g), static_cast<const int*>(own),
-        static_cast<float*>(out), n, e, c);
-  return (int)cudaGetLastError();
+  return bf16 ? gather_bwd<__nv_bfloat16>(g_own, g_oth, nptr, tperm, tptr, dx, n, e, c, st)
+              : gather_bwd<float>(g_own, g_oth, nptr, tperm, tptr, dx, n, e, c, st);
 }
 
 }  // extern "C"

@@ -1,6 +1,7 @@
 // Trainable edge-window ops for sm_90a: the pair-feature gather and the
 // per-destination sum of the canonical conv's window layout, each with its
-// backward.
+// backward (kernels 9 and 10); and, on kernel 10's two bodies, the per-node
+// sum of the banded training route and its backward (kernels 8 and 8b).
 //
 // Replaces: yolat_tpu/ops/edge_window_train.py
 //   ew_pair_features          (_pair_fwd, pallas_call at :127; _pair_bwd, :153)
@@ -14,6 +15,13 @@
 //                        + sum_{src e = v} dg1[e]                 (x's type)
 //   sum forward    out[v] = sum_{dst e = v} h[e]                  (f32)
 //   sum backward   dh[e] = g[dst e]                               (h's type)
+// and yolat_tpu/ops/banded_train.py
+//   banded_scatter_own  (_scatter_call with target_oth False, pallas_call at
+//                        :257; its VJP _scatter_own_bwd :319 = _gather_impl,
+//                        own only)
+// which computes the same two functions over the banded plan
+// (ops/plans.banded_plan): the rows sorted by `own` with offsets nptr in
+// place of dst and dptr, so its entries launch the same kernels.
 // Rounding follows the TPU kernels: x_j - x_i is taken in x's type;
 // dg0 - dg1 is taken in dg's type before the f32 sum; dx is rounded to x's
 // type at the end; the sum accumulates and returns f32; its backward rounds
@@ -22,7 +30,8 @@
 //
 // What bounds them on the H100: bytes. Each moves O(E * C) values once and
 // does at most one add per value; there is no product, so nothing for the
-// tensor cores, and TMA has no row gather. The TPU kernels turn every gather
+// tensor cores, and TMA has no row gather (row_kernels.cuh holds the pieces
+// and the choice of route). The TPU kernels turn every gather
 // and its transpose into one-hot MXU contractions over a 3-window band of
 // capacity-padded windows, because a TPU has no fast row gather and no
 // scatter; Hopper reads rows directly, over the real edges only. The design
@@ -48,58 +57,9 @@
 // Every output row is written once, by one group or thread, in a fixed
 // order: no float atomics, bit-identical across runs and to the one-thread-
 // per-element kernels this design replaced.
-#include <stdint.h>
-
-#include <initializer_list>
-
-#include "common.cuh"
+#include "row_kernels.cuh"
 
 namespace {
-
-constexpr int THREADS = 256;
-constexpr int MAX_BLOCKS = 132 * 16;
-
-int blocks_for(int rows, int per_block) {
-  const int b = (rows + per_block - 1) / per_block;
-  return b < 1 ? 1 : (b > MAX_BLOCKS ? MAX_BLOCKS : b);
-}
-
-__device__ __forceinline__ int clampi(int v, int hi) { return min(max(v, 0), hi); }
-
-// ---- 16-byte pieces: K = 16 / sizeof(T) channels ----
-
-template <typename T> struct Piece {
-  static constexpr int K = 16 / (int)sizeof(T);
-};
-
-__device__ __forceinline__ uint4 ld16(const uint4* p) { return __ldg(p); }
-
-__device__ __forceinline__ void unpack(const uint4& v, float (&f)[4]) {
-  f[0] = __uint_as_float(v.x);
-  f[1] = __uint_as_float(v.y);
-  f[2] = __uint_as_float(v.z);
-  f[3] = __uint_as_float(v.w);
-}
-// bf16 -> f32 is exact: the bf16 bits are the high half of the float
-__device__ __forceinline__ void unpack(const uint4& v, float (&f)[8]) {
-  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    f[2 * i] = __uint_as_float(w[i] << 16);
-    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-  }
-}
-
-template <typename T> __device__ __forceinline__ uint4 pack(const float (&f)[Piece<T>::K]);
-template <> __device__ __forceinline__ uint4 pack<float>(const float (&f)[4]) {
-  return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]),
-                    __float_as_uint(f[2]), __float_as_uint(f[3]));
-}
-// round to nearest even, as yk::from_f
-template <> __device__ __forceinline__ uint4 pack<__nv_bfloat16>(const float (&f)[8]) {
-  return make_uint4(yk::bf16_pair(f[0], f[1]), yk::bf16_pair(f[2], f[3]),
-                    yk::bf16_pair(f[4], f[5]), yk::bf16_pair(f[6], f[7]));
-}
 
 // acc += round_to<T>(a - b), channel by channel
 template <typename T>
@@ -110,14 +70,6 @@ __device__ __forceinline__ void add_diff(float (&acc)[Piece<T>::K], const uint4&
   unpack(b, fb);
 #pragma unroll
   for (int k = 0; k < Piece<T>::K; ++k) acc[k] += yk::round_to<T>(fa[k] - fb[k]);
-}
-
-template <typename T>
-__device__ __forceinline__ void add_piece(float (&acc)[Piece<T>::K], const uint4& a) {
-  float fa[Piece<T>::K];
-  unpack(a, fa);
-#pragma unroll
-  for (int k = 0; k < Piece<T>::K; ++k) acc[k] += fa[k];
 }
 
 // ---- the kernels: VEC the 16-byte route, else the narrow route ----
@@ -310,33 +262,6 @@ __global__ void __launch_bounds__(THREADS) wsum_bwd_kernel(
   }
 }
 
-// The 16-byte route's group: pieces p = c / K per row (K channels a piece),
-// 1 <= p <= 32, lanes 2^lg >= p. False where a row of c values is not such.
-template <typename T> bool vector_shape(int c, int* lg) {
-  constexpr int K = Piece<T>::K;
-  if (c % K != 0 || c / K < 1 || c / K > 32) return false;
-  *lg = 0;
-  while ((1 << *lg) < c / K) ++*lg;
-  return true;
-}
-
-// Launch a kernel of this file on the 16-byte route where c makes a row
-// whole pieces and every value array in `vals` starts on a 16-byte boundary
-// (one group of 2^lg lanes per row), else on the narrow route (`items`
-// threads: rows, or kernel 9 forward's row elements).
-template <typename T, typename KV, typename KN, typename... A>
-int launch(KV vec_kernel, KN narrow_kernel, std::initializer_list<const void*> vals,
-           int rows, int items, int c, cudaStream_t st, A... args) {
-  int lg;
-  bool vec = vector_shape<T>(c, &lg);
-  for (const void* p : vals) vec = vec && yk::aligned16(p);
-  if (vec)
-    vec_kernel<<<blocks_for(rows, THREADS >> lg), THREADS, 0, st>>>(args..., lg);
-  else
-    narrow_kernel<<<blocks_for(items, THREADS), THREADS, 0, st>>>(args..., 0);
-  return (int)cudaGetLastError();
-}
-
 template <typename T>
 int pair_fwd(const void* x, const void* src, const void* dst, void* g, int n,
              int e, int c, cudaStream_t st) {
@@ -409,6 +334,20 @@ int yk_ew_wsum_bwd(const void* g, const void* dst, void* dh, int n, int e,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return bf16 ? wsum_bwd<__nv_bfloat16>(g, dst, dh, n, e, c, st)
               : wsum_bwd<float>(g, dst, dh, n, e, c, st);
+}
+
+// Kernel 8 (banded_scatter_own): kernel 10's forward over the banded plan.
+// rows [e, c] (f32 or bf16); nptr [n + 1] i32; out [n, c] f32.
+int yk_banded_scatter_own(const void* rows, const void* nptr, void* out, int n,
+                          int e, int c, int bf16, void* stream) {
+  return yk_ew_wsum_fwd(rows, nptr, out, n, e, c, bf16, stream);
+}
+
+// Kernel 8b (its VJP): kernel 10's backward with `own` for dst. g [n, c]
+// f32; own [e] i32; out [e, c] (f32, or bf16 when bf16 != 0).
+int yk_banded_scatter_own_bwd(const void* g, const void* own, void* out, int n,
+                              int e, int c, int bf16, void* stream) {
+  return yk_ew_wsum_bwd(g, own, out, n, e, c, bf16, stream);
 }
 
 }  // extern "C"

@@ -31,7 +31,7 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "yolat_tpu_torch")
 SOURCES = ("edge_window.cu", "block_max.cu", "fused_pool_train.cu",
            "edge_window_train.cu", "dense_message.cu", "banded_message.cu",
            "banded_train.cu")
-HEADERS = ("common.cuh",)
+HEADERS = ("common.cuh", "row_kernels.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 

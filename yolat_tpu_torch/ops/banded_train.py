@@ -31,11 +31,15 @@ its cotangents in x's type, forms the two sums in f32, adds them and
 rounds once (:298-300); the sum accumulates and returns f32; its backward
 rounds g to the rows' type (:324).
 
-Each of the four wrappers launches its CUDA kernel (`csrc/banded_train.cu`)
-for CUDA tensors and runs its plain version for CPU tensors; any other
-device raises. A comparison of a kernel with its plain version calls
-`gather_plain`, `gather_bwd_plain`, `scatter_own_plain` or
-`scatter_own_bwd_plain` directly.
+Each of the four wrappers launches its CUDA kernel for CUDA tensors and runs
+its plain version for CPU tensors; any other device raises. Kernels 7 and 7b
+are in `csrc/banded_train.cu`; the sum and its backward (8, 8b) are kernel
+10's two functions over this plan and run its kernels
+(`csrc/edge_window_train.cu`). A comparison of a kernel with its plain
+version calls `gather_plain`, `gather_bwd_plain`, `scatter_own_plain` or
+`scatter_own_bwd_plain` directly. The kernels take any width and pick their
+route themselves: 16-byte pieces of a row where the row and the value
+arrays allow it, else narrower loads; either route returns the same bits.
 """
 
 from __future__ import annotations
@@ -43,6 +47,7 @@ from __future__ import annotations
 import torch
 
 from yolat_tpu_torch.ops import _build
+from yolat_tpu_torch.ops.edge_window_train import _check_int31
 
 _FLOATS = (torch.float32, torch.bfloat16)
 
@@ -91,19 +96,13 @@ def _index(name: str, t, length: int, ref):
 
 
 def _rows(name: str, t, shape, ref):
-    """A contiguous, 16-byte aligned [E, C] operand of ref's type."""
+    """A contiguous [E, C] operand of ref's type (a view off a 16-byte
+    boundary stays so: the kernel then takes its narrow route)."""
     if t.dtype != ref.dtype or t.device != ref.device \
             or tuple(t.shape) != tuple(shape):
         raise TypeError(f"{name}: {t.dtype} {tuple(t.shape)} on {t.device}, "
                         f"want {ref.dtype} {tuple(shape)} on {ref.device}")
-    t = t.contiguous()
-    return t if t.data_ptr() % 16 == 0 else t.clone()
-
-
-def _even(name: str, c: int) -> None:
-    if c % 2:
-        raise ValueError(f"{name}: width {c}; the kernel sums channel pairs "
-                         "and needs an even width")
+    return t.contiguous()
 
 
 def gather_fwd(x, own, oth):
@@ -137,7 +136,7 @@ def gather_bwd(g_own, g_oth, own, oth, nptr, tperm, tptr, n: int):
     e, c = g_own.shape
     if e == 0 or n == 0 or c == 0:
         return torch.zeros(n, c, dtype=g_own.dtype, device=g_own.device)
-    _even("banded_gather_bwd", c)
+    _check_int31("banded_gather_bwd", e * c, n * c)
     nptr = _index("nptr", nptr, n + 1, g_own)
     tperm = _index("tperm", tperm, e, g_own)
     tptr = _index("tptr", tptr, n + 1, g_own)
@@ -161,7 +160,7 @@ def scatter_own_fwd(rows, own, nptr, n: int):
     e, c = rows.shape
     if e == 0 or n == 0 or c == 0:
         return torch.zeros(n, c, dtype=torch.float32, device=rows.device)
-    _even("banded_scatter_own", c)
+    _check_int31("banded_scatter_own", e * c, n * c)
     nptr = _index("nptr", nptr, n + 1, rows)
     rows = _rows("rows", rows, (e, c), rows)
     out = torch.empty(n, c, dtype=torch.float32, device=rows.device)
@@ -184,6 +183,7 @@ def scatter_own_bwd(g, own, dtype):
     n, c = g.shape
     e = own.shape[0]
     own = _index("own", own, e, g)
+    _check_int31("banded_scatter_own_bwd", e * c, n * c)
     out = torch.empty(e, c, dtype=dtype, device=g.device)
     if e == 0 or c == 0:
         return out

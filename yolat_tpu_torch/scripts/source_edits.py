@@ -5,7 +5,8 @@ library calls for `chip_smoke.py` (`profiled_calls`), warm and L2-flushed.
 
 An edit list is `((variant, source, ((file, statement, replacement), ...)),
 ...)`: `source` is the file under `csrc/` that nvcc compiles, and each
-statement is replaced in `file` (`source` or `common.cuh`). A statement must
+statement is replaced in `file` (`source` or one of the headers,
+`_build.HEADERS`). A statement must
 occur exactly once, so an edit of a kernel that moves it fails here first; a
 statement that is a pair is a span, from its first part up to, not
 including, its second. A variant with no statements is the source as it is.
@@ -23,12 +24,13 @@ from yolat_tpu_torch.ops import _build
 
 
 def variant_sources(edits) -> dict:
-    """{variant: (source, {file name: text})}: the source and common.cuh with
-    the variant's statements replaced; raises unless each occurs once."""
+    """{variant: (source, {file name: text})}: the source and the headers
+    with the variant's statements replaced; raises unless each occurs
+    once."""
     out = {}
     for name, source, changes in edits:
         files = {}
-        for fn in (source, "common.cuh"):
+        for fn in (source, *_build.HEADERS):
             with open(os.path.join(_build.CSRC, fn)) as f:
                 files[fn] = f.read()
         for fn, old, new in changes:

@@ -164,9 +164,12 @@ def run_training(cfg, device, exp_dir: str | None = None,
                 losses.reset()
             if done:
                 break
+        # the epoch's unlogged losses go into the meter too, so the next
+        # epoch's first LossMean holds them, as the JAX trainer's does
         for it_i, loss in pending:
-            history.append(float(loss))
-            writer.add_scalar("loss", history[-1], it_i)
+            losses.update(float(loss))
+            history.append(losses.val)
+            writer.add_scalar("loss", losses.val, it_i)
         _sync(device)
         train_seconds += time.perf_counter() - t0
 
