@@ -156,7 +156,25 @@ no jax. Phases, each of which raises on failure (non-zero exit):
      over 40 calls after 3 unprofiled ones, three rounds, in turns; not its
      source edits, which run only when the probe runs as a program) prints
      its line, on the same N and E, every time finite and kernel 1 not
-     launched.
+     launched;
+ 18. host stage: the host geometry library (`geom/_native.py`, g++ over
+     yolat_tpu_torch/csrc/geomcore.cpp at first use, before phase 3; its
+     path, build time and compiler version printed here); the 8 SVGs of
+     phase 4 loaded cold (graph, proposals, cache write) in two fresh
+     copies, once through the library and once on the numpy paths
+     (`_native.disabled()`): every integer array of the graph and the
+     proposal set equal, every float within rtol 1e-9, atol 1e-8;
+     CompactFile, canonical and with the super family, bit-equal between
+     the paths; median ms per image of each path, and median CompactFile
+     ms per variant and path (warm, the paths in turns); the entries the loads do not reach
+     (enumerate_rect_sets, build_rect_proposals, angle_stats,
+     compact_sort_align) held to their numpy versions on the largest CC of
+     a bench file, so every entry was called; the count of per-call numpy
+     cases; `cli.preprocess --workers 2 --hierarchical` over cold copies of
+     phase 6's splits with the stats.pkl of `--workers 0` and one .hier
+     pickle per file; `cli.infer --preproc_workers 2` on phase 4's SVGs
+     and checkpoint with phase 4's records and kernels 1 and 2 launched;
+     the host's core count and the card's name and power limit.
 Everything it runs comes from yolat_tpu_torch, the synthetic SVG writer
 included: it imports neither jax nor the JAX package yolat_tpu.
 The kernels line (a JSON object describing each kernel; launches are
@@ -186,6 +204,7 @@ the library call's L2-flushed profiler time.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
@@ -2290,6 +2309,244 @@ PROBE_CHILD = ("import json\n"
                "print(json.dumps(dict(_build.launch_counts)))\n")
 
 
+# phase 18: the tolerance of the JAX package's own native-vs-numpy loads
+# (tests/test_native.py: the angle statistics' std is a one-pass variance
+# in C++)
+HOST_RTOL, HOST_ATOL = 1e-9, 1e-8
+
+
+def _host_close(got, want, path: str) -> None:
+    """Integer arrays equal, floats within HOST_RTOL / HOST_ATOL, the same
+    structure."""
+    import numpy as np
+
+    if isinstance(want, dict):
+        check(set(got) == set(want), f"{path}: keys {sorted(got)}")
+        for k in want:
+            _host_close(got[k], want[k], f"{path}/{k}")
+    elif isinstance(want, (list, tuple)):
+        check(len(got) == len(want), f"{path}: {len(got)} != {len(want)}")
+        for i, (a, b) in enumerate(zip(got, want)):
+            _host_close(a, b, f"{path}[{i}]")
+    else:
+        a, b = np.asarray(got), np.asarray(want)
+        check(a.shape == b.shape, f"{path}: shape {a.shape} != {b.shape}")
+        if np.issubdtype(b.dtype, np.floating):
+            check(np.allclose(a, b, rtol=HOST_RTOL, atol=HOST_ATOL),
+                  f"{path}: max |diff| {np.abs(a - b).max()}")
+        else:
+            check(np.array_equal(a, b), f"{path}: integers differ")
+
+
+def _identical(got, want, path: str) -> None:
+    import numpy as np
+
+    if isinstance(want, (list, tuple)):
+        check(len(got) == len(want), f"{path}: {len(got)} != {len(want)}")
+        for i, (a, b) in enumerate(zip(got, want)):
+            _identical(a, b, f"{path}[{i}]")
+        return
+    a, b = np.asarray(got), np.asarray(want)
+    check(a.dtype == b.dtype and a.shape == b.shape
+          and np.array_equal(a, b), f"{path}: not bit-equal")
+
+
+def _cold_copy(src: str, dst: str) -> str:
+    """The manifests, SVGs and annotations of `src`, without caches."""
+    shutil.copytree(src, dst, ignore=shutil.ignore_patterns("*.pkl"))
+    return dst
+
+
+def _largest_cc(graph):
+    """Positions, shape edges and super edges of a graph's largest CC,
+    CC-local, control nodes dropped (as generate_proposals takes them)."""
+    import numpy as np
+
+    ctrl = np.asarray(graph["attr"]["is_control"]).reshape(-1) > 0.5
+    o2n = np.cumsum(~ctrl) - 1
+    pos = np.asarray(graph["pos"], np.float64)[~ctrl]
+    cl = np.unique(o2n[np.asarray(max(graph["cc"], key=len), np.int64)])
+    in_cc = np.zeros(len(pos), bool)
+    in_cc[cl] = True
+
+    def local(e):
+        e = o2n[np.asarray(e, np.int64).reshape(-1, 2)]
+        return np.searchsorted(cl, e[in_cc[e[:, 0]] & in_cc[e[:, 1]]])
+
+    return pos[cl], local(graph["edge"]["shape"]), local(graph["edge"]["super"])
+
+
+def _other_entries(graph, step: int) -> None:
+    """The entries the loads do not reach, each against its numpy version
+    on the largest CC of one file."""
+    import numpy as np
+
+    from yolat_tpu_torch.data.packing import _align_runs
+    from yolat_tpu_torch.geom import _native
+    from yolat_tpu_torch.geom import proposals as pr
+    from yolat_tpu_torch.ops.plans import SUPER_BLOCK
+
+    pos, edges, supers = _largest_cc(graph)
+    sets = pr._enumerate_subclusters(pos, step)
+    cores = pr._cc_proposal_cores(pos, step, edges, supers)
+    check(len(sets) == len(cores) > 0, "windows of the largest CC")
+    angles = []
+    for ids, erows, _ in cores[:64]:
+        if len(erows):
+            angles.append((len(ids), np.searchsorted(ids, edges[erows]),
+                           pos[ids]))
+    got_angles = [pr._angle_stats(*a) for a in angles]
+    so = np.argsort(supers[:, 1], kind="stable")
+    attr = np.random.default_rng(0).normal(size=(len(supers), 6))
+    old2new = np.arange(len(pos), dtype=np.int64) * 2
+    csa = _native.compact_sort_align_native(supers, attr, old2new,
+                                            SUPER_BLOCK)
+    with _native.disabled():
+        _identical(sets, pr._enumerate_subclusters(pos, step),
+                   "enumerate_rect_sets")
+        _identical(cores, pr._cc_proposal_cores(pos, step, edges, supers),
+                   "build_rect_proposals")
+        want_angles = [pr._angle_stats(*a) for a in angles]
+    check(len(angles) > 0, "windows with shape edges")
+    _host_close([g or {} for g in got_angles],
+                [w or {} for w in want_angles], "angle_stats")
+    _identical(csa, _align_runs(
+        old2new[supers[so]].astype(np.int32),
+        attr[so, :4].astype(np.float32), SUPER_BLOCK), "compact_sort_align")
+    print(f"host: the largest CC of one file ({len(pos)} points, "
+          f"{len(edges)} shape and {len(supers)} super edges): "
+          f"{len(sets)} windows, {len(angles)} angle statistics and "
+          f"{len(csa[0])} aligned rows equal between the paths")
+
+
+def host_phase(root, train_root, ckpt, work, build, dev_line):
+    """Phase 18: the host stage through the host library against its numpy
+    paths, its times, and the CLIs on its worker pools."""
+    from yolat_tpu_torch.cli import infer, preprocess
+    from yolat_tpu_torch.data.dataset import CACHE_VERSION, SESYDDataset
+    from yolat_tpu_torch.data.packing import CompactFile
+    from yolat_tpu_torch.geom import _native
+    from yolat_tpu_torch.ops import _build
+
+    print(f"host: {os.cpu_count()} cores; library {_native.library_path()} "
+          f"built by {_native.compiler_version()} in {build:.2f} s "
+          f"(first use) [{dev_line}]")
+
+    # cold loads, each path on a fresh copy of phase 4's SVGs
+    _native.reset_counts()
+    loads, ms = {}, {}
+    for path_name in ("native", "numpy"):
+        copy = _cold_copy(root, os.path.join(work, f"cold_{path_name}"))
+        ds = SESYDDataset(copy, "train", bbox_sampling_step=10)
+        with (_native.disabled() if path_name == "numpy"
+              else contextlib.nullcontext()):
+            loads[path_name], ms[path_name] = [], []
+            for i in range(len(ds)):
+                t0 = time.perf_counter()
+                pf, gt, wh = ds.load(i)
+                ms[path_name].append((time.perf_counter() - t0) * 1e3)
+                loads[path_name].append(
+                    (ds._graph(ds.files[i]), pf.to_dict(), list(gt), wh))
+    check(len(loads["native"]) == N_SVGS, "the SVGs of phase 4")
+    for i, (got, want) in enumerate(zip(loads["native"], loads["numpy"])):
+        _host_close(got, want, f"file {i}")
+    n_props = [l[1]["labels"].shape[0] for l in loads["native"]]
+
+    # CompactFile, canonical and with the super family: per file one
+    # warm-up call of each path, then numpy, native, native, numpy twice
+    cf_ms = {}
+    ds = SESYDDataset(os.path.join(work, "cold_native"), "train",
+                      bbox_sampling_step=10)
+    pfs = [ds.load(i)[0] for i in range(N_SVGS)]
+
+    def cf_call(f, sf, path_name):
+        with (_native.disabled() if path_name == "numpy"
+              else contextlib.nullcontext()):
+            t0 = time.perf_counter()
+            CompactFile(f, n_classes=ds.n_classes, super_family=sf)
+            return (time.perf_counter() - t0) * 1e3
+
+    for sf in (False, True):
+        t = {"native": [], "numpy": []}
+        for f in pfs:
+            cf_call(f, sf, "numpy")
+            cf_call(f, sf, "native")
+            for path_name in ("numpy", "native", "native", "numpy") * 2:
+                t[path_name].append(cf_call(f, sf, path_name))
+        for path_name, v in t.items():
+            cf_ms[(sf, path_name)] = statistics.median(v)
+        for f in pfs:
+            a = CompactFile(f, n_classes=ds.n_classes, super_family=sf)
+            with _native.disabled():
+                b = CompactFile(f, n_classes=ds.n_classes, super_family=sf)
+            for k in CompactFile.__slots__:
+                if k != "_dense":
+                    _identical(getattr(a, k), getattr(b, k),
+                               f"CompactFile(super_family={sf}).{k}")
+    _other_entries(loads["native"][0][0], 10)
+    used = dict(_native.native_calls)
+    check(all(used[e] > 0 for e in _native.ENTRIES),
+          f"every entry of the host library was called: {used}")
+    n_numpy = sum(_native.numpy_cases.values())
+    print(f"host: {N_SVGS} bench SVGs cold ({sum(n_props)} proposals), "
+          f"native against numpy: integers equal, floats within rtol "
+          f"{HOST_RTOL} atol {HOST_ATOL}; CompactFile bit-equal; ms per "
+          f"image cold {statistics.median(ms['native']):.3f} native, "
+          f"{statistics.median(ms['numpy']):.3f} numpy (each file native "
+          f"{[round(v, 3) for v in ms['native']]}, numpy "
+          f"{[round(v, 3) for v in ms['numpy']]}); CompactFile ms "
+          f"{cf_ms[(False, 'native')]:.3f} native, "
+          f"{cf_ms[(False, 'numpy')]:.3f} numpy; with the super family "
+          f"{cf_ms[(True, 'native')]:.3f} native, "
+          f"{cf_ms[(True, 'numpy')]:.3f} numpy; native calls {used}; "
+          f"per-call numpy cases {n_numpy} {dict(_native.numpy_cases)} "
+          f"[{dev_line}]")
+
+    # the offline CLI over cold copies of phase 6's splits
+    pre = {}
+    for w in ("2", "0"):
+        copy = _cold_copy(train_root, os.path.join(work, f"pre_{w}"))
+        t0 = time.perf_counter()
+        preprocess.main(["--data_dir", copy, "--bbox_sampling_step", "10",
+                         "--workers", w] + (["--hierarchical"] if w == "2"
+                                            else []))
+        secs = time.perf_counter() - t0
+        with open(os.path.join(copy, "stats.pkl"), "rb") as f:
+            pre[w] = (f.read(), secs, copy)
+    check(pre["2"][0] == pre["0"][0], "stats.pkl of --workers 2 == 0")
+    n_files = sum(len(SESYDDataset(pre["2"][2], part).files)
+                  for part in ("train", "test"))
+    hier = [n for _, _, ns in os.walk(pre["2"][2]) for n in ns
+            if n.endswith(f".hier.v{CACHE_VERSION}.pkl")]
+    check(len(hier) == n_files, f"{len(hier)} .hier pickles, {n_files} files")
+    print(f"host: cli.preprocess over {n_files} files: --workers 2 "
+          f"--hierarchical {pre['2'][1]:.3f} s, --workers 0 "
+          f"{pre['0'][1]:.3f} s; stats.pkl equal; {len(hier)} .hier pickles")
+
+    # the inference CLI with its pools, against phase 4's records
+    with open(os.path.join(work, "detections.jsonl")) as f:
+        want = [json.loads(line) for line in f]
+    out = os.path.join(work, "detections_workers.jsonl")
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    infer.main(["--input_dir", root, "--pretrained_model", ckpt, "--out", out,
+                "--serve_mode", "fast_bf16", "--device", "cuda",
+                "--conf_th", "0.0", "--batch_size", str(BATCH),
+                "--preproc_workers", "2"])
+    rate = N_SVGS / (time.perf_counter() - t0)
+    counts = dict(_build.launch_counts)
+    with open(out) as f:
+        got = [json.loads(line) for line in f]
+    check(got == want, "cli.infer --preproc_workers 2 gives phase 4's records")
+    check(counts["edge_window_message_sum"] > 0
+          and counts["folded_mlp_block_max2"] > 0, f"kernel launches {counts}")
+    print(f"host: cli.infer --preproc_workers 2: {len(got)} records equal "
+          f"to phase 4's, {rate:.3f} SVGs/s (caches warm), launches "
+          f"edge_window_message_sum={counts['edge_window_message_sum']}, "
+          f"folded_mlp_block_max2={counts['folded_mlp_block_max2']} "
+          f"[{dev_line}]")
+
+
 def _finite(v) -> bool:
     return v == v and abs(v) != float("inf")
 
@@ -2334,6 +2591,11 @@ def main() -> int:
     _build.library()
     print(f"build: {_build.library_path()} in {time.perf_counter() - t0:.2f} s")
     tensor_core_report()
+    # the host geometry library (g++ at first use; phase 18 reports it)
+    from yolat_tpu_torch.geom import _native
+    t0 = time.perf_counter()
+    _native.load_library()
+    host_build = time.perf_counter() - t0
 
     os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
     with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as work:
@@ -2438,6 +2700,10 @@ def main() -> int:
         # 17. the edge-window decomposition probe (kernel 12)
         res["edge_window_decomp"], counts["edge_window_decomp"] = \
             decomp_phase(batch, dev_line)
+
+        # 18. the host stage: the host library against the numpy paths,
+        # the preprocessing pools
+        host_phase(root, train_root, ckpt, work, host_build, dev_line)
 
     # the kernels line
     sources = {"edge_window_message_sum": (

@@ -9,8 +9,14 @@ on the dense route, serve YOLaT++ (predict core, both CLIs, the per-edge
 and the factored checkpoint), train YOLaT++ through the train CLI (the
 per-edge sparse route, the banded route of `ops/banded_train.py` with the
 fused head, the factored profile), evaluate one of those checkpoints, run
-the edge-window decomposition probe on the plain versions, and check that none of those modules was loaded. Plus a source check: no
-import of any of them anywhere in the package or in chip_smoke.py."""
+the edge-window decomposition probe on the plain versions, build the host
+library and load through it, run `cli.preprocess --workers 2` and a
+`PackedLoader(preproc_workers=2)`, and check that none of those modules
+was loaded. The refusal is installed by a `sitecustomize` module on the
+subprocess's PYTHONPATH, so the spawned workers refuse the same imports;
+each process marks that it started under it and any import it refused.
+Plus a source check: no import of any of them anywhere in the package or
+in chip_smoke.py."""
 
 import os
 import re
@@ -20,18 +26,31 @@ import textwrap
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-SCRIPT = textwrap.dedent("""
-    import importlib, pkgutil, sys, tempfile, os, json
+# installed in every process of the run (the spawned workers too)
+SITECUSTOMIZE = textwrap.dedent("""
+    import os, sys
 
     BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "yolat_tpu")
+    MARKS = os.environ["NOJAX_MARKS"]
 
     class Refuse:
         def find_spec(self, name, path=None, target=None):
             if name.split(".")[0] in BLOCKED:
+                with open(os.path.join(MARKS, f"refused.{os.getpid()}"),
+                          "a") as f:
+                    f.write(name + "\\n")
                 raise ImportError(f"{name} is blocked in this test")
             return None
 
     sys.meta_path.insert(0, Refuse())
+    open(os.path.join(MARKS, f"started.{os.getpid()}"), "w").close()
+""")
+
+SCRIPT = textwrap.dedent("""
+    import importlib, pkgutil, sys, tempfile, os, json
+
+    BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "yolat_tpu")
+    assert type(sys.meta_path[0]).__name__ == "Refuse"
     sys.path.insert(0, __REPO__)
 
     import torch
@@ -145,21 +164,60 @@ SCRIPT = textwrap.dedent("""
         r = ew_kernel_decomp.main(["--device", "cpu", "--n_svgs", "1",
                                    "--batch_size", "1", "--reps", "1"])
         assert r["N"] > 0 and r["full_us"] > 0 and r["noonehot_us"] > 0
+        # the host library, the offline CLI and the loader's worker pool;
+        # the caches written above are removed first, so the work is cold
+        from yolat_tpu_torch.cli import preprocess
+        from yolat_tpu_torch.geom import _native
+        assert _native.load_library() is not None
+        for base, _, names in os.walk(d):
+            for n in names:
+                if n.endswith(".pkl"):
+                    os.remove(os.path.join(base, n))
+        _native.reset_counts()
+        assert SESYDDataset(d, "train", cache=False).load(0)[0].n_proposals
+        assert _native.native_calls["window_pipeline"] > 0
+        stats = preprocess.main(["--data_dir", d, "--workers", "2",
+                                 "--hierarchical"])
+        assert stats["angles"]["std"] > 0
+        assert any(n.endswith(".hier.v4.pkl") for _, _, ns in os.walk(d)
+                   for n in ns)
+        for n in os.listdir(os.path.join(d, "floorplans-syn")):
+            if n.endswith(".pkl"):
+                os.remove(os.path.join(d, "floorplans-syn", n))
+        pooled = PackedLoader(ds, batch_size=1, preproc_workers=2,
+                              cache_files=False)
+        try:
+            pb = next(iter(pooled))
+        finally:
+            pooled.close()
+        assert pb["node_mask"].any() and pb["edge_mask"].any()
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     assert not loaded, loaded
     print("NOJAX-OK", len(mods))
 """)
 
 
-def test_port_runs_without_jax():
+def test_port_runs_without_jax(tmp_path):
+    site = tmp_path / "site"
+    marks = tmp_path / "marks"
+    site.mkdir()
+    marks.mkdir()
+    (site / "sitecustomize.py").write_text(SITECUSTOMIZE)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.update(PYTHONPATH=str(site), NOJAX_MARKS=str(marks))
     r = subprocess.run([sys.executable, "-c", SCRIPT.replace("__REPO__", repr(REPO))],
                        capture_output=True, text=True, cwd=REPO, env=env,
                        timeout=420)
     assert r.returncode == 0, r.stdout + r.stderr
     assert "NOJAX-OK" in r.stdout
     n_mods = int(r.stdout.split("NOJAX-OK")[1].split()[0])
-    assert n_mods >= 38
+    assert n_mods >= 41
+    names = os.listdir(marks)
+    assert not [n for n in names if n.startswith("refused.")], [
+        (marks / n).read_text() for n in names if n.startswith("refused.")]
+    # the parent, then two preprocess and two loader workers at least (the
+    # CLIs' own pools come on top)
+    assert sum(n.startswith("started.") for n in names) >= 5, names
 
 
 def test_no_jax_import_in_port_sources():

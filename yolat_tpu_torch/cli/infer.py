@@ -5,6 +5,7 @@ Counterpart of `yolat_tpu/cli/infer.py`, on PyTorch and one CUDA device:
   python -m yolat_tpu_torch.cli.infer --input_dir DIR \
       --pretrained_model ckpt.pth [--out detections.jsonl] [--conf_th 0.5] \
       [--serve_mode fast|fast_bf16|module] [--device cuda]
+      [--preproc_workers N]
       [--arch yolat_pp [--pp_factored_prim true] | --profile yolat_pp_fast]
 
 Records are those of the JAX CLI:
@@ -18,9 +19,11 @@ Records are those of the JAX CLI:
 `--profile yolat_pp_fast`). `--device` defaults to cuda and raises when
 CUDA is absent; the CLI never moves to the CPU on its own. The end line
 prints SVGs/s and the launch counts of the serving kernels: 1 and 2, and
-for YOLaT++ also 5 and 6.
-Not ported here: Orbax checkpoints, the chunked single-buffer dispatch of
-`make_serving_fn` and the multi-process preprocessing pool.
+for YOLaT++ also 5 and 6. `--preproc_workers N` runs the validation
+pass and the loader's cold loads in N spawn processes (`_validate_files`,
+`PackedLoader(preproc_workers=)`); the records are those of N = 0.
+Not ported here: Orbax checkpoints and the chunked single-buffer dispatch
+of `make_serving_fn`.
 """
 
 from __future__ import annotations
@@ -81,6 +84,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--nms_algorithm", default=d.nms_algorithm, type=str,
                    choices=("fixpoint", "loop", "classfix"))
     p.add_argument("--nms_topk", default=d.nms_topk, type=int)
+    p.add_argument("--preproc_workers", default=0, type=int,
+                   help="host preprocessing processes (0 = in-process)")
     p.add_argument("--skip_errors", default=True,
                    action=argparse.BooleanOptionalAction,
                    help="unparseable SVGs become {'error': ...} records "
@@ -96,16 +101,42 @@ def _device(name: str) -> torch.device:
     return dev
 
 
-def _probe(ds):
-    """Load every file once (warming the on-disk graph/proposal caches);
-    files that fail become (path, error) pairs."""
+_PROBE_DS = None
+
+
+def _probe_init(ctor_kwargs: dict):
+    global _PROBE_DS
+    _PROBE_DS = SESYDDataset(**ctor_kwargs)
+
+
+def _probe_load(i: int):
+    try:
+        _PROBE_DS.load(i)
+        return i, None
+    except Exception as e:  # one bad SVG must not abort the whole job
+        return i, f"{type(e).__name__}: {e}"
+
+
+def _validate_files(probe, workers: int):
+    """Load every file once (warming the on-disk graph/proposal caches the
+    loader reads); files that fail become (path, error) pairs. With
+    workers > 1 the pass runs in a spawn process pool."""
+    if workers > 1:
+        import multiprocessing as mp
+
+        with mp.get_context("spawn").Pool(
+                workers, initializer=_probe_init,
+                initargs=(probe.ctor_kwargs(),)) as pool:
+            results = pool.map(_probe_load, range(len(probe.files)))
+    else:
+        _probe_init(probe.ctor_kwargs())
+        results = [_probe_load(i) for i in range(len(probe.files))]
     good, bad = [], []
-    for i, path in enumerate(ds.files):
-        try:
-            ds.load(i)
-            good.append(path)
-        except Exception as e:  # one bad SVG must not abort the whole job
-            bad.append((path, f"{type(e).__name__}: {e}"))
+    for i, err in results:
+        if err is None:
+            good.append(probe.files[i])
+        else:
+            bad.append((probe.files[i], err))
     return good, bad
 
 
@@ -123,7 +154,9 @@ def main(argv=None):
         kw = dict(mode=args.mode, bbox_sampling_step=args.bbox_sampling_step,
                   require_gt=False)
         if args.skip_errors:
-            files, bad = _probe(SESYDDataset(args.input_dir, files=files, **kw))
+            files, bad = _validate_files(
+                SESYDDataset(args.input_dir, files=files, **kw),
+                args.preproc_workers)
         ds = SESYDDataset(args.input_dir, files=files, **kw) if files else None
     else:
         ds = SESYDDataset(args.data_dir, args.phase,
@@ -180,29 +213,39 @@ def _serve(args, cfg, ds, device, out_f) -> int:
     folded = ff.fold_params_for(cfg, model, device) if fast else None
     # the plans are built whenever the kernel route reads them
     loader = PackedLoader(ds, batch_size=args.batch_size, edge_window=fast,
-                          cache_files=False, **extra_plans_for(cfg))
+                          cache_files=False,
+                          preproc_workers=args.preproc_workers,
+                          **extra_plans_for(cfg))
     n = 0
-    for batch in loader:
-        # the exact per-image NMS slot cap of this batch (eval/runner.py:40)
-        predict = make_predict_core(
-            cfg, folded=folded, model=model,
-            bf16=args.serve_mode == "fast_bf16", max_det=cfg.max_det,
-            img_slots=img_slot_cap(batch), detections_only=True)
-        det = predict(to_device(batch, device))
-        det = {k: v.cpu().numpy() for k, v in det.items()}
-        for img in range(int(batch["n_images"])):
-            path = ds.files[n]
-            n += 1
-            keep = det["valid"][img] & (det["scores"][img] >= args.conf_th)
-            dets = [{"box": [round(float(c), 2) for c in det["boxes"][img][d]],
-                     "score": round(float(det["scores"][img][d]), 4),
-                     "class": id2name[int(det["classes"][img][d])]}
-                    for d in np.flatnonzero(keep)]
-            w, h = batch["wh"][img]
-            out_f.write(json.dumps({
-                "file": os.path.relpath(path, ds.root) if ds.root else path,
-                "width": float(w), "height": float(h), "detections": dets,
-            }) + "\n")
+    try:
+        for batch in loader:
+            # the exact per-image NMS slot cap of this batch
+            # (eval/runner.py:40)
+            predict = make_predict_core(
+                cfg, folded=folded, model=model,
+                bf16=args.serve_mode == "fast_bf16", max_det=cfg.max_det,
+                img_slots=img_slot_cap(batch), detections_only=True)
+            det = predict(to_device(batch, device))
+            det = {k: v.cpu().numpy() for k, v in det.items()}
+            for img in range(int(batch["n_images"])):
+                path = ds.files[n]
+                n += 1
+                keep = (det["valid"][img]
+                        & (det["scores"][img] >= args.conf_th))
+                dets = [{"box": [round(float(c), 2)
+                                 for c in det["boxes"][img][d]],
+                         "score": round(float(det["scores"][img][d]), 4),
+                         "class": id2name[int(det["classes"][img][d])]}
+                        for d in np.flatnonzero(keep)]
+                w, h = batch["wh"][img]
+                out_f.write(json.dumps({
+                    "file": (os.path.relpath(path, ds.root) if ds.root
+                             else path),
+                    "width": float(w), "height": float(h),
+                    "detections": dets,
+                }) + "\n")
+    finally:
+        loader.close()
     return n
 
 

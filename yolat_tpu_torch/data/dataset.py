@@ -1,11 +1,12 @@
 """SESYD-style dataset for serving: SVG -> graph -> proposals, cached.
 
-Counterpart of `yolat_tpu/data/dataset.py:50-206` (`CACHE_VERSION`,
-`_atomic_pickle`, `SESYDDataset`) without training-time mixup and the
-anchor-statistics tool. Each SVG goes through the graph build and the
-proposal generator of `yolat_tpu_torch.geom`; both stages are cached on
-disk beside the SVG under the JAX package's file names and format, so
-either package reads the other's caches.
+Counterpart of `yolat_tpu/data/dataset.py:28-206` (the loader workers'
+entry points, `CACHE_VERSION`, `_atomic_pickle`, `SESYDDataset` with
+`ctor_kwargs`) without training-time mixup and the anchor-statistics tool.
+Each SVG goes through the graph build and the proposal generator of
+`yolat_tpu_torch.geom`, on the host library (`geom/_native.py`); both
+stages are cached on disk beside the SVG under the JAX package's file
+names and format, so either package reads the other's caches.
 """
 
 from __future__ import annotations
@@ -20,6 +21,30 @@ from yolat_tpu_torch.data.synthetic import (CHART_CLASSES, DIAGRAM_CLASSES,
 from yolat_tpu_torch.geom.graph_build import build_svg_graph
 from yolat_tpu_torch.geom.proposals import ProposalFile, generate_proposals
 from yolat_tpu_torch.geom.svg_io import SVGDocument, read_ground_truth_boxes
+
+# --- the worker processes of PackedLoader(preproc_workers=N) -------------
+# Module-level, so a spawn pool pickles them by reference. Each worker holds
+# one SESYDDataset and returns finished CompactFile loads. The host stage is
+# numpy and the host library: a worker never touches CUDA (no torch.cuda
+# call, no tensor on a device).
+_LOADER_WORKER_DS = None
+_LOADER_WORKER_SUPER = False
+
+
+def _loader_worker_init(ctor_kwargs: dict, super_family: bool = False):
+    global _LOADER_WORKER_DS, _LOADER_WORKER_SUPER
+    _LOADER_WORKER_DS = SESYDDataset(**ctor_kwargs)
+    _LOADER_WORKER_SUPER = super_family
+
+
+def _loader_worker_load(idx: int):
+    from yolat_tpu_torch.data.packing import CompactFile
+
+    ds = _LOADER_WORKER_DS
+    f, gt, wh = ds.load(idx)
+    return idx, (CompactFile(f, n_classes=ds.n_classes,
+                             super_family=_LOADER_WORKER_SUPER), gt, wh)
+
 
 CACHE_VERSION = 4  # the JAX package's cache format version
 
@@ -72,6 +97,14 @@ class SESYDDataset:
 
     def __len__(self):
         return len(self.files)
+
+    def ctor_kwargs(self) -> dict:
+        """Constructor arguments that rebuild this dataset in a worker
+        process, everything resolved (mode, class vocabulary, file list)."""
+        return dict(root=self.root, partition=self.partition,
+                    bbox_sampling_step=self.step, mode=self.mode,
+                    class_dict=self.class_dict, cache=self.cache,
+                    files=self.files, require_gt=self.require_gt)
 
     def _graph(self, path: str) -> dict:
         cache_path = path.replace(".svg", f".graph.v{CACHE_VERSION}.pkl")

@@ -1,10 +1,12 @@
 """Packed loader over `yolat_tpu_torch.data.dataset.SESYDDataset`.
 
 Counterpart of `yolat_tpu/data/dataset.py:209-600` (`PackedLoader`) for
-one device: no buckets, no mixup. With shuffle, epoch e visits the files
-in the order `np.random.default_rng(seed + e).shuffle` gives, exactly as
-`_iter_sync` (:517-529) orders them, so both packages train on the same
-batch sequence. Pad sizes follow
+one device: no buckets, no mixup; with `preproc_workers`, the cold loads
+run in a spawn process pool (:238-265, :309-358), in submission order.
+With shuffle, epoch e visits the files in the order
+`np.random.default_rng(seed + e).shuffle` gives, exactly as `_iter_sync`
+(:517-529) orders them, so both packages train on the same batch
+sequence. Pad sizes follow
 `PackedLoader.compute_pad` (:402-454): the sum of the `batch_size` largest
 per-file counts per dimension, rounded up as `PadSizes` does
 (`yolat_tpu/data/packing.py:53-79`), computed from this port's own
@@ -15,12 +17,15 @@ loader.
 
 from __future__ import annotations
 
+import os
 import queue
 import threading
 
 import numpy as np
 
 from yolat_tpu_torch.config import PP_ARCHS
+from yolat_tpu_torch.data.dataset import (_loader_worker_init,
+                                          _loader_worker_load)
 from yolat_tpu_torch.data.packing import (CompactFile, PadSizes,
                                           add_dense_neighbors, dense_width,
                                           pack_files, round_up)
@@ -63,6 +68,10 @@ class PackedLoader:
     super-edge clique family and the factored fields (YOLaT++), sized by
     `PadSizes.n_super`, with that family's banded plan `sew_*` as
     `sew_plan` says ('own', 'transpose' or 'none': `packing.pack_files`).
+    preproc_workers > 0 loads the files that are not in memory (SVG parse,
+    graph, proposals, CompactFile) in that many spawn processes, at most
+    one per core, the pad pass's cold scan included; the batches are byte
+    for byte those of preproc_workers=0. `close()` stops the pool.
     """
 
     def __init__(self, dataset, batch_size: int = 4, prefetch: int = 1,
@@ -70,7 +79,7 @@ class PackedLoader:
                  shuffle: bool = False, seed: int = 0,
                  ew_transpose: bool = False, dense: bool = False,
                  d_max: int | None = None, super_family: bool = False,
-                 sew_plan: str = "own"):
+                 sew_plan: str = "own", preproc_workers: int = 0):
         if prefetch not in (0, 1):
             raise ValueError("prefetch is 0 or 1")
         self.ds = dataset
@@ -85,6 +94,8 @@ class PackedLoader:
         self.super_family = super_family
         self.sew_plan = sew_plan
         self.cache_files = cache_files
+        self.preproc_workers = max(0, preproc_workers)
+        self._pool = None
         self._compact: dict = {}
         self._max_indegree = 0
         self.pad = self.compute_pad()
@@ -102,10 +113,51 @@ class PackedLoader:
             self._compact[i] = item
         return item
 
+    def _ensure_pool(self):
+        if self.preproc_workers <= 0:
+            return None
+        if self._pool is None:
+            import multiprocessing as mp
+
+            # spawn: a fork would copy a parent that may hold a CUDA
+            # context. The work is CPU-bound: no more processes than cores
+            n = max(1, min(self.preproc_workers, os.cpu_count() or 1))
+            self._pool = mp.get_context("spawn").Pool(
+                n, initializer=_loader_worker_init,
+                initargs=(self.ds.ctor_kwargs(), self.super_family))
+        return self._pool
+
+    def close(self) -> None:
+        """Stop the preprocessing pool, if one was started."""
+        if self._pool is not None:
+            self._pool.terminate()
+            self._pool.join()
+            self._pool = None
+
+    def _load_many(self, idxs):
+        """Yield (CompactFile, gt, wh) per manifest index, in order. With
+        preproc_workers the files not in memory stream through the pool
+        (imap keeps submission order, which is the consumption order)."""
+        idxs = [int(i) for i in idxs]
+        pool = self._ensure_pool()
+        if pool is None:
+            for i in idxs:
+                yield self._load(i)
+            return
+        miss = [i for i in idxs if i not in self._compact]
+        it = pool.imap(_loader_worker_load, miss, chunksize=1)
+        for i in idxs:
+            item = self._compact.get(i)
+            if item is None:
+                j, item = next(it)
+                assert j == i, (j, i)
+                if self.cache_files:
+                    self._compact[i] = item
+            yield item
+
     def compute_pad(self) -> PadSizes:
         nodes, edges, supers, props, gts = [], [], [], [], []
-        for i in range(len(self.ds)):
-            f, (gt, _), _ = self._load(i)
+        for f, (gt, _), _ in self._load_many(range(len(self.ds))):
             nodes.append(len(f.pos))
             edges.append(len(f.edge))
             supers.append(len(f.edge_super) if self.super_family else 0)
@@ -138,9 +190,10 @@ class PackedLoader:
 
     def _iter_sync(self):
         order = self.epoch_order()
+        stream = self._load_many(order)
         for start in range(0, len(order), self.batch_size):
-            loads = [self._load(int(i))
-                     for i in order[start:start + self.batch_size]]
+            loads = [next(stream)
+                     for _ in order[start:start + self.batch_size]]
             files = [l[0] for l in loads]
             batch = pack_files(files, [l[1] for l in loads],
                                [l[2] for l in loads], self.pad,

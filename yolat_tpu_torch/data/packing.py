@@ -1,8 +1,10 @@
 """Flat-packed, statically-shaped batches for both detectors.
 
 Counterpart of `yolat_tpu/data/packing.py`: `PadSizes` (:53-79),
-`CompactFile` (:98-289, the numpy branches; the native sort-and-align
-helper is not carried), `_align_runs` (:317), `pack_files` (:362-579),
+`CompactFile` (:98-289: both edge families sorted, remapped and aligned
+by the host library's `compact_sort_align_stats`, `geom/_native.py`, with
+the numpy branches as the oracle under `_native.disabled()`),
+`_align_runs` (:317), `pack_files` (:362-579),
 `finalize_batch` (:587-670, with the train-time augmentation and edge
 dropout) and `_seg_min` (:747), and the dense neighbour table
 (`CompactFile.dense_table` :291-314, `add_dense_neighbors` :673-744).
@@ -50,6 +52,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from yolat_tpu_torch.geom import _native
 from yolat_tpu_torch.ops.plans import (POOL_BLOCK, SUPER_BLOCK, banded_plan,
                                        edge_window_plan, plan_of, pool_plan)
 from yolat_tpu_torch.ops.segment import NEG, _two_level, segment_broadcast
@@ -107,14 +110,21 @@ class CompactFile:
         self.node_mask[old2new] = True
         self.bbox_idx = np.repeat(np.arange(n_prop, dtype=np.int32), new_counts)
         # stable dst sort + endpoint remap; old2new is strictly increasing,
-        # so the remapped list stays dst-sorted
+        # so the remapped list stays dst-sorted. The host library does it
+        # in one counting-sort pass, with the per-node counts
         edge = np.asarray(f.edge, np.int64)
-        eo = np.argsort(edge[:, 1], kind="stable")
-        self.edge = np.ascontiguousarray(old2new[edge[eo]], np.int32)
-        self.e_attr = np.ascontiguousarray(
-            np.asarray(f.e_attr)[eo, 0:4], np.float32)
-        self.dst_count = np.bincount(
-            self.edge[:, 1], minlength=n2).astype(np.float32)
+        nat = _native.compact_sort_align_stats_native(
+            edge, np.asarray(f.e_attr, np.float32), old2new, 1, n2)
+        if nat is not None:
+            self.edge, self.e_attr, _, self.dst_count, src_count, _, _ = nat
+        else:
+            eo = np.argsort(edge[:, 1], kind="stable")
+            self.edge = np.ascontiguousarray(old2new[edge[eo]], np.int32)
+            self.e_attr = np.ascontiguousarray(
+                np.asarray(f.e_attr)[eo, 0:4], np.float32)
+            self.dst_count = np.bincount(
+                self.edge[:, 1], minlength=n2).astype(np.float32)
+            src_count = None
         self.prop_count = counts.astype(np.float32)
         self.labels = np.ascontiguousarray(f.labels, np.int32)
         self.bbox = np.ascontiguousarray(f.bbox, np.float32)
@@ -131,12 +141,42 @@ class CompactFile:
                      "prop_first"):
             setattr(self, name, None)
         if super_family:
-            self._super_family(f, old2new, n2, new_starts)
+            self._super_family(f, old2new, n2, new_starts, src_count)
 
-    def _super_family(self, f, old2new, n2: int, new_starts) -> None:
-        """The super-edge family and what hangs on it (packing.py:177-235)."""
-        self.src_count = np.bincount(
+    def _super_family(self, f, old2new, n2: int, new_starts,
+                      src_count) -> None:
+        """The super-edge family and what hangs on it (packing.py:177-235).
+        `src_count` is the edge family's out-degree from the host library's
+        pass, or None on the numpy path."""
+        self.src_count = src_count if src_count is not None else np.bincount(
             self.edge[:, 0], minlength=n2).astype(np.float32)
+        # sorted by dst, remapped and each dst run aligned to SUPER_BLOCK
+        # rows in one native pass, with the per-node fields
+        nat = _native.compact_sort_align_stats_native(
+            np.asarray(f.edge_super, np.int64),
+            np.asarray(f.e_attr_super, np.float32), old2new, SUPER_BLOCK, n2)
+        if nat is not None:
+            (self.edge_super, self.e_attr_super, self.super_valid,
+             self.super_dst_count, _, self.sup_abar, self.sup_member) = nat
+        else:
+            self._super_family_py(f, old2new, n2)
+        member = self.sup_member
+        # rank of each member node among the preceding members of its
+        # proposal (the factored primitive level's denominator)
+        mem_idx = np.flatnonzero(member)
+        rank = np.zeros(n2, np.float32)
+        if len(mem_idx):
+            grp = self.bbox_idx[mem_idx]
+            starts = np.r_[0, np.flatnonzero(np.diff(grp)) + 1]
+            lens = np.diff(np.r_[starts, len(mem_idx)])
+            rank[mem_idx] = (np.arange(len(mem_idx))
+                             - np.repeat(starts, lens)).astype(np.float32)
+        self.sup_rank = rank
+        # the first node row of every proposal
+        self.prop_first = new_starts.astype(np.int32)
+
+    def _super_family_py(self, f, old2new, n2: int) -> None:
+        """The numpy oracle of the super family's native pass."""
         so = np.argsort(np.asarray(f.edge_super)[:, 1], kind="stable")
         es = np.ascontiguousarray(
             old2new[np.asarray(f.edge_super, np.int64)[so]], np.int32)
@@ -159,19 +199,6 @@ class CompactFile:
             sums = np.add.reduceat(ea, first, axis=0)
             abar[dst_r[first]] = sums / cnts[:, None]
         self.sup_abar = abar
-        # rank of each member node among the preceding members of its
-        # proposal (the factored primitive level's denominator)
-        mem_idx = np.flatnonzero(member)
-        rank = np.zeros(n2, np.float32)
-        if len(mem_idx):
-            grp = self.bbox_idx[mem_idx]
-            starts = np.r_[0, np.flatnonzero(np.diff(grp)) + 1]
-            lens = np.diff(np.r_[starts, len(mem_idx)])
-            rank[mem_idx] = (np.arange(len(mem_idx))
-                             - np.repeat(starts, lens)).astype(np.float32)
-        self.sup_rank = rank
-        # the first node row of every proposal
-        self.prop_first = new_starts.astype(np.int32)
 
     def dense_table(self, d_max: int):
         """The file's dense neighbour table (nbr_idx, nbr_attr, nbr_mask)

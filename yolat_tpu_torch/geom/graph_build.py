@@ -22,15 +22,16 @@ Graph dict schema (the reference's per-file .pkl contract):
   edge_attr.shape [E, 6], edge_attr.super [Es, 6]
   img_width, img_height, cc (list of node-id lists)
 
-Port of `yolat_tpu/geom/graph_build.py:1-521`, numpy path only: the JAX
-package's optional native helper (`csrc/geomcore.cpp`) computes the same
-values faster, but the port owns its host stage and runs the numpy oracle.
+Port of `yolat_tpu/geom/graph_build.py:1-521`. The CC merge runs in the
+host library (`geom/_native.py` merge_cc); its numpy body stays as
+`_merge_connected_components_py`, the oracle.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from yolat_tpu_torch.geom import _native
 from yolat_tpu_torch.geom.bezier import primitives_to_cubics
 from yolat_tpu_torch.geom.split_cross import split_cross
 from yolat_tpu_torch.geom.svg_io import SVGDocument, UnsupportedSVGError
@@ -374,7 +375,23 @@ def merge_connected_components(graph: dict) -> dict:
     build_graph_bbox.py:87-213).
 
     Returns dict with keys: shape_shape_edges, cross_shape_edges,
-    shape_shape_attr, cross_attr, cc (merged clusters, each sorted)."""
+    shape_shape_attr, cross_attr, cc (merged clusters, each sorted).
+
+    Dispatches to the host library (csrc/geomcore.cpp merge_cc); the numpy
+    path, `_merge_connected_components_py`, runs under `_native.disabled()`
+    and where the library's capacity retry is exhausted."""
+    native = _native.merge_cc_native(
+        np.asarray(graph["pos"], dtype=np.float64),
+        np.asarray(graph["edge"]["shape"], dtype=np.int64),
+        np.asarray(graph["attr"]["is_control"]).reshape(-1) > 0.5,
+        CONTAIN_TH,
+    )
+    if native is not None:
+        return native
+    return _merge_connected_components_py(graph)
+
+
+def _merge_connected_components_py(graph: dict) -> dict:
     pos = np.asarray(graph["pos"], dtype=np.float64)
     ccs = connected_components(graph)
     boxes = _cc_bboxes(pos, ccs)

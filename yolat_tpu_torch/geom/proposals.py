@@ -26,10 +26,11 @@ rest; graph_dict3.py:743-768) is flattened to index ranges: slice arrays
 per proposal plus (cc_slice, root_of_cc) — everything the two-pass predictor
 needs, with no Python object trees.
 
-Port of `yolat_tpu/geom/proposals.py:1-742`, numpy path only, no training-
-time mixup: the JAX package's optional native helper (`csrc/geomcore.cpp`)
-computes the same values faster, but the port owns its host stage and runs
-the numpy oracle.
+Port of `yolat_tpu/geom/proposals.py:1-742` without training-time mixup.
+Each CC's windows go through the host library's window pipeline
+(`geom/_native.py`, `csrc/geomcore.cpp`) in one call, consumed in bulk;
+the per-window numpy loop below is the oracle (`_native.disabled()`) and
+the path of the pipeline's per-call numpy cases (a degenerate grid).
 """
 
 from __future__ import annotations
@@ -37,6 +38,8 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import numpy as np
+
+from yolat_tpu_torch.geom import _native
 
 IOU_LABEL_TH = 0.7
 IOS_OBJ_TH = 0.7
@@ -187,6 +190,10 @@ def _sweep_rects(pos_cluster: np.ndarray, step_count: int):
     x_grids = _grid_boundaries(x_values[0], x_values[-1], step_count)
     y_grids = _grid_boundaries(y_values[0], y_values[-1], step_count)
 
+    native = _native.sweep_rects_native(x_values, y_values, x_grids, y_grids)
+    if native is not None:
+        return (xi, yi, native) if len(native) else None
+
     x_starts = _walk_starts(x_values, x_grids)
     y_starts = _walk_starts(y_values, y_grids)
     x_ends_of = {(x0, gix): _walk_ends(x_values, x_grids, gix, x0)
@@ -217,6 +224,10 @@ def _enumerate_subclusters(pos_cluster: np.ndarray, step_count: int):
         return []
     xi, yi, rects = swept
 
+    native = _native.enumerate_rect_sets_native(xi, yi, rects)
+    if native is not None:
+        return native
+
     seen = set()
     out = []
     for x0, x1, y0, y1 in rects:
@@ -235,8 +246,18 @@ def _enumerate_subclusters(pos_cluster: np.ndarray, step_count: int):
 def _cc_proposal_cores(pos_cluster, step_count, edges_cl, supers_cl):
     """Per distinct window: (local point ids, induced shape-edge rows,
     induced super-edge rows), where edge rows index the CC-local edge
-    arrays: the set enumeration, induced with boolean masks.
+    arrays. One native pass, or the set enumeration induced with boolean
+    masks.
     """
+    swept = _sweep_rects(pos_cluster, step_count)
+    if swept is None:
+        return []
+    xi, yi, rects = swept
+    native = _native.build_rect_proposals_native(xi, yi, rects, edges_cl,
+                                                 supers_cl)
+    if native is not None:
+        return native
+
     out = []
     n = len(pos_cluster)
     sel = np.zeros(n, dtype=bool)
@@ -256,6 +277,9 @@ def _angle_stats(n_local: int, edges_local: np.ndarray, pos_local: np.ndarray):
     (graph_dict3.py:649-688). Returns None if no angle pair exists (such a
     proposal is skipped). Angles are raw dot products of neighbour offset
     vectors; neighbour sets are deduplicated per anchor."""
+    native = _native.angle_stats_native(edges_local, pos_local, ANGLE_TH)
+    if native is not None:
+        return None if native.get("empty") else native
     neighbors = [set() for _ in range(n_local)]
     for a, b in edges_local:
         neighbors[a].add(b)
@@ -342,6 +366,30 @@ def generate_proposals(
         cc_super_ids = np.where(in_cc[edge_super[:, 0]] & in_cc[edge_super[:, 1]])[0]
         edges_cl = np.searchsorted(cluster, edge[cc_edge_ids])
         supers_cl = np.searchsorted(cluster, edge_super[cc_super_ids])
+
+        # the whole window pipeline (enumeration, dedup, filters, features,
+        # labels) in one native call, consumed in bulk
+        swept = _sweep_rects(pos_cluster, bbox_sampling_step)
+        bulk = None
+        if swept is not None:
+            xi, yi, rects = swept
+            bulk = _native.window_pipeline_native(
+                xi, yi, pos_cluster, rects, edges_cl, supers_cl,
+                e_attr[cc_edge_ids], e_attr_super[cc_super_ids],
+                is_super[cluster],
+                gt_bbox[gt_valid] if len(gt_valid) else np.zeros((0, 4)),
+                gt_labels[gt_valid] if len(gt_valid) else np.zeros(0, np.int64),
+                n_classes - 1, IOU_LABEL_TH, IOS_OBJ_TH,
+                ANGLE_TH, MIN_EXTENT, normalize_pos=True,
+            )
+        if bulk is not None:
+            if bulk["n_distinct"] == 0:
+                continue
+            if len(gt_bbox) and gt_valid.shape[0] == 0:
+                raise ValueError(
+                    "connected component intersects no ground-truth box")
+            _consume_bulk(acc, bulk)
+            continue
 
         cores = _cc_proposal_cores(pos_cluster, bbox_sampling_step,
                                    edges_cl, supers_cl)
@@ -432,6 +480,21 @@ def generate_proposals(
     return acc.finish()
 
 
+def _consume_bulk(acc, bulk):
+    """Epilogue of the native window pipeline: one bulk accumulator append
+    for the whole CC, the arrays the per-window loop would emit."""
+    if bulk["n_w"] == 0:
+        return
+    feats = bulk["feats"]
+    acc.add_cc_bulk(
+        bulk["pos"], bulk["issuper"], bulk["id_off"],
+        bulk["eloc"], bulk["eid_off"], bulk["eattr"],
+        bulk["sloc"], bulk["sid_off"], bulk["sattr"],
+        bulk["labels"], feats[:, :4], bulk["targets"], feats[:, 4:],
+        bulk["hasobj"],
+    )
+
+
 def _cat1(parts, dtype):
     if not parts:
         return np.zeros(0, dtype)
@@ -488,6 +551,39 @@ class _Accumulator:
         self.slice_pos.append(self.offset)
         self.slice_edge.append(self.slice_edge[-1] + len(edges_local))
         self.slice_super.append(self.slice_super[-1] + len(supers_local))
+
+    def add_cc_bulk(self, pos_rows, is_super_rows, id_off, eloc, eid_off,
+                    e_attr_rows, sloc, sid_off, e_attr_super_rows, labels,
+                    boxes, targets, stats, has_obj):
+        """Append one CC's windows at once (the native pipeline), with
+        close_cc's bookkeeping (root = the largest-area window)."""
+        n_w = len(labels)
+        if n_w == 0:
+            return
+        pid0 = self.n
+        self.n += n_w
+        counts = np.diff(id_off)
+        self.pos.append(pos_rows)
+        self.is_super.append(np.asarray(is_super_rows, dtype=bool))
+        # eloc / sloc are CC-local member rows (the pipeline already offset
+        # each window's local ranks by its member start)
+        self.edge.append(eloc + self.offset)
+        self.edge_super.append(sloc + self.offset)
+        self.e_attr.append(e_attr_rows.reshape(-1, 6))
+        self.e_attr_super.append(e_attr_super_rows.reshape(-1, 6))
+        self.labels.append(np.asarray(labels, dtype=np.int64))
+        self.bbox.append(np.asarray(boxes, dtype=np.float64))
+        self.bbox_targets.append(np.asarray(targets, dtype=np.float64))
+        self.stat_feats.append(np.asarray(stats, dtype=np.float64))
+        self.has_obj.append(np.asarray(has_obj, dtype=np.int64))
+        self.bbox_idx.append(np.repeat(np.arange(pid0, pid0 + n_w), counts))
+        self.slice_pos.extend((self.offset + id_off[1:]).tolist())
+        self.slice_edge.extend((self.slice_edge[-1] + eid_off[1:]).tolist())
+        self.slice_super.extend((self.slice_super[-1] + sid_off[1:]).tolist())
+        self.offset += int(id_off[-1])
+        area = (boxes[:, 2] - boxes[:, 0]) * (boxes[:, 3] - boxes[:, 1])
+        self.root_of_cc.append(pid0 + int(np.argmax(area)))
+        self.cc_slice.append(pid0 + n_w)
 
     def close_cc(self, n_before: int):
         n_after = self.n

@@ -11,15 +11,16 @@ exclusion box) are part of the data contract and preserved exactly
 Implementation is numpy-vectorised per primitive (the reference loops in
 Python over all pairs); semantics are identical.
 
-Port of `yolat_tpu/geom/split_cross.py:1-213`, numpy path only: the JAX
-package's optional native helper (`csrc/geomcore.cpp`) computes the same
-values faster, but the port owns its host stage and runs the numpy oracle.
+Port of `yolat_tpu/geom/split_cross.py:1-213`. `split_line` runs in the
+host library (`geom/_native.py` split_lines); its numpy body is the oracle
+(`_native.disabled()`).
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from yolat_tpu_torch.geom import _native
 from yolat_tpu_torch.geom.bezier import shapes_to_primitives
 
 MERGE_TH = 1e-4
@@ -160,6 +161,10 @@ def split_line(points: np.ndarray, lines: np.ndarray) -> np.ndarray:
     """Split each line at candidate points lying on it. Returns [L', 4]."""
     lines = np.asarray(lines, dtype=np.float64).reshape(-1, 4)
     points = np.asarray(points, dtype=np.float64).reshape(-1, 2)
+    if len(lines) and len(points):
+        native = _native.split_lines_native(lines, points, LINE_TH, MERGE_TH)
+        if native is not None:
+            return native
     on_all = (
         _points_on_line_batch(points, lines)
         if len(points) and len(lines)
