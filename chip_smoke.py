@@ -174,7 +174,33 @@ no jax. Phases, each of which raises on failure (non-zero exit):
      phase 6's splits with the stats.pkl of `--workers 0` and one .hier
      pickle per file; `cli.infer --preproc_workers 2` on phase 4's SVGs
      and checkpoint with phase 4's records and kernels 1 and 2 launched;
-     the host's core count and the card's name and power limit.
+     the host's core count and the card's name and power limit;
+ 19. CUDA graphs (every serving and train step of phases 4-18 already runs
+     as graph replays: `eval/predict.make_serving_fn`,
+     `train/loop.make_scan_train_step`): kernel N1 (`nms_fixpoint.cu`,
+     both entries) against the plain loop on the inputs predict forms on
+     the canonical and YOLaT++ bench batches and on a suppression chain
+     (one sweep per candidate), kept sets equal, times and bound; the
+     serving graphs against the eager predict on the unpadded batches,
+     detections bit-identical per batch and in a short chunk (2 batches
+     in a 3-row graph), on the plan, dense, YOLaT++ per-edge and factored
+     routes and the eval-mode module (its sparse sums are float atomics:
+     within the slice test's tolerance where two eager runs differ), with
+     the launches a replay adds, and the `loop` refusal; the
+     train graphs (scan 1 and 3) against the eager step over 3 steps on
+     seven routes (canonical bf16 fused, unfused with dropout, window,
+     dense; YOLaT++ per-edge, banded and factored; augmentation on, the
+     schedule decaying at step 2), bit-identical or within the eager
+     run's own spread (`GRAPH_TRAIN_TOL`), and the capturable optimizer
+     (a device-tensor rate) against the float-rate one within the same
+     limits; eager against graph times in turns
+     (`cli/profile.serve_graph_arms`, `train_graph_arms`, one line per
+     step); `cli.infer --chunk 1` against
+     `--chunk 8` on 64 bench SVGs (records byte-identical, SVGs/s in
+     turns, graphs captured per run no more than the slot caps + 1),
+     `cli.test --serve_mode fast_bf16 --nms_algorithm classfix`, and
+     `cli.train --scan_steps 4` against 1 (images/s in turns, one graph
+     per run).
 Everything it runs comes from yolat_tpu_torch, the synthetic SVG writer
 included: it imports neither jax nor the JAX package yolat_tpu.
 The kernels line (a JSON object describing each kernel; launches are
@@ -182,7 +208,9 @@ counted over the path that runs it, with the counts set to 0 just before:
 phase 4 for the serving kernels, phase 6 for the fused head's, phase 10 for
 kernels 9, 10 and 4, phase 13's first `cli.infer` run for kernels 5 and 6,
 phase 16's banded run for kernels 7 and 8, phase 17's probe run for
-kernel 12, `edge_window_decomp`)
+kernel 12, `edge_window_decomp`, phase 19's first `cli.infer --chunk 8`
+run for N1's fixpoint entry and its `cli.test` for the classfix entry;
+a replay adds the launches its capture recorded)
 comes before the nvidia-smi line; the last line is
 {"ok": true, "device": {...}}. Each kernel's bound_ms is the larger of its
 bytes (each input read once, each output written once; of a gathered
@@ -233,6 +261,19 @@ PP_TRAIN_STEPS = 6
 # relative Frobenius limits, banded YOLaT++ route vs sparse route:
 # (prim_at_node and BN statistics, gradients)
 PP_ROUTE_TOL = {"f32": (1e-5, 5e-3), "bf16": (2e-3, 6e-2)}
+CHUNK = 8          # cli.infer's default --chunk
+SERVE_CHUNK = 3    # phase 19's make_serving_fn chunk over the 2 bench batches
+GRAPH_SVGS = 64    # phase 19's cli.infer --chunk comparison (16 batches)
+GRAPH_TRAIN_SVGS = 16
+GRAPH_STEPS = 3
+SCAN = 4           # phase 19's cli.train --scan_steps
+# phase 19: where two eager train runs differ (float atomics), a graph run
+# may differ from the eager one by four times that spread or by these, max
+# |loss diff| and max |state diff| after 3 steps (on an H100 80GB HBM3 at
+# 700 W the eager spread reached 2.7e-4 and 5.1e-3, the graph 6.7e-4 and
+# 5.9e-3);
+# where the eager runs are bit-identical, so must the graph run be
+GRAPH_TRAIN_TOL = (1e-3, 1e-2)
 # the H100 SXM data sheet's peaks: HBM bytes/s, float32 and dense bf16 FLOP/s
 PEAK_BYTES, PEAK_F32, PEAK_BF16 = 3.35e12, 67e12, 989e12
 
@@ -1696,11 +1737,14 @@ def pp_serve_phase(root, test_root, ckpts, work, dev_line):
             for d in r["detections"]:
                 check(len(d["box"]) == 4 and all(map(_finite, d["box"]))
                       and 0.0 <= d["score"] <= 1.0, "bad detection")
+        # one chunk graph of CHUNK predict bodies, its rows past the
+        # batches replaying the last one
         n_batches = -(-N_SVGS // BATCH)
-        want = {"edge_window_message_sum": N_BLOCKS * n_batches,
-                "folded_mlp_block_max2": n_batches,
-                "banded_message_sum": n_batches if variant == "per_edge" else 0,
-                "banded_message_sum_both": n_batches}
+        rows = -(-n_batches // CHUNK) * CHUNK
+        want = {"edge_window_message_sum": N_BLOCKS * rows,
+                "folded_mlp_block_max2": rows,
+                "banded_message_sum": rows if variant == "per_edge" else 0,
+                "banded_message_sum_both": rows}
         got = {k: counts[k] for k in served}
         check(got == want, f"pp {variant} launches {got}, the code implies {want}")
         print(f"pp serve {variant} (cli.infer {' '.join(flags)}, fast_bf16): "
@@ -2547,6 +2591,426 @@ def host_phase(root, train_root, ckpt, work, build, dev_line):
           f"[{dev_line}]")
 
 
+def _np_equal(a: dict, b: dict) -> bool:
+    import numpy as np
+
+    return set(a) == set(b) and all(np.array_equal(a[k], b[k]) for k in a)
+
+
+def _nms_bound(kept, rel, valid, rank=None) -> dict:
+    """Kernel N1's bound on these inputs: the bytes it must read to confirm
+    the fixed point (each valid row of the relation up to its first
+    suppressor, or whole when there is none), the valid flags once and the
+    kept flags written once; no arithmetic to speak of."""
+    import torch
+
+    if rank is None:  # fixpoint: rel [B, C, C] = sup, valid [B, C]
+        hit = rel & kept[:, None, :]
+    else:  # classfix: rel [B, M, M] = overb (j, i), valid = cand [B, K, M]
+        hit = (rel.transpose(1, 2)[:, None] & kept[:, :, None, :]
+               & (rank[:, :, None, :] < rank[:, :, :, None]))
+    n = hit.shape[-1]
+    first = torch.where(hit.any(-1), hit.float().argmax(-1) + 1,
+                        torch.full(hit.shape[:-1], n, device=hit.device))
+    nbytes = float((first * valid).sum()) + 2 * valid.numel()
+    if rank is not None:
+        nbytes += 4 * rank.numel()
+    return bound(nbytes, 0.0, PEAK_F32)
+
+
+def nms_kernel_phase(batch, pbatch, caps, models, dev_line):
+    """Kernel N1 against the plain loop: the inputs the fixpoint and the
+    classfix NMS of predict form on the bench batches (recorded at the
+    wrappers), and a suppression chain that takes one sweep per candidate;
+    booleans equal, ms beside the plain loop's."""
+    import torch
+
+    from yolat_tpu_torch.eval.predict import make_predict_core
+    from yolat_tpu_torch.ops import nms, nms_fixpoint as nf
+
+    seen = {"fix": [], "cls": []}
+
+    def rec_fix(sup, valid):
+        seen["fix"].append((sup.clone(), valid.clone()))
+        return nf.fixpoint_kept(sup, valid)
+
+    def rec_cls(overb, rank, cand):
+        seen["cls"].append((overb.clone(), rank.clone(), cand.clone()))
+        return nf.classfix_kept(overb, rank, cand)
+
+    nms.fixpoint_kept, nms.classfix_kept = rec_fix, rec_cls
+    try:
+        for b, cap, (cfg, folded) in ((batch, caps[0], models["canonical"]),
+                                      (pbatch, caps[1], models["per_edge"])):
+            for alg in ("fixpoint", "classfix"):
+                make_predict_core(cfg.replace(nms_algorithm=alg),
+                                  folded=folded, bf16=True,
+                                  img_slots=cap)(b)
+    finally:
+        nms.fixpoint_kept, nms.classfix_kept = (nf.fixpoint_kept,
+                                                nf.classfix_kept)
+    dev = batch["pos"].device
+    c = 1024
+    chain = torch.zeros(4, c, c, dtype=torch.bool, device=dev)
+    i = torch.arange(1, c, device=dev)
+    chain[:, i, i - 1] = True
+    seen["fix"].append((chain, torch.ones(4, c, dtype=torch.bool, device=dev)))
+    m = 512
+    j = torch.arange(m, device=dev)
+    near = (j[:, None] - j[None, :]).abs() <= 1
+    seen["cls"].append((near.expand(4, m, m).contiguous(),
+                        j.to(torch.int32).expand(4, 2, m).contiguous(),
+                        torch.ones(4, 2, m, dtype=torch.bool, device=dev)))
+    res = {}
+    for key, name, kern, plain in (
+            ("fix", "nms_fixpoint", nf.fixpoint_kept, nf.fixpoint_kept_plain),
+            ("cls", "nms_classfix", nf.classfix_kept,
+             nf.classfix_kept_plain)):
+        cases = seen[key]
+        check(len(cases) == 3, f"{name}: {len(cases)} recorded inputs")
+        rows = []
+        for n_case, args in enumerate(cases):
+            got, want = kern(*args), plain(*args)
+            torch.cuda.synchronize()
+            check(torch.equal(got, want), f"{name} case {n_case}: the kernel's "
+                  "kept set is not the plain loop's")
+            rows.append(int(want.sum()))
+        # the first bench batch's inputs set the row's numbers
+        args = cases[0]
+        ms, plain_ms, device_ms = paired_ms(lambda: kern(*args),
+                                            lambda: plain(*args))
+        kept = plain(*args)
+        b = (_nms_bound(kept, args[0], args[1]) if key == "fix"
+             else _nms_bound(kept, args[0], args[2], args[1]))
+        chain_ms = statistics.median(time_ms(lambda: kern(*cases[-1])))
+        chain_plain = statistics.median(time_ms(lambda: plain(*cases[-1]),
+                                                reps=3))
+        res[name] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+                     "device_ms": device_ms, "library_ms": None, **b}
+        print(f"nms kernel {name}: kept sets equal to the plain loop's on "
+              f"the canonical and YOLaT++ bench batches and a "
+              f"{cases[-1][1].shape[-1]}-long suppression chain (kept "
+              f"{rows}); bench batch {ms:.4f} ms vs plain {plain_ms:.4f} ms, "
+              f"queued {device_ms:.4f}, bound {b['bound_ms']:.6f} "
+              f"({b['bound_by']}); chain {chain_ms:.4f} ms vs plain "
+              f"{chain_plain:.4f} [{dev_line}]")
+    return res
+
+
+def graph_serve_checks(batches, pbatches, dbatches, models, module,
+                       dev_line):
+    """make_serving_fn's CUDA graphs against the eager predict on the
+    unpadded batches: per batch and in a short chunk (2 batches in a
+    3-row graph, the last row replayed), detections bit-identical, on the
+    canonical plan route, the dense route and YOLaT++ per-edge and
+    factored, fast_bf16, and the eval-mode module (`module`: its cfg and
+    model; `cli.infer --serve_mode module`); the launches counted per
+    replay. The module's sparse sums are float atomics: where its eager
+    runs differ, the module route is held to a tolerance."""
+    import numpy as np
+
+    from yolat_tpu_torch.data.packing import to_device
+    from yolat_tpu_torch.eval.predict import (img_slot_cap, make_predict_core,
+                                              make_serving_fn)
+    from yolat_tpu_torch.ops import _build
+    from yolat_tpu_torch.ops.plans import pad_plans
+
+    dev = "cuda"
+    for route, bs, cfg, fkw in (
+            ("plan", batches, models["canonical"][0],
+             dict(folded=models["canonical"][1], bf16=True)),
+            ("dense", dbatches, models["canonical"][0],
+             dict(folded=models["canonical"][1], bf16=True)),
+            ("pp_per_edge", pbatches, models["per_edge"][0],
+             dict(folded=models["per_edge"][1], bf16=True)),
+            ("pp_factored", pbatches, models["factored"][0],
+             dict(folded=models["factored"][1], bf16=True)),
+            ("module", batches, module[0], dict(model=module[1]))):
+        cap = max(img_slot_cap(b) for b in bs)
+        kw = dict(img_slots=cap, detections_only=True, **fkw)
+        predict = make_predict_core(cfg, **kw)
+
+        def eager_run():
+            return [{k: v.cpu().numpy() for k, v in
+                     predict(to_device(b, dev)).items()} for b in bs]
+
+        eager = eager_run()
+        # the module's sparse sums are index_add_'s float atomics: where two
+        # eager runs differ, graph against eager is held to the slice
+        # test's tolerance (the same detections and classes, boxes rtol
+        # 1e-6, scores 1e-5) instead of bit for bit
+        again = eager_run()
+        exact = all(_np_equal(a, e) for a, e in zip(again, eager))
+
+        def same(got, want):
+            if exact:
+                return _np_equal(got, want)
+            return (np.array_equal(got["valid"], want["valid"])
+                    and np.array_equal(got["classes"], want["classes"])
+                    and np.allclose(got["boxes"], want["boxes"], rtol=1e-6,
+                                    atol=1e-4)
+                    and np.allclose(got["scores"], want["scores"], rtol=1e-5,
+                                    atol=1e-5))
+
+        staged = [pad_plans(b) for b in bs]
+        one = make_serving_fn(cfg, staged[0], device=dev, **kw)
+        check(one.route == route, f"route {one.route}, want {route}")
+        _build.reset_launch_counts()
+        got = [one(b).numpy() for b in staged]
+        per_batch = dict(_build.launch_counts)
+        check(all(same(g, e) for g, e in zip(got, eager)),
+              f"{route}: graph detections differ from the eager ones "
+              f"(eager bit-identical to itself: {exact}; max |score diff| "
+              f"{max(float(np.abs(g['scores'] - e['scores']).max()) for g, e in zip(got, eager))})")
+        chunked = make_serving_fn(cfg, staged[0], chunk=SERVE_CHUNK,
+                                  device=dev, **kw)
+        _build.reset_launch_counts()
+        fetched, n_real = chunked(staged)
+        det = fetched.numpy()
+        per_chunk = dict(_build.launch_counts)
+        check(n_real == len(bs), f"n_real {n_real}")
+        for r in range(SERVE_CHUNK):
+            want = eager[min(r, len(bs) - 1)]  # rows past n_real replay the last
+            check(same({k: v[r] for k, v in det.items()}, want),
+                  f"{route}: chunk row {r} differs from the eager detections")
+        shown = {k: v for k, v in per_batch.items() if v}
+        check(shown and all(per_chunk[k] == v // len(bs) * SERVE_CHUNK
+                            for k, v in shown.items()),
+              f"{route}: launches per batch {shown}, per chunk {per_chunk}")
+        try:
+            make_serving_fn(cfg.replace(nms_algorithm="loop"), staged[0],
+                            device=dev, **kw)
+            check(False, "the graph route accepted nms_algorithm loop")
+        except ValueError as e:
+            check("--nms_algorithm" in str(e), f"loop refusal: {e}")
+        print(f"graph serve {route}: detections "
+              f"{'bit-identical to' if exact else 'within tolerance of'} the "
+              f"eager predict (itself bit-identical run to run: {exact}) "
+              f"per batch ({len(bs)}) and in a {SERVE_CHUNK}-row "
+              f"chunk of {len(bs)}; kept keys {len(one.kept_batch_keys)}, "
+              f"{one.route}; launches per batch replay "
+              f"{ {k: v // len(bs) for k, v in shown.items()} } [{dev_line}]")
+
+
+def _state(model) -> dict:
+    return {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+
+def graph_train_checks(route_batches, dev_line):
+    """The train step as CUDA graphs (make_scan_train_step, scan 1 and 3)
+    against the eager step, 3 steps from one init with one generator seed,
+    on each route; and the eager step against itself (its own spread)."""
+    import torch
+
+    from yolat_tpu_torch.cli.profile import open_gates
+    from yolat_tpu_torch.config import PP_ARCHS
+    from yolat_tpu_torch.data.packing import to_device
+    from yolat_tpu_torch.ops.plans import pad_plans
+    from yolat_tpu_torch.train.loop import (make_scan_train_step,
+                                            make_train_step)
+    from yolat_tpu_torch.train.optim import make_optimizer, make_scheduler
+    from yolat_tpu_torch.train.trainer import init_model
+
+    out = {}
+    for route, (cfg, bs) in route_batches.items():
+        seq = [pad_plans(bs[i % len(bs)]) for i in range(GRAPH_STEPS)]
+        runs = {}
+        for arm in ("eager", "eager_again", "eager_float_lr", "graph_1",
+                    "graph_3"):
+            model = init_model(cfg, "cuda")
+            if cfg.arch in PP_ARCHS:
+                open_gates(model)
+            if arm == "eager_float_lr":  # as the CPU route builds it
+                opt = {"adam": torch.optim.Adam, "adamw": torch.optim.AdamW,
+                       "radam": torch.optim.RAdam}[cfg.optimizer](
+                    model.parameters(), lr=cfg.lr,
+                    weight_decay=cfg.weight_decay)
+            else:  # capturable, the rate a device tensor
+                opt = make_optimizer(cfg.optimizer, model.parameters(),
+                                     cfg.lr, cfg.weight_decay)
+            sched = make_scheduler(opt, cfg.lr, 1, 0.5, 2)
+            gen = torch.Generator(device="cuda").manual_seed(5)
+            if arm.startswith("eager"):
+                step = make_train_step(cfg, model, opt, sched)
+                losses = [float(step(to_device(b, "cuda"), gen)["loss"])
+                          for b in seq]
+            else:
+                k = int(arm[-1])
+                run = make_scan_train_step(cfg, model, opt, sched, k)
+                losses = []
+                for c0 in range(0, len(seq), k):
+                    losses += run(seq[c0:c0 + k], gen)["loss"].tolist()
+            runs[arm] = (losses, _state(model))
+
+        def diff(a, b):
+            la = max(abs(x - y) for x, y in zip(runs[a][0], runs[b][0]))
+            pa = max(float((runs[a][1][k].float() - runs[b][1][k].float())
+                           .abs().max()) for k in runs[a][1]
+                     if runs[a][1][k].numel())
+            same = runs[a][0] == runs[b][0] and all(
+                torch.equal(runs[a][1][k], runs[b][1][k]) for k in runs[a][1])
+            return la, pa, same
+
+        d = {arm: diff("eager", arm) for arm in (
+            "eager_again", "eager_float_lr", "graph_1", "graph_3")}
+        check(all(map(_finite, runs["graph_1"][0] + runs["graph_3"][0])),
+              f"{route}: finite graph losses")
+        # the graph runs the eager step's kernels in its order; what can
+        # differ is the order of float atomics (index_add_'s backward, the
+        # scatter-reduce of the pool head), which differs between two eager
+        # runs as well: the graph must be as close to the eager run as the
+        # eager run is to itself (GRAPH_TRAIN_TOL)
+        spread_l, spread_p, eager_same = d["eager_again"]
+        la, pa, _ = d["eager_float_lr"]  # capturable against the float rate
+        check(la <= max(4 * spread_l, GRAPH_TRAIN_TOL[0])
+              and pa <= max(4 * spread_p, GRAPH_TRAIN_TOL[1]),
+              f"{route}: the capturable optimizer moves the losses {la} and "
+              f"the parameters {pa} from the float-rate one")
+        for arm in ("graph_1", "graph_3"):
+            la, pa, same = d[arm]
+            check(same or (not eager_same
+                           and la <= max(4 * spread_l, GRAPH_TRAIN_TOL[0])
+                           and pa <= max(4 * spread_p, GRAPH_TRAIN_TOL[1])),
+                  f"{route} {arm}: losses {la}, parameters {pa} from the "
+                  f"eager run (eager against itself {spread_l}, {spread_p})")
+        out[route] = d
+        print(f"graph train {route}: {GRAPH_STEPS} steps, max |loss diff| / "
+              f"max |state diff| from the eager run (bit-identical): "
+              + ", ".join(f"{a} {v[0]:.3g} / {v[1]:.3g} ({v[2]})"
+                          for a, v in d.items())
+              + f"; losses {[round(v, 5) for v in runs['eager'][0]]} "
+              f"[{dev_line}]")
+    return out
+
+
+def graph_times(batch_np, pbatch_np, route_batches, models, res, dev_line):
+    """Eager against graph, in turns, from cli/profile: fast_bf16 predict
+    (canonical, YOLaT++ per-edge and factored) and the train step per
+    route, wall, device busy, kernels per call, idle share."""
+    from yolat_tpu_torch.cli import profile
+    from yolat_tpu_torch.cli.profile import open_gates
+    from yolat_tpu_torch.config import PP_ARCHS
+
+    for name, nb, (cfg, folded) in (
+            ("serve_canonical", batch_np, models["canonical"]),
+            ("serve_pp_per_edge", pbatch_np, models["per_edge"]),
+            ("serve_pp_factored", pbatch_np, models["factored"])):
+        profile.serve_graph_arms(cfg, nb, "cuda", 20, res, name,
+                                 folded=folded, bf16=True)
+    for route, (cfg, bs) in route_batches.items():
+        profile.train_graph_arms(
+            cfg, bs[0], "cuda", 20, res, f"train_{route}",
+            prepare=open_gates if cfg.arch in PP_ARCHS else None)
+    names = ["serve_canonical", "serve_pp_per_edge", "serve_pp_factored"] + [
+        f"train_{r}" for r in route_batches]
+    for name in names:
+        first = "predict_eager" if name.startswith("serve") else "step_eager"
+        e, g = res[f"{name}_eager_trace"], res[f"{name}_graph_trace"]
+        print(f"graph times {name}: eager {res[f'{name}_{first}_ms']:.3f} ms "
+              f"wall, busy {e['device_busy_ms_per_call']}, "
+              f"{e['device_kernels_per_call']:.0f} kernels, idle "
+              f"{res[f'{name}_eager_idle_share_estimate']}; graph "
+              f"{res[f'{name}_replay_graph_ms']:.3f} ms wall, busy "
+              f"{g['device_busy_ms_per_call']}, "
+              f"{g['device_kernels_per_call']:.0f} kernels, "
+              f"{res[f'{name}_graph_launches_per_replay']} own-kernel "
+              f"launches per replay, idle "
+              f"{res[f'{name}_graph_idle_share_estimate']}"
+              + (f"; from the numpy batch: eager {res[f'{name}_serve_eager_ms']:.3f}"
+                 f", graph {res[f'{name}_serve_graph_ms']:.3f} ms"
+                 if name.startswith("serve") else "") + f" [{dev_line}]")
+
+
+def graph_cli_phase(work, ckpt, train_ckpt_root, dev_line):
+    """cli.infer --chunk 1 against --chunk 8 on GRAPH_SVGS bench SVGs
+    (records byte-identical, SVGs/s in turns 1, 8, 8, 1, graphs captured
+    per run), cli.test fast_bf16 with classfix NMS, cli.train --scan_steps
+    SCAN against 1 (images/s in turns, graphs); returns the launch counts
+    of the first --chunk 8 run (kernel N1's fixpoint row) and of cli.test
+    (its classfix row)."""
+    from yolat_tpu_torch.cli import infer
+    from yolat_tpu_torch.cli import test as test_cli
+    from yolat_tpu_torch.cli import train as train_cli
+    from yolat_tpu_torch.data.dataset import SESYDDataset
+    from yolat_tpu_torch.data.loader import PackedLoader
+    from yolat_tpu_torch.data.synthetic import write_dataset
+    from yolat_tpu_torch.eval.predict import img_slot_cap
+    from yolat_tpu_torch.ops import _build
+
+    root = os.path.join(work, "svgs64")
+    write_dataset(root, n_train=GRAPH_SVGS, n_test=0, seed=13, width=2000.0,
+                  height=1500.0, n_rooms=6, symbols_per_room=(1, 3))
+    caps = {img_slot_cap(b) for b in PackedLoader(
+        SESYDDataset(root, "train", bbox_sampling_step=10), batch_size=BATCH,
+        cache_files=False)}
+    outs, rates, graphs = {}, {1: [], CHUNK: []}, {}
+    counts = None
+    for n_run, chunk in enumerate((CHUNK, 1, CHUNK, CHUNK, 1)):
+        out = os.path.join(work, f"chunk{chunk}_{n_run}.jsonl")
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        infer.main(["--input_dir", root, "--pretrained_model", ckpt, "--out",
+                    out, "--serve_mode", "fast_bf16", "--device", "cuda",
+                    "--conf_th", "0.0", "--batch_size", str(BATCH),
+                    "--chunk", str(chunk)])
+        rate = GRAPH_SVGS / (time.perf_counter() - t0)
+        graphs[chunk] = dict(_build.graph_counts)
+        if n_run == 0:  # the run that warmed the caches, not timed
+            counts = dict(_build.launch_counts)
+        else:
+            rates[chunk].append(rate)
+        with open(out, "rb") as f:
+            outs.setdefault(chunk, f.read())
+        with open(out, "rb") as f:
+            check(f.read() == outs[chunk], "records differ between runs")
+        check(graphs[chunk]["captured"] <= len(caps) + 1,
+              f"--chunk {chunk}: {graphs[chunk]} graphs for caps {caps}")
+    check(outs[1] == outs[CHUNK], f"--chunk {CHUNK} and --chunk 1 records "
+          "differ")
+    check(counts["nms_fixpoint"] > 0, f"N1 launches {counts}")
+    print(f"graph cli.infer: {GRAPH_SVGS} SVGs, records byte-identical at "
+          f"--chunk 1 and {CHUNK}; SVGs/s --chunk 1 {rates[1]}, --chunk "
+          f"{CHUNK} {rates[CHUNK]} (caches warm, in turns); graphs "
+          f"{graphs} for slot caps {sorted(caps)} [{dev_line}]")
+
+    _build.reset_launch_counts()
+    table = test_cli.main([
+        "--data_dir", train_ckpt_root, "--phase", "test", "--device", "cuda",
+        "--batch_size", str(BATCH), "--pretrained_model", ckpt,
+        "--serve_mode", "fast_bf16", "--nms_algorithm", "classfix"])
+    tcounts = table["launches"]
+    check(tcounts["nms_classfix"] > 0 and _finite(table["map_all"]),
+          f"cli.test classfix launches {tcounts}")
+    print(f"graph cli.test fast_bf16 classfix: MAP@0.5 {table['map_50']:.4f}, "
+          f"launches { {k: v for k, v in tcounts.items() if v} }, graphs "
+          f"{dict(_build.graph_counts)} [{dev_line}]")
+
+    troot = os.path.join(work, "train16")
+    write_dataset(troot, n_train=GRAPH_TRAIN_SVGS, n_test=2, seed=17,
+                  width=2000.0, height=1500.0, n_rooms=6,
+                  symbols_per_room=(1, 3))
+    trates = {1: [], SCAN: []}
+    for n_run, scan in enumerate((1, SCAN, SCAN, 1)):
+        res = train_cli.main([
+            "--data_dir", troot, "--device", "cuda", "--dtype", "bfloat16",
+            "--fused_head_train", "true", "--batch_size", str(BATCH),
+            "--max_steps", str(2 * GRAPH_TRAIN_SVGS // BATCH),
+            "--scan_steps", str(scan), "--root_dir",
+            os.path.join(work, f"log_scan{n_run}"), "--print_freq", "4"])
+        check(res["steps"] == 2 * GRAPH_TRAIN_SVGS // BATCH
+              and all(map(_finite, res["losses"])), f"scan {scan}: {res['steps']}"
+              " steps")
+        check(res["graphs"]["captured"] == 1 and res["graphs"]["replayed"]
+              == res["steps"] - 1, f"scan {scan}: graphs {res['graphs']}")
+        trates[scan].append(res["images"] / res["train_seconds"])
+    print(f"graph cli.train: {2 * GRAPH_TRAIN_SVGS // BATCH} bf16 fused steps "
+          f"of batch {BATCH}, images/s --scan_steps 1 {trates[1]}, "
+          f"--scan_steps {SCAN} {trates[SCAN]} (first step and capture "
+          f"included; in turns); one graph per run, replayed per step "
+          f"[{dev_line}]")
+    return counts, tcounts
+
+
 def _finite(v) -> bool:
     return v == v and abs(v) != float("inf")
 
@@ -2705,6 +3169,50 @@ def main() -> int:
         # the preprocessing pools
         host_phase(root, train_root, ckpt, work, host_build, dev_line)
 
+        # 19. CUDA graphs: kernel N1 against the plain loop, the serving
+        # and train graphs against the eager steps, eager against graph
+        # times, the CLIs' --chunk and --scan_steps
+        from yolat_tpu_torch.eval.predict import img_slot_cap
+        gmodels = {"canonical": (cfg, folded),
+                   "per_edge": (pp_cfg, models["per_edge"][1]),
+                   "factored": (pp_cfg.replace(pp_factored_prim=True),
+                                models["factored"][1])}
+        res.update(nms_kernel_phase(
+            batch, pbatch, (img_slot_cap(batches[0]), img_slot_cap(pp_np)),
+            gmodels, dev_line))
+        pp_batches = list(PackedLoader(ds, batch_size=BATCH, prefetch=0,
+                                       **extra_plans_for(pp_cfg)))
+        dense_batches = list(PackedLoader(ds, batch_size=BATCH, prefetch=0,
+                                          edge_window=False, dense=True))
+        graph_serve_checks(batches, pp_batches, dense_batches, gmodels,
+                           (cfg, model.eval()), dev_line)
+        tds = SESYDDataset(train_root, "train", bbox_sampling_step=10)
+        routes = {
+            "bf16_fused": Config(dtype="bfloat16", fused_head_train=True),
+            "bf16_unfused_dropout": Config(dtype="bfloat16", dropout=0.1),
+            "window": Config(dtype="bfloat16", train_layout="window"),
+            "dense": Config(dtype="bfloat16", train_layout="dense"),
+            "pp_per_edge": pp_cfg.replace(dtype="bfloat16"),
+            "pp_banded": pp_cfg.replace(dtype="bfloat16",
+                                        pp_banded_super=True),
+            "pp_factored": pp_cfg.replace(dtype="bfloat16",
+                                          pp_factored_prim=True)}
+        route_batches = {}
+        for route, rcfg in routes.items():
+            rcfg = rcfg.replace(n_classes=tds.n_classes)
+            window = rcfg.train_layout == "window"
+            route_batches[route] = (rcfg, list(PackedLoader(
+                tds, batch_size=BATCH, prefetch=0, edge_window=window,
+                ew_transpose=window, dense=rcfg.train_layout == "dense",
+                **train_plans_for(rcfg))))
+        graph_train_checks(route_batches, dev_line)
+        gres: dict = {}
+        graph_times(batches[0], pp_np, route_batches, gmodels, gres, dev_line)
+        fix_counts, cls_counts = graph_cli_phase(work, ckpt, train_root,
+                                                 dev_line)
+        counts["nms_fixpoint"] = fix_counts["nms_fixpoint"]
+        counts["nms_classfix"] = cls_counts["nms_classfix"]
+
     # the kernels line
     sources = {"edge_window_message_sum": (
                    "yolat_tpu_torch/csrc/edge_window.cu",
@@ -2753,7 +3261,14 @@ def main() -> int:
                    "yolat_tpu/ops/banded_train.py:319"),
                "edge_window_decomp": (
                    "yolat_tpu_torch/csrc/edge_window.cu",
-                   "scripts/ew_kernel_decomp.py:105")}
+                   "scripts/ew_kernel_decomp.py:105"),
+               # N1: no TPU kernel; XLA's lax.while_loop on the TPU
+               "nms_fixpoint": (
+                   "yolat_tpu_torch/csrc/nms_fixpoint.cu",
+                   "yolat_tpu/ops/nms.py:211"),
+               "nms_classfix": (
+                   "yolat_tpu_torch/csrc/nms_fixpoint.cu",
+                   "yolat_tpu/ops/nms.py:297")}
     check(all(counts[k] > 0 for k in sources),
           f"every kernel was launched on its path: {counts}")
     kernels = [{"name": k, "route": "cuda", "source": sources[k][0],

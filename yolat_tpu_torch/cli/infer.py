@@ -5,7 +5,7 @@ Counterpart of `yolat_tpu/cli/infer.py`, on PyTorch and one CUDA device:
   python -m yolat_tpu_torch.cli.infer --input_dir DIR \
       --pretrained_model ckpt.pth [--out detections.jsonl] [--conf_th 0.5] \
       [--serve_mode fast|fast_bf16|module] [--device cuda]
-      [--preproc_workers N]
+      [--preproc_workers N] [--chunk 8]
       [--arch yolat_pp [--pp_factored_prim true] | --profile yolat_pp_fast]
 
 Records are those of the JAX CLI:
@@ -22,8 +22,14 @@ prints SVGs/s and the launch counts of the serving kernels: 1 and 2, and
 for YOLaT++ also 5 and 6. `--preproc_workers N` runs the validation
 pass and the loader's cold loads in N spawn processes (`_validate_files`,
 `PackedLoader(preproc_workers=)`); the records are those of N = 0.
-Not ported here: Orbax checkpoints and the chunked single-buffer dispatch
-of `make_serving_fn`.
+`--chunk K` (default 8, as the JAX CLI's) serves K loader batches per
+dispatch through `eval/predict.make_serving_fn`: their kept arrays in one
+buffer and one transfer, and on the card one CUDA graph per (slot cap,
+shape signature) over K predict bodies; chunks never mix signatures, and
+a chunk's records are written after the next chunk is dispatched (a
+one-deep result pipeline, `yolat_tpu/cli/infer.py:197-310`). The records
+do not depend on K. The end line also prints the graphs captured and
+replayed. Not ported here: Orbax checkpoints.
 """
 
 from __future__ import annotations
@@ -41,11 +47,12 @@ from yolat_tpu_torch.cli.train import _bool, explicit_flags
 from yolat_tpu_torch.config import PP_ARCHS, PROFILES, Config, apply_profile
 from yolat_tpu_torch.data.dataset import SESYDDataset
 from yolat_tpu_torch.data.loader import PackedLoader, extra_plans_for
-from yolat_tpu_torch.data.packing import to_device
 from yolat_tpu_torch.eval import fast_forward as ff
-from yolat_tpu_torch.eval.predict import img_slot_cap, make_predict_core
+from yolat_tpu_torch.data.staging import batch_signature
+from yolat_tpu_torch.eval.predict import img_slot_cap, make_serving_fn
 from yolat_tpu_torch.nn.model import build_model, load_reference_checkpoint
 from yolat_tpu_torch.ops import _build
+from yolat_tpu_torch.ops.plans import pad_plans
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -86,6 +93,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--nms_topk", default=d.nms_topk, type=int)
     p.add_argument("--preproc_workers", default=0, type=int,
                    help="host preprocessing processes (0 = in-process)")
+    p.add_argument("--chunk", default=8, type=int,
+                   help="loader batches per dispatch (one transfer, on the "
+                        "card one CUDA graph of that many predict bodies); "
+                        "1 = per batch")
     p.add_argument("--skip_errors", default=True,
                    action=argparse.BooleanOptionalAction,
                    help="unparseable SVGs become {'error': ...} records "
@@ -166,6 +177,7 @@ def main(argv=None):
     cfg = _config(args, explicit_flags(build_parser(), argv),
                   ds.n_classes if ds is not None else 1)
     launched = dict(_build.launch_counts)  # this run's launches are the rise
+    graphs = dict(_build.graph_counts)
     t_start = time.perf_counter()
     n_images = 0
     with open(args.out, "w") as out_f:
@@ -182,9 +194,12 @@ def main(argv=None):
     shown = ("edge_window_message_sum", "folded_mlp_block_max2") + (
         ("banded_message_sum", "banded_message_sum_both")
         if cfg.arch in PP_ARCHS else ())
+    graphed = {k: v - graphs[k] for k, v in _build.graph_counts.items()}
     print(f"{n_images} SVGs -> {args.out}: {n_images / wall:.2f} SVGs/sec "
           f"end-to-end on {name}{skipped}; kernel launches: "
-          + ", ".join(f"{k}={counts[k]}" for k in shown))
+          + ", ".join(f"{k}={counts[k]}" for k in shown)
+          + f"; CUDA graphs captured={graphed['captured']}, "
+          f"replayed={graphed['replayed']}")
     return counts
 
 
@@ -216,34 +231,80 @@ def _serve(args, cfg, ds, device, out_f) -> int:
                           cache_files=False,
                           preproc_workers=args.preproc_workers,
                           **extra_plans_for(cfg))
+    chunk = max(1, args.chunk)
+    predict_by_key: dict = {}
+
+    def get_predict(cap, batch):
+        key = (cap, batch_signature(batch))
+        if key not in predict_by_key:
+            predict_by_key[key] = make_serving_fn(
+                cfg, batch, chunk=chunk if chunk > 1 else None, device=device,
+                folded=folded, model=model,
+                bf16=args.serve_mode == "fast_bf16", max_det=cfg.max_det,
+                img_slots=cap, detections_only=True)
+        return predict_by_key[key]
+
     n = 0
+
+    def write_rows(det, batch):
+        nonlocal n
+        for img in range(int(batch["n_images"])):
+            path = ds.files[n]
+            n += 1
+            keep = det["valid"][img] & (det["scores"][img] >= args.conf_th)
+            dets = [{"box": [round(float(c), 2)
+                             for c in det["boxes"][img][d]],
+                     "score": round(float(det["scores"][img][d]), 4),
+                     "class": id2name[int(det["classes"][img][d])]}
+                    for d in np.flatnonzero(keep)]
+            w, h = batch["wh"][img]
+            out_f.write(json.dumps({
+                "file": (os.path.relpath(path, ds.root) if ds.root
+                         else path),
+                "width": float(w), "height": float(h),
+                "detections": dets,
+            }) + "\n")
+
+    def consume(fetched, batches):
+        """Write one dispatched chunk's records; called after the next
+        chunk's dispatch, so the fetch and the host formatting overlap
+        the device."""
+        det = fetched.numpy()
+        if chunk > 1:  # [K, B, ...]
+            for i, b in enumerate(batches):
+                write_rows({k: v[i] for k, v in det.items()}, b)
+        else:
+            write_rows(det, batches[0])
+
+    pending: list = []
+    buf: list = []
+    caps: list = []
+
+    def flush():
+        if not buf:
+            return
+        fn = get_predict(max(caps), buf[0])
+        out = fn(list(buf))[0] if chunk > 1 else fn(buf[0])
+        pending.append((out, list(buf)))
+        buf.clear()
+        caps.clear()
+        while len(pending) > 1:
+            consume(*pending.pop(0))
+
     try:
         for batch in loader:
-            # the exact per-image NMS slot cap of this batch
-            # (eval/runner.py:40)
-            predict = make_predict_core(
-                cfg, folded=folded, model=model,
-                bf16=args.serve_mode == "fast_bf16", max_det=cfg.max_det,
-                img_slots=img_slot_cap(batch), detections_only=True)
-            det = predict(to_device(batch, device))
-            det = {k: v.cpu().numpy() for k, v in det.items()}
-            for img in range(int(batch["n_images"])):
-                path = ds.files[n]
-                n += 1
-                keep = (det["valid"][img]
-                        & (det["scores"][img] >= args.conf_th))
-                dets = [{"box": [round(float(c), 2)
-                                 for c in det["boxes"][img][d]],
-                         "score": round(float(det["scores"][img][d]), 4),
-                         "class": id2name[int(det["classes"][img][d])]}
-                        for d in np.flatnonzero(keep)]
-                w, h = batch["wh"][img]
-                out_f.write(json.dumps({
-                    "file": (os.path.relpath(path, ds.root) if ds.root
-                             else path),
-                    "width": float(w), "height": float(h),
-                    "detections": dets,
-                }) + "\n")
+            b = pad_plans(batch)
+            if buf and batch_signature(b) != batch_signature(buf[0]):
+                flush()  # chunks never mix signatures
+            buf.append(b)
+            # the exact per-image NMS slot cap (eval/runner.py:40); a chunk
+            # takes its largest, which gives the same detections
+            caps.append(img_slot_cap(b))
+            if len(buf) >= chunk:
+                flush()
+        flush()
+        while pending:
+            consume(*pending.pop(0))
     finally:
         loader.close()
     return n

@@ -49,6 +49,13 @@ temporary directory under build/ and times each stage of the loop of
           train batch, and a trace of each (device busy, kernels per step,
           own kernels by name).
 
+Each of the five stages also runs the CUDA graph route beside the eager
+one (`serve_graph_arms`, `train_graph_arms`), in turns (eager, graph,
+graph, eager): fast_bf16 predict for serve and for both YOLaT++
+checkpoints, the traced train arms of train and all three of train_pp;
+wall per batch or step, device busy, kernels per call, idle share, and the
+kernel launches a replay holds. A predict arm holds the detections' fetch.
+
 It has no JAX counterpart module: the JAX package timed its stages in
 `bench.py`, whose batch this is. Host times are medians of `--reps`
 calls (loads: of every image). Prints
@@ -76,12 +83,15 @@ from yolat_tpu_torch.data.loader import (PackedLoader, extra_plans_for,
 from yolat_tpu_torch.data.packing import (CompactFile, add_dense_neighbors,
                                           finalize_batch, pack_files,
                                           to_device)
+from yolat_tpu_torch.data.staging import fetch
 from yolat_tpu_torch.data.synthetic import write_dataset
 from yolat_tpu_torch.eval.fast_forward import (fast_forward, fast_forward_pp,
                                                fold_params, fold_params_pp)
-from yolat_tpu_torch.eval.predict import img_slot_cap, make_predict_core
+from yolat_tpu_torch.eval.predict import (img_slot_cap, make_predict_core,
+                                          make_serving_fn)
 from yolat_tpu_torch.nn.model import seeded_model
-from yolat_tpu_torch.train.loop import make_train_step
+from yolat_tpu_torch.ops.plans import pad_plans
+from yolat_tpu_torch.train.loop import make_scan_train_step, make_train_step
 from yolat_tpu_torch.train.optim import make_optimizer
 from yolat_tpu_torch.train.trainer import init_model
 
@@ -98,7 +108,8 @@ _OWN_KERNEL_RE = re.compile(
     r"|pair_fwd_kernel|pair_bwd_kernel"
     r"|wsum_fwd_kernel|wsum_bwd_kernel|banded_kernel|banded_tc_kernel"
     r"|sum_rows_by_perm_kernel"
-    r"|gather_pair_kernel|gather_bwd_kernel)(<[^>(]*>)?")
+    r"|gather_pair_kernel|gather_bwd_kernel|fixpoint_kernel"
+    r"|classfix_kernel)(<[^>(]*>)?")
 
 
 def nvidia_smi() -> str:
@@ -213,6 +224,8 @@ def _serve_stages(nb, n_classes: int, dev, reps: int, res: dict) -> None:
     res["idle_share_estimate"] = (
         None if busy is None
         else 1.0 - busy / res["predict_fast_bf16_ms_per_batch"])
+    serve_graph_arms(cfg, nb, dev, reps, res, "serve_fast_bf16",
+                     folded=folded, bf16=True)
 
 
 def _serve_dense_stage(packs, n_classes: int, dev, reps: int, res: dict) -> None:
@@ -298,6 +311,13 @@ def _serve_pp_stage(nb, n_classes: int, dev, reps: int, res: dict) -> None:
             times[k].append(_median_ms(runs[k], reps, True))
     for k in names:
         res[f"{k}_ms_per_batch"] = statistics.median(times[k])
+    for variant, factored in (("per_edge", False), ("factored", True)):
+        cfg = Config(arch="yolat_pp", n_classes=n_classes,
+                     pp_factored_prim=factored)
+        folded = fold_params_pp(seeded_model(cfg).to(dev), dev)
+        serve_graph_arms(cfg, nb, dev, reps, res,
+                         f"serve_pp_{variant}_fast_bf16", folded=folded,
+                         bf16=True)
     for variant in ("per_edge", "factored"):
         key = f"pp_{variant}_trace"
         res[key] = _trace(runs[f"predict_pp_{variant}_fast_bf16"], reps)
@@ -305,6 +325,101 @@ def _serve_pp_stage(nb, n_classes: int, dev, reps: int, res: dict) -> None:
         res[f"pp_{variant}_idle_share_estimate"] = (
             None if busy is None else 1.0 - busy / res[
                 f"predict_pp_{variant}_fast_bf16_ms_per_batch"])
+
+
+def _in_turns(arms: dict, reps: int) -> dict:
+    """Median synchronised ms of each arm, the arms run in order and then
+    in reverse (eager, graph, graph, eager for two)."""
+    names = list(arms)
+    times = {k: [] for k in names}
+    for order in (names, names[::-1]):
+        for k in order:
+            times[k].append(_median_ms(arms[k], reps, True))
+    return {k: statistics.median(v) for k, v in times.items()}
+
+
+def _busy(res: dict, key: str, fn, reps: int, wall_ms: float) -> None:
+    """A trace of fn under `key`, and its idle share against `wall_ms`."""
+    res[key] = _trace(fn, reps)
+    busy = res[key]["device_busy_ms_per_call"]
+    res[key.replace("trace", "idle_share_estimate")] = (
+        None if busy is None else 1.0 - busy / wall_ms)
+
+
+def serve_graph_arms(cfg, nb, dev, reps: int, res: dict, name: str,
+                     **kw) -> None:
+    """The eager predict against its CUDA graph (`make_serving_fn`) on one
+    numpy batch, in turns: `predict_eager` and `replay_graph` on the
+    batch already on the device (detections fetched), `serve_eager` and
+    `serve_graph` from the numpy batch (to_device or the staged transfer,
+    then predict and fetch); traces of the two device-resident arms
+    (device busy, kernels per call, idle share)."""
+    staged = pad_plans(nb)
+    cap = img_slot_cap(nb)
+    predict = make_predict_core(cfg, img_slots=cap, detections_only=True,
+                                **kw)
+    fn = make_serving_fn(cfg, staged, device=dev, img_slots=cap,
+                         detections_only=True, **kw)
+    batch = to_device(staged, dev)
+    fn(staged)  # the capture
+    step = fn.captured[0]
+    arms = {
+        "predict_eager": lambda: {k: v.cpu() for k, v in
+                                  predict(batch).items()},
+        "replay_graph": lambda: fetch(step.replay()).numpy(),
+        "serve_eager": lambda: {k: v.cpu() for k, v in
+                                predict(to_device(staged, dev)).items()},
+        "serve_graph": lambda: fn(staged).numpy(),
+    }
+    for _ in range(3):
+        for a in arms.values():
+            a()
+    for k, v in _in_turns(arms, reps).items():
+        res[f"{name}_{k}_ms"] = v
+    _busy(res, f"{name}_eager_trace", arms["predict_eager"], reps,
+          res[f"{name}_predict_eager_ms"])
+    _busy(res, f"{name}_graph_trace", arms["replay_graph"], reps,
+          res[f"{name}_replay_graph_ms"])
+    res[f"{name}_graph_launches_per_replay"] = sum(step.launches.values())
+
+
+def train_graph_arms(cfg, nb, dev, reps: int, res: dict, name: str,
+                     prepare=None) -> None:
+    """The eager train step against its CUDA graph
+    (`make_scan_train_step`), two models from the same init, each on the
+    batch already on the device, in turns: `step_eager` and
+    `replay_graph` (synchronised ms per step), with a trace of each.
+    `prepare(model)` edits a fresh model (the YOLaT++ gates)."""
+    staged = pad_plans(nb)
+    batch = to_device(staged, dev)
+    steps = {}
+    for arm in ("eager", "graph"):
+        model = init_model(cfg, dev)
+        if prepare is not None:
+            prepare(model)
+        opt = make_optimizer(cfg.optimizer, model.parameters(), cfg.lr,
+                             cfg.weight_decay)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        if arm == "eager":
+            step = make_train_step(cfg, model, opt)
+            steps["step_eager"] = (lambda step=step, gen=gen:
+                                   step(batch, gen))
+        else:
+            run = make_scan_train_step(cfg, model, opt, None, 1)
+            run([staged], gen)  # the eager first step, then the capture
+            captured = next(iter(run.captured.values()))["graph"]
+            steps["replay_graph"] = captured.replay
+            res[f"{name}_graph_launches_per_replay"] = sum(
+                captured.launches.values())
+    for _ in range(3):
+        for a in steps.values():
+            a()
+    for k, v in _in_turns(steps, reps).items():
+        res[f"{name}_{k}_ms"] = v
+    _busy(res, f"{name}_eager_trace", steps["step_eager"], reps,
+          res[f"{name}_step_eager_ms"])
+    _busy(res, f"{name}_graph_trace", steps["replay_graph"], reps,
+          res[f"{name}_replay_graph_ms"])
 
 
 def _trace(fn, reps: int) -> dict:
@@ -376,6 +491,11 @@ def _train_stage(packs, n_classes: int, dev, reps: int, res: dict,
             times[name].append(_median_ms(steps[name], reps, sync=True))
     for name in names:
         res[f"train_step_{name}_ms"] = statistics.median(times[name])
+    for name, kw in arms:
+        if name in traced:
+            cfg = Config(n_classes=n_classes, data_aug=True, **kw)
+            train_graph_arms(cfg, packs[cfg.train_layout], dev, reps, res,
+                             f"train_{name}")
     for name in traced:
         key = "train_trace" if name == traced[-1] else f"train_trace_{name}"
         res[key] = _trace(steps[name], reps)
@@ -393,6 +513,14 @@ PP_TRAIN_ARMS = (
                               "iou_aware_mode": "rel"}))
 
 
+def open_gates(model) -> None:
+    """Open YOLaT++'s gates (closed gates would skip the levels'
+    backward)."""
+    with torch.no_grad():
+        for i, g in enumerate(PP_GATES):
+            getattr(model, g).fill_(0.3 + 0.1 * i)
+
+
 def _train_pp_stage(packs, n_classes: int, dev, reps: int, res: dict) -> None:
     """The YOLaT++ train step at bf16 on its three routes, in turns, and a
     trace of each."""
@@ -402,9 +530,7 @@ def _train_pp_stage(packs, n_classes: int, dev, reps: int, res: dict) -> None:
                      dtype="bfloat16", **kw)
         batch = to_device(packs[pack], dev)
         model = init_model(cfg, dev)
-        with torch.no_grad():  # closed gates would skip the levels' backward
-            for i, g in enumerate(PP_GATES):
-                getattr(model, g).fill_(0.3 + 0.1 * i)
+        open_gates(model)
         opt = make_optimizer(cfg.optimizer, model.parameters(), cfg.lr,
                              cfg.weight_decay)
         step = make_train_step(cfg, model, opt)
@@ -421,6 +547,11 @@ def _train_pp_stage(packs, n_classes: int, dev, reps: int, res: dict) -> None:
     for order in (names, names[::-1]):  # each arm early and late once
         for name in order:
             times[name].append(_median_ms(steps[name], reps, sync=True))
+    for name, pack, kw in PP_TRAIN_ARMS:
+        cfg = Config(arch="yolat_pp", n_classes=n_classes, data_aug=True,
+                     dtype="bfloat16", **kw)
+        train_graph_arms(cfg, packs[pack], dev, reps, res,
+                         f"train_pp_{name}", prepare=open_gates)
     for name in names:
         res[f"train_pp_step_{name}_ms"] = statistics.median(times[name])
         key = f"train_pp_{name}_trace"

@@ -10,16 +10,19 @@ the same names:
       [--arch yolat_pp [--pp_banded_super true | --pp_factored_prim true]]
       [--profile yolat_pp_fast] [--eval_start 20] [--root_dir log]
       [--pretrained_model ckpt_dir|ckpt_dir/ckpt_<tag>|ref.pth]
-      [--max_steps N] [--device cuda]
+      [--scan_steps K] [--max_steps N] [--device cuda]
 
 `--device` defaults to cuda and raises when CUDA is absent; the CLI never
 moves to the CPU on its own. `--max_steps` ends the run after N train
-steps (evaluating and checkpointing that epoch). The last line prints the
+steps (evaluating and checkpointing that epoch). On the card every train
+step is a CUDA graph replay (`train/loop.make_scan_train_step`);
+`--scan_steps K` (default 1) stages K batches in one transfer and replays
+their steps back to back, fetching their losses once. The last line prints the
 train rate (steps/s and images/s over the synchronised train-step wall
 time) and the launch counts of the fused pool head's kernels and of the
 window layout's kernels 9 and 10 and of the banded YOLaT++ route's
 kernels 7 and 8, forward and backward apart (they count the evaluation's
-forward passes too).
+forward passes too), and the CUDA graphs captured and replayed.
 
 `--arch yolat_pp` trains YOLaT++ (`nn/yolat_pp.py`) on one of three routes
 through its primitive level: per super edge over the padded buffer (the
@@ -105,6 +108,10 @@ def build_parser() -> argparse.ArgumentParser:
     add("--profile", default=d.profile, type=str,
         choices=("",) + tuple(PROFILES),
         help="named flag bundle; flags typed beside it keep their values")
+    add("--scan_steps", default=d.scan_steps, type=int,
+        help="train steps per dispatch: their batches cross in one "
+             "transfer and, on the card, replay one CUDA graph back to "
+             "back, with one loss fetch per chunk")
     add("--max_steps", default=0, type=int,
         help="stop after this many train steps (0: run every epoch)")
     add("--device", default="cuda", type=str)
@@ -152,9 +159,11 @@ def main(argv=None) -> dict:
     device = device_from_arg(args.device)
     cfg = config_from_args(args, argv).replace(phase="train")
     launched = dict(_build.launch_counts)  # this run's launches are the rise
+    graphs = dict(_build.graph_counts)
     _, results = run_training(cfg, device, max_steps=args.max_steps or None)
     counts = {k: v - launched[k] for k, v in _build.launch_counts.items()}
-    results["launches"] = counts
+    graphed = {k: v - graphs[k] for k, v in _build.graph_counts.items()}
+    results["launches"], results["graphs"] = counts, graphed
     secs = max(results["train_seconds"], 1e-9)
     print(f"best test_value={results.get('best_value', 0):.4f} "
           f"MAP@0.5={results.get('map_50', 0):.4f} "
@@ -168,7 +177,9 @@ def main(argv=None) -> dict:
               "ew_pair_features", "ew_pair_features_bwd",
               "ew_window_segment_sum", "ew_window_segment_sum_bwd",
               "banded_gather", "banded_gather_bwd", "banded_scatter_own",
-              "banded_scatter_own_bwd")))
+              "banded_scatter_own_bwd"))
+          + f"; CUDA graphs captured={graphed['captured']}, "
+          f"replayed={graphed['replayed']}")
     return results
 
 

@@ -110,6 +110,9 @@ class Config:
                                     # 9 and 10 over the edge-window plan) or
                                     # 'dense' (the neighbour table)
     fused_head_train: bool = False  # the fused pool head (kernels 3 and 11)
+    scan_steps: int = 1             # train steps per dispatch: one transfer
+                                    # of that many batches, their steps
+                                    # replayed back to back (JAX: lax.scan)
     iou_aware_loss: bool = False    # soft {class: q, background: 1-q} targets
     iou_aware_mode: str = "abs"     # q = IoU ('abs') or IoU / best sibling
     pos_class_weight: float = 1.0   # positive rows' loss weight

@@ -293,7 +293,7 @@ def fast_forward_pp(folded: dict, batch: dict, bf16: bool = False,
     s_f = feats[-1]
     cf = s_f.shape[1]
     cw, csc = folded["curve_mlp"]
-    na = batch["e_attr"].shape[1]
+    na = cwd.attr.shape[1]
     w_attr, w_src, w_dst = cw[:na], cw[na:na + cf], cw[na + cf:]
     if curve_fused:
         dst_sum, src_sum = bsum_both(s_f, cwd, w_dst, w_src, w_attr, csc)

@@ -8,6 +8,11 @@ to one forward over all proposals plus a selection mask
   keep(p) = is_root(p) or argmax(logits[root_of(p)]) == background,
 then the x1.05 box inflation, the score rewrite [1 - p_bg, p_0..p_K-1],
 pixel scaling, a per-image slot layout and class-offset NMS.
+
+`make_serving_fn` is the counterpart of `yolat_tpu/eval/predict.py:212-405`
+(`kept_batch_keys`, `make_serving_fn`): the batch's kept leaves in one
+buffer, one transfer, and on the card one CUDA graph per signature,
+optionally over a chunk of K batches.
 """
 
 from __future__ import annotations
@@ -17,9 +22,13 @@ import torch
 
 from yolat_tpu_torch.config import PP_ARCHS
 from yolat_tpu_torch.data.packing import finalize_batch
+from yolat_tpu_torch.data.staging import PackSpec, StagedBuffers, fetch
 from yolat_tpu_torch.eval.fast_forward import fast_forward, fast_forward_pp
 from yolat_tpu_torch.ops.iou import inflate_boxes
 from yolat_tpu_torch.ops.nms import batched_nms
+from yolat_tpu_torch.ops.plans import (EW_BATCH_KEYS, EW_KEYS, SEW_KEYS,
+                                       ew_of)
+from yolat_tpu_torch.utils.cuda_graph import CapturedStep
 
 
 def img_slot_cap(batch: dict, quantum: int = 256) -> int:
@@ -108,3 +117,115 @@ def make_predict_core(cfg, folded=None, model=None, bf16: bool = False,
         return nms
 
     return predict
+
+
+# what every serving route reads of a batch (the predict core and the pool
+# head): the engine reads `labels` and `gt_bbox` only for their shapes
+_POOL_KEYS = tuple("pool_" + k for k in (
+    "blk_first", "blk_full", "bnd_rows", "bnd_seg", "bnd_mask"))
+_COMMON_KEYS = ("pos", "node_mask", "bbox_idx", "labels", "bbox",
+                "prop_count", "proposal_mask", "is_root", "root_slot",
+                "image_id", "wh", "gt_bbox") + _POOL_KEYS
+_ROUTE_KEYS = {
+    "plan": EW_KEYS + ("ew_wn_tag", "dst_count"),
+    "dense": ("nbr_idx", "nbr_attr", "nbr_mask"),
+    "pp_per_edge": EW_BATCH_KEYS + ("dst_count", "src_count",
+                                    "super_dst_count") + SEW_KEYS,
+    "pp_factored": EW_BATCH_KEYS + ("dst_count", "src_count", "sup_member",
+                                    "sup_rank", "sup_abar", "prop_first_row"),
+}
+
+
+def serving_route(cfg, example: dict, folded=None) -> str:
+    """The serving route a batch takes: 'module' (no fold: the eval-mode
+    module), 'plan' (the edge-window plan, kernel 1), 'dense' (the dense
+    table, kernel 4), 'pp_per_edge' or 'pp_factored' (YOLaT++ by its
+    checkpoint), by the engines' own rules."""
+    if folded is None:
+        return "module"
+    if getattr(cfg, "arch", "") in PP_ARCHS:
+        return "pp_factored" if "super_fact_mlp" in folded else "pp_per_edge"
+    if ew_of(example) is not None and "dst_count" in example:
+        return "plan"
+    if "nbr_idx" in example:
+        return "dense"
+    raise ValueError("the serving engine needs the edge-window plan or the "
+                     "dense neighbour table")
+
+
+def kept_batch_keys(route: str, example: dict) -> tuple:
+    """The batch keys a route's predict reads, sorted: the JAX function
+    finds them by dead-code elimination of the traced program
+    (`yolat_tpu/eval/predict.py:212-238`); PyTorch has no trace, so each
+    route states its list (tests/test_torch_serving_fn.py runs each route
+    with every other key deleted). The module route keeps every array."""
+    if route == "module":
+        return tuple(sorted(k for k, v in example.items() if np.ndim(v)))
+    return tuple(sorted(_COMMON_KEYS + _ROUTE_KEYS[route]))
+
+
+def make_serving_fn(cfg, example_batch: dict, chunk: int | None = None,
+                    device="cuda", **kw):
+    """Transfer-fused serving over `make_predict_core(cfg, **kw)` for
+    numpy batches of `example_batch`'s shape signature (pad the plans to
+    capacity first: `ops.plans.pad_plans`).
+
+    The route's kept arrays (`kept_batch_keys`) of each batch are packed
+    into one buffer (`PackSpec`; bf16 wire under kw bf16 with folded
+    params) and cross in one transfer; the step reads views of it. On the
+    card the step is a CUDA graph (`utils.cuda_graph.CapturedStep`),
+    captured at the first call after an eager warm-up: one graph per
+    serving fn, that is per (route, img_slots, signature) as its callers
+    memoize it. `nms_algorithm='loop'` reads back per pick and is refused
+    there. On the CPU the same pack, unpack and chunk code runs the eager
+    core.
+
+    fn(batch) -> `Fetched` detections. With chunk=K, fn(batches) takes 1
+    to K batches, packs them into the rows of a [K, total] buffer (a short
+    chunk repeats its last row, as the JAX function does) and runs K
+    predict bodies in one graph, the counterpart of `lax.map`; it returns
+    (Fetched with a leading [K] axis, n_real): rows n_real: are replays the
+    caller drops. Outputs are static memory that the next replay
+    overwrites; their copy to the host is queued before it.
+    """
+    device = torch.device(device)
+    core = make_predict_core(cfg, **kw)
+    route = serving_route(cfg, example_batch, kw.get("folded"))
+    if device.type == "cuda" and cfg.nms_algorithm == "loop":
+        raise ValueError(
+            "--nms_algorithm loop is the sequential oracle: it reads back "
+            "per pick and cannot run inside a CUDA graph; serve with "
+            "fixpoint or classfix (the same detections), or evaluate "
+            "through the eager route (--serve_mode flax)")
+    keys = kept_batch_keys(route, example_batch)
+    spec = PackSpec(example_batch, keys,
+                    bf16_wire=bool(kw.get("bf16")) and route != "module")
+    rows = 1 if chunk is None else int(chunk)
+    staged = StagedBuffers(spec, rows, device)
+
+    def body(buf):
+        outs = [core(spec.unpack(buf[r])) for r in range(rows)]
+        if chunk is None:
+            return outs[0]
+        return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+
+    graph = []
+
+    def run(batches):
+        buf = staged.stage(batches)
+        if device.type != "cuda":
+            return fetch(body(buf))
+        if not graph:
+            graph.append(CapturedStep(lambda: body(buf)))
+        return fetch(graph[0].replay())
+
+    if chunk is None:
+        def fn(batch):
+            return run([batch])
+    else:
+        def fn(batches):
+            return run(list(batches)), len(batches)
+    fn.kept_batch_keys = keys
+    fn.route = route
+    fn.captured = graph  # [the CapturedStep] after the first call on the card
+    return fn

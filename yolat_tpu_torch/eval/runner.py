@@ -5,8 +5,10 @@ device) on the port's `make_predict_core`: the device runs the forward and
 NMS per batch, the host accumulates the protocol metrics
 (`eval/metrics.Evaluator`). `serve` picks the forward: 'flax' the
 eval-mode module (the parity route; the name is the JAX package's),
-'fast' / 'fast_bf16' the folded-BN engine of cfg's arch with its
-kernels.
+eager, 'fast' / 'fast_bf16' the folded-BN engine of cfg's arch with its
+kernels, through `make_serving_fn` (one transfer of the kept arrays, on
+the card a CUDA graph) with the plans at capacity, one per (slot cap,
+signature), as `yolat_tpu/eval/runner.py:80-100` does.
 """
 
 from __future__ import annotations
@@ -17,7 +19,10 @@ import torch
 from yolat_tpu_torch.data.packing import to_device
 from yolat_tpu_torch.eval.fast_forward import fold_params_for
 from yolat_tpu_torch.eval.metrics import Evaluator
-from yolat_tpu_torch.eval.predict import img_slot_cap, make_predict_core
+from yolat_tpu_torch.data.staging import batch_signature
+from yolat_tpu_torch.eval.predict import (img_slot_cap, make_predict_core,
+                                          make_serving_fn)
+from yolat_tpu_torch.ops.plans import pad_plans
 
 
 def evaluate(cfg, model, loader, max_det: int = 300, verbose: bool = False,
@@ -32,14 +37,25 @@ def evaluate(cfg, model, loader, max_det: int = 300, verbose: bool = False,
     model.eval()
     folded = fold_params_for(cfg, model, device) if serve != "flax" else None
     ev = Evaluator(cfg.n_classes)
+    fast_fns: dict = {}
     try:
         for batch in loader:
-            predict = make_predict_core(
-                cfg, folded=folded, model=model, bf16=serve == "fast_bf16",
-                max_det=max_det, img_slots=img_slot_cap(batch))
-            with torch.no_grad():
-                out = {k: v.cpu().numpy()
-                       for k, v in predict(to_device(batch, device)).items()}
+            cap = img_slot_cap(batch)
+            if folded is None:
+                predict = make_predict_core(cfg, model=model, max_det=max_det,
+                                            img_slots=cap)
+                with torch.no_grad():
+                    out = {k: v.cpu().numpy() for k, v in
+                           predict(to_device(batch, device)).items()}
+            else:
+                staged = pad_plans(batch)
+                key = (cap, batch_signature(staged))
+                if key not in fast_fns:
+                    fast_fns[key] = make_serving_fn(
+                        cfg, staged, device=device, folded=folded,
+                        bf16=serve == "fast_bf16", max_det=max_det,
+                        img_slots=cap)
+                out = fast_fns[key](staged).numpy()
             kept = out["kept"]
             ev.add_proposals(out["pred_label"][kept], batch["labels"][kept])
             for img in range(min(batch["gt_bbox"].shape[0],

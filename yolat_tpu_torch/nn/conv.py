@@ -16,7 +16,7 @@ one evaluates in another:
   * window (`ew` given: `ops.plans.ew_train_of`): the gathers and the
     per-node sum, and their backward passes, run through the trainable
     edge-window ops (`ops/edge_window_train.py`, kernels 9 and 10) over the
-    plan's E real edges, with no padding row and no mask;
+    plan's real edges, BatchNorm masking the capacity padding's rows;
   * dense (`nbr` given: the neighbour table (nbr_idx [N, D], nbr_attr
     [N, D, 4], nbr_mask [N, D])): the MLP over the flattened [N * D] slots,
     BatchNorm over the masked slots, a masked mean over D;
@@ -32,6 +32,7 @@ from torch import nn
 from yolat_tpu_torch.nn.layers import MLP
 from yolat_tpu_torch.ops.edge_window_train import (ew_pair_features,
                                                    ew_window_segment_sum_n)
+from yolat_tpu_torch.ops.plans import real_rows
 from yolat_tpu_torch.ops.segment import segment_mean
 
 
@@ -45,7 +46,9 @@ class AttrEdgeGP2(nn.Module):
     def _window_mean(self, x, ew, ew_attr, dst_count):
         n = x.shape[0]
         g = ew_pair_features(x, ew)
-        msg = self.nn(torch.cat([g, ew_attr.to(x.dtype)], dim=1))
+        # the plan's real rows: a batch at capacity has pad rows past dptr[N]
+        msg = self.nn(torch.cat([g, ew_attr.to(x.dtype)], dim=1),
+                      real_rows(ew[2], g.shape[0]))
         s = ew_window_segment_sum_n(msg, ew, n)
         if dst_count is None:
             ones = torch.ones(g.shape[0], 1, dtype=torch.float32,

@@ -59,7 +59,8 @@ class MaskedBatchNorm(nn.Module):
                 total = (xf * m).sum(dim=0)
                 total_sq = (xf * xf * m).sum(dim=0)
             else:
-                count = torch.tensor(float(x.shape[0]), device=x.device)
+                # a fill, not a host-to-device copy: capturable
+                count = xf.new_full((), float(x.shape[0]))
                 total = xf.sum(dim=0)
                 total_sq = (xf * xf).sum(dim=0)
             count = torch.clamp(count, min=1.0)

@@ -69,7 +69,7 @@ from yolat_tpu_torch.nn.conv import AttrEdgeGP2
 from yolat_tpu_torch.nn.layers import MLP, FusedPoolFusion
 from yolat_tpu_torch.nn.model import FUSION, takes_fused_head
 from yolat_tpu_torch.ops.banded_train import banded_gather, banded_scatter_own
-from yolat_tpu_torch.ops.plans import bm_of, plan_of, sup_plan_of
+from yolat_tpu_torch.ops.plans import bm_of, plan_of, real_rows, sup_plan_of
 from yolat_tpu_torch.ops.segment import (segment_broadcast, segment_max,
                                          segment_max_concat, segment_mean)
 
@@ -182,8 +182,10 @@ class YOLaTPlusPlus(nn.Module):
             x_own, x_oth = banded_gather(s_f, bm)
             prim_in = torch.cat([x_own, x_oth - x_own, bm.attr.to(s_f.dtype)],
                                 dim=1)
-            # the plan's rows are the real super edges: no mask
-            tok = self.super_edge_mlp(prim_in)
+            # the plan's real rows: a batch at capacity has pad rows past
+            # nptr[N]
+            tok = self.super_edge_mlp(prim_in,
+                                      real_rows(bm.nptr, prim_in.shape[0]))
             total = banded_scatter_own(tok, bm, s_f.shape[0])
             count = torch.clamp(batch["super_dst_count"].float(), min=1.0)
             return (total / count[:, None]).to(s_f.dtype)

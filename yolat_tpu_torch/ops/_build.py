@@ -11,7 +11,11 @@ libyolat_kernels.so, keyed on a hash of the sources and flags (`build/`
 is git-ignored); ptxas's register and spill report is kept beside it in
 ptxas.log. The library is loaded with ctypes. A build failure raises; nothing falls back. The
 launch counters are plain integers the kernel wrappers bump where they
-launch (and nowhere else), so a run can show its path went through them.
+launch (and nowhere else), so a run can show its path went through them;
+every launch goes on `torch.cuda.current_stream()` (`stream_of`), so a
+wrapper called under CUDA graph capture is recorded into the graph. A
+captured graph's launches are taken off the counts at capture, where
+nothing ran, and added back at each replay (`utils/cuda_graph.py`).
 """
 
 from __future__ import annotations
@@ -30,7 +34,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "yolat_tpu_torch")
 SOURCES = ("edge_window.cu", "block_max.cu", "fused_pool_train.cu",
            "edge_window_train.cu", "dense_message.cu", "banded_message.cu",
-           "banded_train.cu")
+           "banded_train.cu", "nms_fixpoint.cu")
 HEADERS = ("common.cuh", "row_kernels.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
@@ -45,15 +49,20 @@ launch_counts = {"edge_window_message_sum": 0, "folded_mlp_block_max2": 0,
                  "ew_window_segment_sum_bwd": 0, "banded_message_sum": 0,
                  "banded_message_sum_both": 0, "banded_gather": 0,
                  "banded_gather_bwd": 0, "banded_scatter_own": 0,
-                 "banded_scatter_own_bwd": 0, "edge_window_decomp": 0}
+                 "banded_scatter_own_bwd": 0, "edge_window_decomp": 0,
+                 "nms_fixpoint": 0, "nms_classfix": 0}
+# CUDA graphs captured and replayed (`utils/cuda_graph.py`)
+graph_counts = {"captured": 0, "replayed": 0}
 
 _lock = threading.Lock()
 _lib = None
 
 
 def reset_launch_counts() -> None:
-    for k in launch_counts:
-        launch_counts[k] = 0
+    """Set every launch count, and the graph counts, to 0."""
+    for counts in (launch_counts, graph_counts):
+        for k in counts:
+            counts[k] = 0
 
 
 def _nvcc() -> str:
@@ -164,6 +173,12 @@ def library() -> ctypes.CDLL:
         lib.yk_banded_scatter_own.restype = i
         lib.yk_banded_scatter_own_bwd.argtypes = [p] * 3 + [i] * 4 + [p]
         lib.yk_banded_scatter_own_bwd.restype = i
+        lib.yk_nms_fixpoint.argtypes = [p] * 3 + [i] * 2 + [p]
+        lib.yk_nms_fixpoint.restype = i
+        lib.yk_nms_classfix.argtypes = [p] * 4 + [i] * 3 + [p]
+        lib.yk_nms_classfix.restype = i
+        lib.yk_nms_smem_bytes.argtypes = [i]
+        lib.yk_nms_smem_bytes.restype = ctypes.c_long
         lib.yk_error_string.argtypes = [i]
         lib.yk_error_string.restype = ctypes.c_char_p
         _lib = lib

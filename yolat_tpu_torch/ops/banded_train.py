@@ -14,9 +14,12 @@ the list's transpose by the other endpoint (tperm [E], tptr [N + 1]).
 
 The TPU plan lays the edges out in blocks of 256 rows per 512-node window,
 padded with masked rows, and every tensor between the two primitives lives
-in that layout; here the rows are the E real edges and nothing is masked.
-BatchNorm over these rows sees the population the sparse route's masked
-rows give it.
+in that layout; here the rows are the real edges, followed, in a batch at
+capacity (`ops.plans.pad_plans`), by pad rows past nptr[N]: the gather
+maps them (to the last node row), the sum and the gather's backward never
+read them, and the sum's backward gives them 0. BatchNorm over these rows
+masks them (`nn/yolat_pp.py`), so it sees the population the sparse
+route's masked rows give it.
 
   gather forward    x_own[r] = x[own r], x_oth[r] = x[oth r]   in x's type
   gather backward   dx[v] = sum_{own r = v} g_own[r]
@@ -48,6 +51,7 @@ import torch
 
 from yolat_tpu_torch.ops import _build
 from yolat_tpu_torch.ops.edge_window_train import _check_int31
+from yolat_tpu_torch.ops.plans import real_rows
 
 _FLOATS = (torch.float32, torch.bfloat16)
 
@@ -132,7 +136,8 @@ def gather_fwd(x, own, oth):
 def gather_bwd(g_own, g_oth, own, oth, nptr, tperm, tptr, n: int):
     """Kernel 7b: g_own, g_oth [E, C] -> dx [n, C] in their type."""
     if not _route(g_own, "banded_gather_bwd"):
-        return gather_bwd_plain(g_own, g_oth, own, oth, n)
+        e = int(nptr[-1])  # the real rows (capacity padding left out)
+        return gather_bwd_plain(g_own[:e], g_oth[:e], own[:e], oth[:e], n)
     e, c = g_own.shape
     if e == 0 or n == 0 or c == 0:
         return torch.zeros(n, c, dtype=g_own.dtype, device=g_own.device)
@@ -156,7 +161,8 @@ def gather_bwd(g_own, g_oth, own, oth, nptr, tperm, tptr, n: int):
 def scatter_own_fwd(rows, own, nptr, n: int):
     """Kernel 8: rows [E, C] -> [n, C] f32."""
     if not _route(rows, "banded_scatter_own"):
-        return scatter_own_plain(rows, own, n)
+        e = int(nptr[-1])
+        return scatter_own_plain(rows[:e], own[:e], n)
     e, c = rows.shape
     if e == 0 or n == 0 or c == 0:
         return torch.zeros(n, c, dtype=torch.float32, device=rows.device)
@@ -215,14 +221,18 @@ class _BandedGather(torch.autograd.Function):
 class _BandedScatterOwn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, rows, own, nptr, n: int):
-        ctx.save_for_backward(own)
+        ctx.save_for_backward(own, nptr)
         ctx.dtype = rows.dtype
         return scatter_own_fwd(rows, own, nptr, n)
 
     @staticmethod
     def backward(ctx, g):
-        (own,) = ctx.saved_tensors
-        return scatter_own_bwd(g.float(), own, ctx.dtype), None, None, None
+        own, nptr = ctx.saved_tensors
+        d_rows = scatter_own_bwd(g.float(), own, ctx.dtype)
+        # a pad row is in no sum: its gradient is 0, not g at its own row
+        keep = real_rows(nptr, d_rows.shape[0])[:, None]
+        return (torch.where(keep, d_rows, d_rows.new_zeros(())), None, None,
+                None)
 
 
 def _sorted_plan(bm, name: str) -> None:

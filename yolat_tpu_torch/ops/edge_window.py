@@ -52,8 +52,11 @@ def _split_w1(w1, c: int, dtype):
 def edge_window_message_sum_plain(x, ew, w1, sc1, w2, sc2):
     """Plain PyTorch version: x [N, C] f32/bf16, ew = (src [E], dst [E],
     attr [E, A], wptr [NW + 1], wn) from `ops.plans.ew_of`, w1 [2C+A, H],
-    sc1/sc2 [2, H], w2 [H, H] -> [N, H] f32."""
-    src, dst, attr = ew[:3]
+    sc1/sc2 [2, H], w2 [H, H] -> [N, H] f32. Rows past wptr[-1] (the
+    capacity padding of `ops.plans.pad_plans`) are left out, as the
+    kernel's windows leave them out."""
+    e = int(ew[3][-1])
+    src, dst, attr = (t[:e] for t in ew[:3])
     n, c = x.shape
     dt = x.dtype
     w1s = _split_w1(w1, c, dt).float()

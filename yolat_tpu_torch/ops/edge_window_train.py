@@ -9,9 +9,12 @@ Counterpart of `yolat_tpu/ops/edge_window_train.py`: `ew_pair_features`
 (src [E], dst [E] ascending, dptr [N + 1], sperm [E], sptr [N + 1]).
 
 The TPU layout pads every window of 256 nodes to a fixed edge capacity and
-marks the real rows with a mask; here the edge rows are the E real edges in
-dst order and there is no padding row and no mask. BatchNorm over these rows
-sees the population the sparse branch's masked rows give it.
+marks the real rows with a mask; here the edge rows are the real edges in
+dst order, followed, in a batch at capacity (`ops.plans.pad_plans`), by pad
+rows past dptr[N]: the pair gather maps them (to the last node row), the
+sums and the pair backward never read them, and the sum's backward gives
+them 0. BatchNorm over these rows masks them (`nn/conv.py`), so it sees
+the population the sparse branch's masked rows give it.
 
   pair forward   g[e] = [x[dst e] || x[src e] - x[dst e]]      in x's type
   pair backward  dx[v] = sum_{dst e = v} (dg0[e] - dg1[e])
@@ -39,6 +42,7 @@ from __future__ import annotations
 import torch
 
 from yolat_tpu_torch.ops import _build
+from yolat_tpu_torch.ops.plans import real_rows
 
 _FLOATS = (torch.float32, torch.bfloat16)
 
@@ -120,7 +124,8 @@ def pair_fwd(x, src, dst):
 def pair_bwd(dg, src, dst, dptr, sperm, sptr, n: int):
     """Kernel 9's backward: dg [E, 2C] -> dx [n, C] in dg's type."""
     if not _route(dg, "ew_pair_features_bwd"):
-        return pair_bwd_plain(dg, src, dst, n)
+        e = int(dptr[-1])  # the real rows (capacity padding left out)
+        return pair_bwd_plain(dg[:e], src[:e], dst[:e], n)
     e, c = dg.shape[0], dg.shape[1] // 2
     _check_index("dptr", dptr, n + 1, dg)
     _check_index("sperm", sperm, e, dg)
@@ -143,7 +148,8 @@ def pair_bwd(dg, src, dst, dptr, sperm, sptr, n: int):
 def wsum_fwd(h, dst, dptr, n: int):
     """Kernel 10's forward: h [E, C] -> [n, C] f32."""
     if not _route(h, "ew_window_segment_sum"):
-        return wsum_fwd_plain(h, dst, n)
+        e = int(dptr[-1])
+        return wsum_fwd_plain(h[:e], dst[:e], n)
     e, c = h.shape
     _check_index("dptr", dptr, n + 1, h)
     out = torch.empty(n, c, dtype=torch.float32, device=h.device)
@@ -201,14 +207,17 @@ class _PairFeatures(torch.autograd.Function):
 class _WindowSegmentSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, h, dst, dptr, n: int):
-        ctx.save_for_backward(dst)
+        ctx.save_for_backward(dst, dptr)
         ctx.dtype = h.dtype
         return wsum_fwd(h, dst, dptr, n)
 
     @staticmethod
     def backward(ctx, g):
-        (dst,) = ctx.saved_tensors
-        return wsum_bwd(g.float(), dst, ctx.dtype), None, None, None
+        dst, dptr = ctx.saved_tensors
+        dh = wsum_bwd(g.float(), dst, ctx.dtype)
+        # a pad row is in no sum: its gradient is 0, not g at its dst row
+        keep = real_rows(dptr, dh.shape[0])[:, None]
+        return torch.where(keep, dh, dh.new_zeros(())), None, None, None
 
 
 def ew_pair_features(x, ewt):

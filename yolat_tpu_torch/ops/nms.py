@@ -10,8 +10,11 @@ greedy suppression at IoU > iou_thres, at most max_det detections.
 of kept_i = valid_i and no kept j ranked above i with IoU > th. The JAX
 function's `lax.top_k` ranks equal scores lowest index first; torch.topk
 promises no order, so candidates are ranked with a stable sort of -score.
-Here the images of a batch run together ([B, ...] leading axis), one
-fixed-point loop for all of them.
+Here the images of a batch run together ([B, ...] leading axis). Both
+fixed points run on the device (`ops/nms_fixpoint.py`, kernel N1) for CUDA
+tensors, as the JAX package's `lax.while_loop`s do, and as the plain loop
+for CPU tensors. `loop` reads back per pick and cannot be captured in a
+CUDA graph: the graph route (`eval/predict.make_serving_fn`) refuses it.
 
 `classfix` is exact greedy NMS over all M x K candidates: classes never
 suppress each other under the class offset, so the [M, M] box IoU is
@@ -24,6 +27,8 @@ kept scores over the class-major [K, M] layout, again by a stable sort.
 from __future__ import annotations
 
 import torch
+
+from yolat_tpu_torch.ops.nms_fixpoint import classfix_kept, fixpoint_kept
 
 MAX_WH = 4096.0  # class-offset magnitude (train.py:45)
 MAX_NMS = 30000  # candidate cap before suppression (train.py:47)
@@ -89,13 +94,7 @@ def _fixpoint_nms(flat_conf, cand_valid, boxes, K: int, iou_thres: float,
     # j suppresses i only if j outranks i (strictly lower triangle)
     above = torch.ones(C, C, dtype=torch.bool, device=ob.device).tril(-1)
     sup = (iou > iou_thres) & above
-
-    def step(kept):
-        return tvalid & ~(sup & kept[:, None, :]).any(dim=2)
-
-    prev, kept = tvalid, step(tvalid)
-    while bool((kept != prev).any()):
-        prev, kept = kept, step(kept)
+    kept = fixpoint_kept(sup, tvalid)
 
     rank = torch.cumsum(kept.to(torch.int64), dim=1) - 1
     sel = kept & (rank < max_det)
@@ -135,19 +134,8 @@ def _class_fixpoint_nms(boxes, conf, cand_valid, iou_thres: float,
     order = torch.sort(-s, dim=2, stable=True).indices
     rank = torch.empty_like(order).scatter_(
         2, order, torch.arange(M, device=dev).expand(B, K, M)
-    ).to(torch.int32)  # the [B, K, M, M] sweep below is made of these
-    big = torch.full_like(rank[:, :, :, None], M)
-
-    def step(kept):
-        # the best (lowest) rank among the kept boxes j that overlap i; i
-        # itself contributes its own rank, never below it
-        kj = kept[:, :, :, None] & overb[:, None, :, :]   # [B, K, Mj, Mi]
-        mn = torch.where(kj, rank[:, :, :, None], big).amin(dim=2)
-        return cand & ~(mn < rank)
-
-    prev, kept = cand, step(cand)
-    while bool((kept != prev).any()):
-        prev, kept = kept, step(kept)
+    ).to(torch.int32)
+    kept = classfix_kept(overb, rank, cand.contiguous())
 
     flat = torch.where(kept, s, torch.full_like(s, float("-inf"))
                        ).reshape(B, K * M)

@@ -1,5 +1,5 @@
-"""Pack-time plans (numpy only): the two-level pool plan, the edge-window
-plan and the banded-message plans.
+"""Pack-time plans (numpy): the two-level pool plan, the edge-window plan
+and the banded-message plans, and their capacity padding (`pad_plans`).
 
 Counterparts of `yolat_tpu/ops/segment.py:26-131` (`POOL_BLOCK`,
 `pool_plan`, `plan_of`, `_plan_aligned`), with identical
@@ -36,6 +36,7 @@ keys and only the super-edge clique family (`sew_`) is packed anew.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 POOL_BLOCK = 8
 
@@ -244,6 +245,75 @@ def banded_plan(edge, mask, attr, n_nodes: int, sortby: int = 1,
     return plan
 
 
+def sew_cnode_cap(n_super: int, n_nodes: int,
+                  block_work: int = SEW_BLOCK_WORK) -> int:
+    """Entries of `sew_cnode` at capacity: a plan of E <= n_super edges over
+    n_nodes nodes cuts its E + N units of work every `block_work`, so it
+    has at most ceil((n_super + n_nodes) / block_work) cuts and the end."""
+    return -(-(n_super + n_nodes) // block_work) + 1
+
+
+def pad_plans(batch: dict) -> dict:
+    """The numpy batch with its content-shaped plan arrays at capacity, so
+    that every batch of one loader (one `PadSizes`) has one shape
+    signature and a CUDA graph captured on one replays on all of them:
+
+      ew_src, ew_dst, ew_attr, ew_sperm  the edge buffer's rows (`edge`)
+      sew_own, sew_oth, sew_attr, sew_tperm  the super buffer's rows
+                                         (`edge_super`)
+      sew_cnode                          `sew_cnode_cap` entries
+
+    A pad row lies past every pointer range (ew_wptr, ew_dptr, ew_sptr,
+    sew_nptr, sew_tptr end at the real count, which is where the pad rows
+    start; the permutations map them to themselves), names the last node
+    row (a valid row; the dst- and own-sorted lists stay sorted) and
+    carries zero attributes; a pad cnode range is empty (cut at N). The
+    kernels walk the pointer ranges, and the ops that map every row (the
+    gathers 7 and 9, the sums' backward 8b and 10b, BatchNorm over the
+    rows) mask by row < pointer end (`real_rows`), so no pad row reaches
+    a sum or a gradient. Other keys, and a plan already at capacity, are
+    left as they are."""
+    out = dict(batch)
+    n = batch["pos"].shape[0]
+
+    def rows(prefix, keys, perm, cap):
+        e = batch[prefix + keys[0]].shape[0]
+        if e == cap:
+            return
+        if e > cap:
+            raise ValueError(f"{prefix} plan of {e} rows over a {cap}-row "
+                             "buffer")
+        for k in keys:
+            a = batch[prefix + k]
+            fill = n - 1 if a.ndim == 1 else 0
+            out[prefix + k] = np.concatenate(
+                [a, np.full((cap - e,) + a.shape[1:], fill, a.dtype)])
+        if prefix + perm in batch:
+            out[prefix + perm] = np.concatenate(
+                [batch[prefix + perm], np.arange(e, cap, dtype=np.int32)])
+
+    if "ew_src" in batch:
+        rows("ew_", ("src", "dst", "attr"), "sperm", batch["edge"].shape[0])
+    if "sew_own" in batch:
+        s = batch["edge_super"].shape[0]
+        rows("sew_", ("own", "oth", "attr"), "tperm", s)
+        cn = batch["sew_cnode"]
+        cap = sew_cnode_cap(s, n)
+        if len(cn) > cap:
+            raise ValueError(f"sew_cnode of {len(cn)} entries over its "
+                             f"capacity {cap}")
+        out["sew_cnode"] = np.concatenate(
+            [cn, np.full(cap - len(cn), n, cn.dtype)])
+    return out
+
+
+def real_rows(ptr, n_rows: int):
+    """[n_rows] bool: the rows of a plan list below its real count, the
+    last entry of the plan's pointer array `ptr` (False on the rows that
+    `pad_plans` adds). Device ops only: nothing is read back."""
+    return torch.arange(n_rows, device=ptr.device) < ptr[-1]
+
+
 class BandedPlan(tuple):
     """What kernels 5 and 6 read of one edge family, as a tuple
     (own, oth, attr, perm, nptr, cnode, wn, tperm, tptr):
@@ -266,13 +336,16 @@ class BandedPlan(tuple):
 
     @property
     def n_edges(self) -> int:
+        """The plan's rows, capacity padding included."""
         return self.own.shape[0]
 
     def rows(self):
-        """(own, oth, attr) in the sorted order, as long indices."""
+        """(own, oth, attr) of the real rows in the sorted order, as long
+        indices (the count is read back: for the plain versions)."""
+        e = int(self.nptr[-1])
         if self.perm is None:
-            return self.own.long(), self.oth.long(), self.attr
-        p = self.perm.long()
+            return self.own[:e].long(), self.oth[:e].long(), self.attr[:e]
+        p = self.perm[:e].long()
         return self.own.long()[p], self.oth.long()[p], self.attr[p]
 
 

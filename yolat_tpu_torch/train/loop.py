@@ -1,7 +1,7 @@
-"""The single-device train step.
+"""The single-device train step, eager and as a CUDA graph.
 
-Counterpart of `yolat_tpu/train/loop.py:106-225` (`compute_dtype_of`,
-`_step_body`, `make_train_step`; `build_model` is
+Counterpart of `yolat_tpu/train/loop.py:106-267` (`compute_dtype_of`,
+`_step_body`, `make_train_step`, `make_scan_train_step`; `build_model` is
 `yolat_tpu_torch.nn.model.build_model`): augmentation
 epilogue -> forward in train mode (masked BatchNorm statistics, running
 statistics moved in place) -> masked CE loss -> gradients -> optimizer
@@ -15,17 +15,25 @@ so this cast is the one place that sets its type) for the forward
 gradients come back to the f32 master weights through the casts), while
 BatchNorm buffers and batch statistics stay f32. No torch.autocast: it
 rounds at other points than the JAX step.
+
+`make_train_step` is the eager step: the CPU path and the oracle.
+`make_scan_train_step` runs K steps per call from one staged transfer; on
+the card each step replays one CUDA graph (see its docstring).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 from torch.func import functional_call
 
 from yolat_tpu_torch.data.packing import finalize_batch
+from yolat_tpu_torch.data.staging import (PackSpec, StagedBuffers,
+                                          batch_signature)
 from yolat_tpu_torch.nn.model import detection_loss
 from yolat_tpu_torch.ops.plans import (EW_BATCH_KEYS, SEW_KEYS,
                                        SEW_TRAIN_KEYS)
+from yolat_tpu_torch.utils.cuda_graph import CapturedStep
 
 # float batch fields that feed matmuls: cast to the compute dtype
 _COMPUTE_KEYS = ("x", "pos", "e_attr", "nbr_attr", "e_attr_super")
@@ -93,7 +101,9 @@ def make_train_step(cfg, model, optimizer, scheduler=None):
     def step(batch: dict, generator=None, aug=None):
         fb = prepare_batch(cfg, batch, generator, aug)
         loss = forward_loss(cfg, model, fb, generator)
-        optimizer.zero_grad(set_to_none=True)
+        # zeroed in place: a captured step keeps its gradients in buffers
+        # that stay put (`make_scan_train_step`)
+        optimizer.zero_grad(set_to_none=False)
         loss["loss"].backward()
         optimizer.step()
         if scheduler is not None:
@@ -101,3 +111,96 @@ def make_train_step(cfg, model, optimizer, scheduler=None):
         return {k: v.detach() for k, v in loss.items()}
 
     return step
+
+
+def train_batch_keys(cfg, batch: dict) -> tuple:
+    """The arrays of a numpy batch that the step reads: every array but
+    the ones `prepare_batch` drops; 0-d leaves (n_images) stay on the
+    host."""
+    dropped = set(_DENSE_KEYS) if cfg.train_layout != "dense" else set()
+    if cfg.drop_edge > 0.0:
+        dropped |= set(_EDGE_STALE_KEYS)
+    return tuple(sorted(k for k, v in batch.items()
+                        if np.ndim(v) and k not in dropped))
+
+
+def _eager_checked(fn):
+    """fn() on a side stream with every host synchronisation an error: the
+    capture that follows would fail on one, here it fails where it is."""
+    mode = torch.cuda.get_sync_debug_mode()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.cuda.stream(stream):
+            out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    torch.cuda.current_stream().wait_stream(stream)
+    return out
+
+
+def make_scan_train_step(cfg, model, optimizer, scheduler, n_steps: int):
+    """run(batches, generator) -> {'loss', 'loss_cls'}, each [len(batches)]
+    on the model's device: 1 to n_steps train steps over numpy batches of
+    one shape signature (plans at capacity: `ops.plans.pad_plans`), in
+    order; the model and optimizer are updated in place. The counterpart
+    of `make_scan_train_step` (`yolat_tpu/train/loop.py:228-267`), whose
+    one dispatch runs K steps through `lax.scan`.
+
+    The batches' arrays (`train_batch_keys`) cross in one transfer of a
+    [n_steps, total] buffer (`data.staging`). On the card each step is one
+    replay of a CUDA graph of the eager step (`make_train_step`: forward,
+    loss, backward, optimizer), one graph per signature: the first step of a
+    signature runs eagerly under `torch.cuda.set_sync_debug_mode('error')`
+    (a hidden read-back raises there), then the step is captured with the
+    generator registered, so augmentation and dropout draw what the eager
+    step would. Between replays the batch row is copied into the graph's
+    input buffer and the schedule writes the next rate; nothing is read
+    back inside a chunk. The optimizer must be capturable
+    (`train.optim.make_optimizer` on CUDA parameters). On the CPU the same
+    staging runs the eager step (`make_train_step`).
+    """
+    step = make_train_step(cfg, model, optimizer)  # the schedule steps here
+    device = next(model.parameters()).device
+    graphs: dict = {}
+
+    def run(batches, generator=None) -> dict:
+        sig = batch_signature(batches[0])
+        if any(batch_signature(b) != sig for b in batches[1:]):
+            raise ValueError("a scan chunk mixes batch shape signatures")
+        ent = graphs.get(sig)
+        if ent is None:
+            spec = PackSpec(batches[0], train_batch_keys(cfg, batches[0]))
+            ent = graphs[sig] = {
+                "spec": spec, "staged": StagedBuffers(spec, n_steps, device),
+                "row": (torch.empty(spec.total, dtype=torch.uint8,
+                                    device=device)
+                        if device.type == "cuda" else None),
+                "graph": None, "generator": generator}
+        spec, buf, row = ent["spec"], ent["staged"].stage(batches), ent["row"]
+        metrics = []
+        for r in range(len(batches)):
+            if row is None:
+                metrics.append(step(spec.unpack(buf[r]), generator))
+            elif ent["graph"] is None:
+                row.copy_(buf[r])
+                metrics.append(_eager_checked(
+                    lambda: step(spec.unpack(row), generator)))
+                ent["graph"] = CapturedStep(
+                    lambda: step(spec.unpack(row), generator),
+                    generators=() if generator is None else (generator,),
+                    warmup=False)
+            elif generator is not ent["generator"]:
+                raise ValueError("a captured train step draws from the "
+                                 "generator it was captured with")
+            else:
+                row.copy_(buf[r])
+                metrics.append({k: v.clone()
+                                for k, v in ent["graph"].replay().items()})
+            if scheduler is not None:
+                scheduler.step()
+        return {k: torch.stack([m[k] for m in metrics]) for k in metrics[0]}
+
+    run.captured = graphs  # per signature; its "graph" is the CapturedStep
+    return run

@@ -2,8 +2,13 @@
 
 Counterpart of `yolat_tpu/train/trainer.py:27-321` (`run_training`; the
 reference's cad_recognition/train.py:173-321) for a single process on one
-device: no mesh, no multi-host, no `scan_steps` chains, no buckets or
-mixup. The loaders pack what cfg.train_layout's conv branch reads
+device: no mesh, no multi-host, no buckets or mixup. The steps go through
+`train/loop.make_scan_train_step` (on the card CUDA graph replays) in
+chunks of `cfg.scan_steps` batches of one shape signature, the plans at
+capacity (`ops.plans.pad_plans`), as the JAX trainer chunks them
+(`yolat_tpu/train/trainer.py:216-288`); a chunk cut short by a new
+signature, the epoch's end or `max_steps` runs as it is, and each chunk's
+losses are fetched once. The loaders pack what cfg.train_layout's conv branch reads
 ('window' is refused together with edge dropout, which would leave its
 plan stale) and, for a YOLaT++ arch, the super-edge family: the train
 loader with the clique family's plan and its transpose only under
@@ -31,16 +36,17 @@ import torch
 from yolat_tpu_torch.data.dataset import SESYDDataset
 from yolat_tpu_torch.data.loader import (PackedLoader, extra_plans_for,
                                          train_plans_for)
-from yolat_tpu_torch.data.packing import to_device
+from yolat_tpu_torch.data.staging import batch_signature
 from yolat_tpu_torch.eval.runner import evaluate
 from yolat_tpu_torch.nn.layers import init_weights
 from yolat_tpu_torch.nn.model import build_model
 from yolat_tpu_torch.ops import _build
+from yolat_tpu_torch.ops.plans import pad_plans
 from yolat_tpu_torch.train.checkpoint import (CheckpointManager,
                                               load_train_state,
                                               split_checkpoint_path,
                                               state_from_pth, train_state)
-from yolat_tpu_torch.train.loop import make_train_step
+from yolat_tpu_torch.train.loop import make_scan_train_step
 from yolat_tpu_torch.train.optim import make_optimizer, make_scheduler
 from yolat_tpu_torch.utils.experiment import (ScalarWriter, configure_logger,
                                               make_experiment_dir)
@@ -130,7 +136,10 @@ def run_training(cfg, device, exp_dir: str | None = None,
 
     if device.type == "cuda":
         _build.library()  # build the kernels as set-up, outside the timed loop
-    step_fn = make_train_step(cfg, model, optimizer, scheduler)
+    if cfg.scan_steps < 1:
+        raise ValueError(f"scan_steps {cfg.scan_steps}: at least 1")
+    scan_fn = make_scan_train_step(cfg, model, optimizer, scheduler,
+                                   cfg.scan_steps)
     generator = torch.Generator(device=device).manual_seed(cfg.seed + 1)
     losses = AverageMeter()
     test_value = 0.0
@@ -141,35 +150,61 @@ def run_training(cfg, device, exp_dir: str | None = None,
     done = False
     for epoch in range(start_epoch + 1, cfg.total_epochs + 1):
         t_epoch = time.time()
-        pending = []  # losses fetched every print_freq steps (no per-step sync)
-        _sync(device)
-        t0 = time.perf_counter()
-        for batch in train_loader:
-            m = step_fn(to_device(batch, device), generator)
-            it += 1
-            n_steps += 1
-            n_images += int(batch["n_images"])
-            pending.append((it, m["loss"]))
-            if max_steps is not None and n_steps >= max_steps:
-                done = True
-            if len(pending) >= cfg.print_freq or done:
-                for it_i, loss in pending:
-                    losses.update(float(loss))
-                    history.append(losses.val)
-                    writer.add_scalar("loss", losses.val, it_i)
+        # (first iteration, [K] device losses) of the chunks not yet fetched
+        pending: list = []
+
+        def fetch_losses(log_test_value: bool) -> None:
+            """One read-back for the pending chunks' losses."""
+            if not pending:
+                return
+            vals = torch.cat([v for _, v in pending]).tolist()
+            its = [i0 + j for i0, v in pending for j in range(v.shape[0])]
+            for it_i, loss in zip(its, vals):
+                losses.update(loss)
+                history.append(losses.val)
+                writer.add_scalar("loss", losses.val, it_i)
+                if log_test_value:
                     writer.add_scalar("test_value", test_value, it_i)
-                pending = []
+            pending.clear()
+
+        def run_chunk(chunk) -> None:
+            nonlocal it, n_steps, n_images
+            m = scan_fn(chunk, generator)
+            pending.append((it + 1, m["loss"]))
+            it += len(chunk)
+            n_steps += len(chunk)
+            n_images += sum(int(b["n_images"]) for b in chunk)
+            if sum(v.shape[0] for _, v in pending) >= cfg.print_freq:
+                fetch_losses(True)
                 logging.info("Epoch:%d Iter:%d LossMean:%.4f loss:%.4f",
                              epoch, it, losses.avg, losses.val)
                 losses.reset()
+
+        _sync(device)
+        t0 = time.perf_counter()
+        chunk: list = []
+        for batch in train_loader:
+            b = pad_plans(batch)
+            if chunk and batch_signature(b) != batch_signature(chunk[0]):
+                run_chunk(chunk)  # chunks never mix signatures
+                chunk = []
+            chunk.append(b)
+            done = max_steps is not None and n_steps + len(chunk) >= max_steps
+            if len(chunk) == cfg.scan_steps or done:
+                run_chunk(chunk)
+                chunk = []
             if done:
                 break
+        if chunk:
+            run_chunk(chunk)
+        if done and pending:
+            fetch_losses(True)
+            logging.info("Epoch:%d Iter:%d LossMean:%.4f loss:%.4f",
+                         epoch, it, losses.avg, losses.val)
+            losses.reset()
         # the epoch's unlogged losses go into the meter too, so the next
         # epoch's first LossMean holds them, as the JAX trainer's does
-        for it_i, loss in pending:
-            losses.update(float(loss))
-            history.append(losses.val)
-            writer.add_scalar("loss", losses.val, it_i)
+        fetch_losses(False)
         _sync(device)
         train_seconds += time.perf_counter() - t0
 
