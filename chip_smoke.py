@@ -201,6 +201,25 @@ no jax. Phases, each of which raises on failure (non-zero exit):
      `cli.test --serve_mode fast_bf16 --nms_algorithm classfix`, and
      `cli.train --scan_steps 4` against 1 (images/s in turns, one graph
      per run).
+ 20. data parallel (`parallel/`, `train/loop.make_dp_train_step`): (a) the
+     DP step as one rank over NCCL against the eager step (bf16, fused
+     head, 3 steps, within the eager run's own spread, phase 19's rule),
+     kernels 3 and 11 once per step; then two ranks on the one card over
+     gloo with CUDA tensors (NCCL refuses two ranks on one GPU), in
+     processes of their own: (b) identical shards against the
+     single-device step (SGD, 3 steps, the parameters and running means
+     within the single-device run's own spread), distinct shards on the
+     kernel route against the plain route under the same DP (the loss and
+     the averaged gradients, relative Frobenius, phase 15's limits: 1e-5
+     and 5e-3 at f32, 2e-3 and 6e-2 at bf16), kernels 3 and 11 once per
+     rank per step; (c) `make_dp_predict_fn` on the bench batch's halves,
+     detections bit-identical to `make_serving_fn` on each half; (d)
+     `run_training` over the two ranks as two nodes of one rank each
+     (`--coordinator localhost:<port>`, a TCPStore, `--process_id`,
+     `--n_processes 2`), 4 bf16 fused steps with an evaluation over both
+     ranks and rank 0's checkpoint, then the DP
+     step's wall, device busy time and idle share per rank (gloo through
+     the host: not NCCL scaling).
 Everything it runs comes from yolat_tpu_torch, the synthetic SVG writer
 included: it imports neither jax nor the JAX package yolat_tpu.
 The kernels line (a JSON object describing each kernel; launches are
@@ -3011,6 +3030,365 @@ def graph_cli_phase(work, ckpt, train_ckpt_root, dev_line):
     return counts, tcounts
 
 
+def _dp_diff(a, b) -> tuple:
+    """(max |loss diff|, max |state diff|, bit-identical) of two runs,
+    each ([losses], state dict)."""
+    import torch
+
+    la = max(abs(x - y) for x, y in zip(a[0], b[0]))
+    pa = max(float((a[1][k].float() - b[1][k].float()).abs().max())
+             for k in a[1] if a[1][k].numel())
+    same = a[0] == b[0] and all(torch.equal(a[1][k], b[1][k]) for k in a[1])
+    return la, pa, same
+
+
+def _within_spread(d, spread) -> bool:
+    """Phase 19's rule: bit-identical, or (where two eager runs differ) as
+    close as four times their spread or GRAPH_TRAIN_TOL."""
+    return d[2] or (not spread[2]
+                    and d[0] <= max(4 * spread[0], GRAPH_TRAIN_TOL[0])
+                    and d[1] <= max(4 * spread[1], GRAPH_TRAIN_TOL[1]))
+
+
+def dp_nccl_phase(route_batches, work, dev_line):
+    """Phase 20 (a): the DP step (`train/loop.make_dp_train_step`) as one
+    rank over NCCL against the eager step, bf16 with the fused head, 3
+    steps from one init with one generator seed, within the eager run's
+    own spread."""
+    import torch
+
+    from yolat_tpu_torch.config import Config
+    from yolat_tpu_torch.data.packing import to_device
+    from yolat_tpu_torch.ops import _build
+    from yolat_tpu_torch.ops.plans import pad_plans
+    from yolat_tpu_torch.parallel.distributed import (initialize_from_config,
+                                                      shutdown)
+    from yolat_tpu_torch.train.loop import make_dp_train_step, make_train_step
+    from yolat_tpu_torch.train.optim import make_optimizer, make_scheduler
+    from yolat_tpu_torch.train.trainer import init_model
+
+    cfg, bs = route_batches["bf16_fused"]
+    seq = [pad_plans(bs[i % len(bs)]) for i in range(GRAPH_STEPS)]
+    ranks = initialize_from_config(Config(n_devices=1), 0, "cuda:0",
+                                   store_path=os.path.join(work, "nccl_store"),
+                                   timeout_s=300)
+    try:
+        check(ranks.backend == "nccl", f"backend {ranks.backend}")
+        runs, counts = {}, {}
+        for arm in ("eager", "eager_again", "dp"):
+            model = init_model(cfg, "cuda")
+            opt = make_optimizer(cfg.optimizer, model.parameters(), cfg.lr,
+                                 cfg.weight_decay)
+            sched = make_scheduler(opt, cfg.lr, 1, 0.5, 2)
+            gen = torch.Generator(device="cuda").manual_seed(5)
+            step = (make_dp_train_step(cfg, model, opt, sched, ranks.group)
+                    if arm == "dp" else make_train_step(cfg, model, opt,
+                                                        sched))
+            _build.reset_launch_counts()
+            losses = [float(step(to_device(b, "cuda"), gen)["loss"])
+                      for b in seq]
+            counts[arm] = (_build.launch_counts["folded_mlp_block_max"],
+                           _build.launch_counts["fused_pool_train_bwd"])
+            runs[arm] = (losses, _state(model))
+    finally:
+        shutdown(ranks)
+    spread = _dp_diff(runs["eager"], runs["eager_again"])
+    d = _dp_diff(runs["eager"], runs["dp"])
+    check(all(map(_finite, runs["dp"][0])), "finite DP losses")
+    check(counts["dp"] == (GRAPH_STEPS, GRAPH_STEPS),
+          f"kernels 3 and 11 once per DP step: {counts}")
+    check(_within_spread(d, spread),
+          f"DP step over one NCCL rank: losses {d[0]}, state {d[1]} from "
+          f"the eager step (eager against itself {spread[0]}, {spread[1]})")
+    print(f"dp nccl: one rank over NCCL, {GRAPH_STEPS} bf16 fused steps: max "
+          f"|loss diff| / max |state diff| from the eager step {d[0]:.3g} / "
+          f"{d[1]:.3g} (bit-identical {d[2]}), eager against itself "
+          f"{spread[0]:.3g} / {spread[1]:.3g}; kernels 3, 11 launches "
+          f"{counts['dp']} [{dev_line}]")
+
+
+# phase 20 (b): relative Frobenius limits of the DP step's kernel route
+# against its plain route (the fused head's kernels 3 and 11 against their
+# plain versions), (loss, averaged gradients), phase 15's by dtype
+DP_ROUTE_TOL = {"f32": (1e-5, 5e-3), "bf16": (2e-3, 6e-2)}
+DP_WORLD = 2
+DP_TRAIN_STEPS = 4
+
+
+def _dp_rank(local_rank, store_path, bench_root, train_root, work, port,
+             device="cuda"):
+    """Phase 20 (b)-(d) in one of two ranks over gloo on the one card
+    (CUDA tensors; `device` 'cpu' rehearses it on the CPU): (b) and (c) as
+    two local ranks of one node (a FileStore), (d) as two nodes of one
+    rank each (`--coordinator localhost:port`, `--process_id`,
+    `--n_processes 2`: a TCPStore). Returns what the parent checks and
+    prints."""
+    import functools
+
+    import torch
+
+    from yolat_tpu_torch.cli import profile
+    from yolat_tpu_torch.config import Config
+    from yolat_tpu_torch.data.dataset import SESYDDataset
+    from yolat_tpu_torch.data.loader import PackedLoader, stack_shards
+    from yolat_tpu_torch.data.packing import to_device
+    from yolat_tpu_torch.eval.fast_forward import fold_params
+    from yolat_tpu_torch.eval.predict import make_dp_predict_fn
+    from yolat_tpu_torch.nn import layers
+    from yolat_tpu_torch.nn.model import seeded_model
+    from yolat_tpu_torch.ops import _build
+    from yolat_tpu_torch.ops import fused_pool_train as fpt
+    from yolat_tpu_torch.ops.plans import pad_plans
+    from yolat_tpu_torch.parallel.distributed import (initialize_from_config,
+                                                      shutdown)
+    from yolat_tpu_torch.train.loop import make_dp_train_step, make_train_step
+    from yolat_tpu_torch.train.trainer import init_model, run_training
+
+    dev = torch.device(device, 0)  # both ranks on the one card
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ranks = initialize_from_config(Config(n_devices=DP_WORLD), local_rank,
+                                   dev, store_path=store_path,
+                                   backend="gloo", timeout_s=300)
+    out: dict = {"backend": ranks.backend}
+    try:
+        tds = SESYDDataset(train_root, "train", bbox_sampling_step=10)
+        windows = {r: [pad_plans(b) for b in PackedLoader(
+            tds, batch_size=BATCH, n_devices=DP_WORLD, rank=r, prefetch=0)]
+            for r in range(DP_WORLD)}
+        out["train_images"] = [int(w[0]["n_images"])
+                               for w in windows.values()]
+
+        def run(cfg, batches, dp, route="kernel"):
+            """SGD steps from cfg.seed's init with the generator seed 5:
+            ([losses], state, kernel 3 and 11 launches)."""
+            model = init_model(cfg, dev)
+            opt = torch.optim.SGD(model.parameters(), lr=1e-2)
+            step = (make_dp_train_step(cfg, model, opt, group=ranks.group)
+                    if dp else make_train_step(cfg, model, opt))
+            gen = torch.Generator(device=dev).manual_seed(5)
+            if route == "plain":
+                layers.fused_pool_train = functools.partial(
+                    fpt.fused_pool_train, route="plain")
+            _build.reset_launch_counts()
+            try:
+                losses = [float(step(to_device(b, dev), gen)["loss"])
+                          for b in batches]
+            finally:
+                layers.fused_pool_train = fpt.fused_pool_train
+            return (losses, _state(model),
+                    (_build.launch_counts["folded_mlp_block_max"],
+                     _build.launch_counts["fused_pool_train_bwd"]))
+
+        # (b) identical shards (rank 0's window on both ranks) against the
+        # single-device step, bf16 fused; its own spread from two eager runs
+        bf16 = Config(n_classes=tds.n_classes, dtype="bfloat16",
+                      fused_head_train=True)
+        seq = [windows[0][0]] * GRAPH_STEPS
+        ident = run(bf16, seq, dp=True)
+        out["identical_launches"] = ident[2]
+        if ranks.rank == 0:
+            # the running variances take the unbiased correction of the
+            # global count (2n / (2n - 1), not n / (n - 1)): not compared
+            def params(r):
+                return r[0], {k: v for k, v in r[1].items()
+                              if not k.endswith("running_var")}
+            single = params(run(bf16, seq, dp=False))
+            again = params(run(bf16, seq, dp=False))
+            out["identical"] = (_dp_diff(single, params(ident)),
+                                _dp_diff(single, again))
+        # (b) distinct shards: the kernel route against the plain route
+        # under the same DP, one SGD step: the loss and the averaged
+        # gradients (the update over lr)
+        out["routes"] = {}
+        for name, dtype in (("f32", "float32"), ("bf16", "bfloat16")):
+            cfg = bf16.replace(dtype=dtype)
+            start = _state(init_model(cfg, dev))
+            got = {route: run(cfg, windows[ranks.rank][:1], True, route)
+                   for route in ("kernel", "plain")}
+            grads = {route: torch.cat([
+                (start[k].float() - v[1][k].float()).reshape(-1) / 1e-2
+                for k in start if not k.endswith(
+                    ("running_mean", "running_var", "num_batches_tracked"))])
+                for route, v in got.items()}
+            out["routes"][name] = (
+                abs(got["kernel"][0][0] - got["plain"][0][0])
+                / abs(got["plain"][0][0]),
+                float((grads["kernel"] - grads["plain"]).norm()
+                      / grads["plain"].norm()),
+                got["kernel"][2], got["plain"][2])
+
+        # (c) DP predict: the bench batch's halves, one per rank
+        bds = SESYDDataset(bench_root, "train", bbox_sampling_step=10)
+        halves = [pad_plans(next(iter(PackedLoader(
+            bds, batch_size=BATCH // 2, n_devices=DP_WORLD, rank=r,
+            prefetch=0)))) for r in range(DP_WORLD)]
+        scfg = Config(n_classes=bds.n_classes)
+        folded = fold_params(seeded_model(scfg).to(dev), dev)
+        fn = make_dp_predict_fn(scfg, stack_shards(halves), ranks.rank,
+                                device=dev, folded=folded, bf16=True)
+        out["predict"] = fn(stack_shards(halves)).numpy()
+        out["predict_images"] = [int(h["n_images"]) for h in halves]
+    finally:
+        shutdown(ranks)
+
+    # (d) as two nodes: process `local_rank` of 2, one rank each
+    node = Config(n_devices=DP_WORLD, n_processes=DP_WORLD,
+                  process_id=local_rank, coordinator=f"localhost:{port}")
+    ranks = initialize_from_config(node, 0, dev, backend="gloo",
+                                   timeout_s=300)
+    out["nodes"] = (ranks.rank, ranks.node, ranks.n_nodes, ranks.local_world)
+    try:
+        # the DP trainer: run_training, 4 bf16 fused steps (batch 4 a rank,
+        # one step an epoch over the 8 train SVGs: a node takes every
+        # second step of the global schedule, one window a step), then the
+        # DP step's wall and device busy time on a batch already on the
+        # card
+        tcfg = node.replace(data_dir=train_root, dtype="bfloat16",
+                            fused_head_train=True, batch_size=BATCH,
+                            total_epochs=DP_TRAIN_STEPS,
+                            eval_start=DP_TRAIN_STEPS + 1, print_freq=1,
+                            root_dir=os.path.join(work, "log_dp"))
+        _build.reset_launch_counts()
+        model, res = run_training(tcfg, dev, max_steps=DP_TRAIN_STEPS,
+                                  ranks=ranks)
+        out["trainer"] = {k: res[k] for k in (
+            "steps", "images", "train_seconds", "losses", "map_50",
+            "exp_dir")}
+        out["trainer_launches"] = (
+            _build.launch_counts["folded_mlp_block_max"],
+            _build.launch_counts["fused_pool_train_bwd"])
+        opt = torch.optim.SGD(model.parameters(), lr=1e-4)
+        step = make_dp_train_step(tcfg.replace(n_classes=tds.n_classes),
+                                  model, opt, group=ranks.group)
+        gen = torch.Generator(device=dev).manual_seed(5)
+        batch = to_device(windows[ranks.rank][0], dev)
+        for _ in range(3):
+            step(batch, gen)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            step(batch, gen)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / 10
+        trace = profile._trace(lambda: step(batch, gen), 10)
+        busy = trace["device_busy_ms_per_call"]
+        out["step_times"] = (wall, busy, trace["device_kernels_per_call"],
+                             None if busy is None else 1.0 - busy / wall)
+        return out
+    finally:
+        shutdown(ranks)
+
+
+def dp_gloo_phase(bench_root, train_root, work, dev_line):
+    """Phase 20 (b)-(d): two ranks on the one card over gloo (CUDA
+    tensors; NCCL refuses two ranks on one GPU), in processes of their own
+    (`parallel/launch.spawn_ranks`)."""
+    from yolat_tpu_torch.config import Config
+    from yolat_tpu_torch.data.dataset import SESYDDataset
+    from yolat_tpu_torch.data.loader import PackedLoader
+    from yolat_tpu_torch.eval.fast_forward import fold_params
+    from yolat_tpu_torch.eval.predict import make_serving_fn
+    from yolat_tpu_torch.nn.model import seeded_model
+    from yolat_tpu_torch.ops.plans import pad_plans
+    from yolat_tpu_torch.parallel.launch import spawn_ranks
+
+    import socket
+
+    with socket.socket() as sock:  # a free port on this machine
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    t0 = time.perf_counter()
+    outs = spawn_ranks(_dp_rank, DP_WORLD,
+                       (bench_root, train_root, work, port),
+                       join_timeout_s=600)
+    secs = time.perf_counter() - t0
+    check(all(o["backend"] == "gloo" for o in outs), "gloo ranks")
+    check([o["nodes"] for o in outs] == [(r, r, DP_WORLD, 1)
+                                         for r in range(DP_WORLD)],
+          f"two nodes of one rank: {[o['nodes'] for o in outs]}")
+    # (b)
+    check(outs[0]["train_images"] == [BATCH, BATCH],
+          f"distinct shards of {BATCH} images: {outs[0]['train_images']}")
+    d, spread = outs[0]["identical"]
+    check(_within_spread(d, spread),
+          f"identical shards on {DP_WORLD} ranks: losses {d[0]}, state "
+          f"{d[1]} from the single-device step (it against itself "
+          f"{spread[0]}, {spread[1]})")
+    for o in outs:
+        check(o["identical_launches"] == (GRAPH_STEPS, GRAPH_STEPS),
+              f"kernels 3 and 11 once per rank per step: "
+              f"{o['identical_launches']}")
+        for name, (loss_err, grad_err, kl, pl) in o["routes"].items():
+            tol = DP_ROUTE_TOL[name]
+            check(loss_err <= tol[0] and grad_err <= tol[1],
+                  f"DP {name}: kernel route against plain route, loss "
+                  f"{loss_err}, gradients {grad_err} (limits {tol})")
+            check(kl == (1, 1) and pl == (0, 0),
+                  f"DP {name}: launches kernel route {kl}, plain {pl}")
+    print(f"dp gloo: {DP_WORLD} ranks on one card (gloo, CUDA tensors), "
+          f"bf16 fused: identical shards against the single-device step "
+          f"over {GRAPH_STEPS} SGD steps {d[0]:.3g} / {d[1]:.3g} (loss / "
+          f"state; bit-identical {d[2]}), single against itself "
+          f"{spread[0]:.3g} / {spread[1]:.3g}; distinct shards, kernel route "
+          f"against plain route (loss, gradients rel. Frobenius) "
+          + ", ".join(f"{n} {v[0]:.3g} {v[1]:.3g}"
+                      for n, v in outs[0]["routes"].items())
+          + f", rank 1 "
+          + ", ".join(f"{n} {v[0]:.3g} {v[1]:.3g}"
+                      for n, v in outs[1]["routes"].items())
+          + f"; kernels 3, 11 per rank per step {outs[0]['identical_launches']}"
+          f" / {GRAPH_STEPS} [{dev_line}]")
+    # (c)
+    bds = SESYDDataset(bench_root, "train", bbox_sampling_step=10)
+    scfg = Config(n_classes=bds.n_classes)
+    folded = fold_params(seeded_model(scfg).to("cuda"), "cuda")
+    for r, o in enumerate(outs):
+        half = pad_plans(next(iter(PackedLoader(
+            bds, batch_size=BATCH // 2, n_devices=DP_WORLD, rank=r,
+            prefetch=0))))
+        want = make_serving_fn(scfg, half, device="cuda", folded=folded,
+                               bf16=True)(half).numpy()
+        check(o["predict_images"] == [BATCH // 2] * DP_WORLD
+              and set(o["predict"]) == set(want)
+              and all(_np_equal({k: o["predict"][k]}, {k: want[k]})
+                      for k in want),
+              f"rank {r}: DP predict detections bit-identical to "
+              "make_serving_fn on its half")
+    n_det = [int(o["predict"]["valid"].sum()) for o in outs]
+    print(f"dp predict: the bench batch's halves ({BATCH // 2} images a rank)"
+          f", detections bit-identical to single-device make_serving_fn; "
+          f"valid detections per rank {n_det} [{dev_line}]")
+    # (d)
+    for r, o in enumerate(outs):
+        t = o["trainer"]
+        check(t["steps"] == DP_TRAIN_STEPS and all(map(_finite, t["losses"]))
+              and _finite(t["map_50"]),
+              f"rank {r}: DP trainer {t['steps']} steps, losses "
+              f"{t['losses']}")
+        check(o["trainer_launches"] == (DP_TRAIN_STEPS, DP_TRAIN_STEPS),
+              f"rank {r}: trainer kernel 3, 11 launches "
+              f"{o['trainer_launches']}")
+    check(outs[0]["trainer"]["losses"] == outs[1]["trainer"]["losses"],
+          "the ranks log the same averaged losses")
+    check(os.path.exists(os.path.join(outs[0]["trainer"]["exp_dir"],
+                                      "checkpoint", "ckpt_best.pt")),
+          "rank 0 wrote the checkpoint")
+    for r, o in enumerate(outs):
+        t, (wall, busy, kern, idle) = o["trainer"], o["step_times"]
+        print(f"dp trainer rank {r}: run_training {t['steps']} bf16 fused "
+              f"steps of batch {BATCH} on {DP_WORLD} gloo ranks sharing one "
+              f"card, as {DP_WORLD} nodes of one rank (--coordinator "
+              f"localhost:port): "
+              f"{t['train_seconds'] * 1e3 / t['steps']:.3f} ms wall "
+              f"per step (first step included), losses "
+              f"{[round(v, 4) for v in t['losses']]}; the DP step on a batch "
+              f"on the card: {wall:.3f} ms wall, {busy} ms device busy in "
+              f"{kern:.0f} kernels, idle share {idle} (gloo through the "
+              f"host, not NCCL scaling) [{dev_line}]")
+    print(f"dp phase: {secs:.1f} s for the two ranks [{dev_line}]")
+
+
 def _finite(v) -> bool:
     return v == v and abs(v) != float("inf")
 
@@ -3212,6 +3590,14 @@ def main() -> int:
                                                  dev_line)
         counts["nms_fixpoint"] = fix_counts["nms_fixpoint"]
         counts["nms_classfix"] = cls_counts["nms_classfix"]
+
+        # 20. data parallel: one rank over NCCL against the eager step;
+        # two ranks on the one card over gloo: the DP step, DP predict and
+        # the DP trainer
+        t0 = time.perf_counter()
+        dp_nccl_phase(route_batches, work, dev_line)
+        dp_gloo_phase(root, train_root, work, dev_line)
+        print(f"phase 20: {time.perf_counter() - t0:.1f} s")
 
     # the kernels line
     sources = {"edge_window_message_sum": (

@@ -3,7 +3,8 @@ card has none) and without the JAX package beside it: in a subprocess
 whose import system refuses jax, jaxlib, flax, optax, orbax and yolat_tpu,
 import every module of the port, write and pack synthetic files, serve
 them on the CPU (predict core, on the edge-window and on the dense route,
-and CLI), train one step with the fused pool head on and one in the window
+and CLI), train one step with the fused pool head on, one data parallel
+over two spawned gloo ranks (`--n_devices 2`) and one in the window
 layout through the train CLI, evaluate that checkpoint through the test CLI
 on the dense route, serve YOLaT++ (predict core, both CLIs, the per-edge
 and the factored checkpoint), train YOLaT++ through the train CLI (the
@@ -98,6 +99,13 @@ SCRIPT = textwrap.dedent("""
                               "--n_filters", "8", "--batch_size", "1",
                               "--max_steps", "1", "--fused_head_train", "true",
                               "--root_dir", os.path.join(d, "log")])
+        assert res["steps"] == 1 and res["losses"][0] == res["losses"][0]
+        # data parallel: two spawned ranks over gloo, one DP step each
+        res = train_cli.main(["--data_dir", d, "--device", "cpu",
+                              "--n_filters", "8", "--batch_size", "1",
+                              "--max_steps", "1", "--n_devices", "2",
+                              "--fused_head_train", "true",
+                              "--root_dir", os.path.join(d, "log_dp")])
         assert res["steps"] == 1 and res["losses"][0] == res["losses"][0]
         res = train_cli.main(["--data_dir", d, "--device", "cpu",
                               "--n_filters", "8", "--batch_size", "1",
@@ -215,9 +223,9 @@ def test_port_runs_without_jax(tmp_path):
     names = os.listdir(marks)
     assert not [n for n in names if n.startswith("refused.")], [
         (marks / n).read_text() for n in names if n.startswith("refused.")]
-    # the parent, then two preprocess and two loader workers at least (the
-    # CLIs' own pools come on top)
-    assert sum(n.startswith("started.") for n in names) >= 5, names
+    # the parent, two data-parallel ranks, then two preprocess and two
+    # loader workers at least (the CLIs' own pools come on top)
+    assert sum(n.startswith("started.") for n in names) >= 7, names
 
 
 def test_no_jax_import_in_port_sources():

@@ -23,6 +23,9 @@ this package imports `torch`, numpy and scipy, never `jax` and nothing of
   eval/   folded-BN serving engine, the predict core (kept mask,
           inflation, slot scatter, fixpoint NMS), the evaluation runner
           and the reference's metrics
+  parallel/ data parallelism, one process per device: the run's ranks
+          (NCCL on the card, gloo on the CPU), the store barrier, the
+          batch moments summed over ranks, the launcher, graph partitions
   utils/  experiment directories, logging, meters
   cli/    `python -m yolat_tpu_torch.cli.infer`, `.cli.train`, `.cli.profile`
   csrc/   CUDA C++ sources for sm_90a, built by nvcc at first use

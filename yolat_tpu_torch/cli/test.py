@@ -25,13 +25,18 @@ launch of kernel 5); it has no dense route. `--device` defaults to
 cuda and raises when CUDA is absent; the CLI never moves to the CPU on its
 own. Prints the AP table, the confusion matrix,
 `checkpoint epoch=.. best=..`, and last the launch counts of the serving
-kernels.
+kernels. `--n_devices D` (with `--coordinator`, `--process_id`,
+`--n_processes` over several nodes, as `cli.train` takes them) evaluates
+over D ranks, one process each, each on its windows of the split
+(`eval/runner.evaluate(group=)`, `yolat_tpu/cli/test.py:44-60`); rank 0
+prints the table, which is the single-device table of the split.
 """
 
 from __future__ import annotations
 
 from yolat_tpu_torch.cli.train import (_bool, build_parser, config_from_args,
-                                       device_from_arg, device_name)
+                                       data_parallel, device_from_arg,
+                                       device_name, run_ranks)
 from yolat_tpu_torch.config import PP_ARCHS
 from yolat_tpu_torch.data.dataset import SESYDDataset
 from yolat_tpu_torch.data.loader import PackedLoader, extra_plans_for
@@ -39,6 +44,9 @@ from yolat_tpu_torch.eval.metrics import format_confusion
 from yolat_tpu_torch.eval.runner import evaluate
 from yolat_tpu_torch.nn.model import build_model
 from yolat_tpu_torch.ops import _build
+from yolat_tpu_torch.parallel.distributed import (initialize_from_config,
+                                                  local_first, shutdown)
+from yolat_tpu_torch.parallel.mesh import rank_device
 from yolat_tpu_torch.train.checkpoint import (CheckpointManager,
                                               load_train_state,
                                               split_checkpoint_path,
@@ -76,6 +84,23 @@ def main(argv=None) -> dict:
     args = p.parse_args(argv)
     device = device_from_arg(args.device)
     cfg = config_from_args(args, argv)
+    if data_parallel(cfg):
+        return run_ranks(cfg, device, _test_rank, args)
+    return _test(cfg, args, device)
+
+
+def _test_rank(local_rank, store_path, cfg, device_type, args):
+    device = rank_device(local_rank, device_type)
+    ranks = initialize_from_config(cfg, local_rank, device,
+                                   store_path=store_path)
+    try:
+        return _test(cfg, args, device, ranks)
+    finally:
+        shutdown(ranks)
+
+
+def _test(cfg, args, device, ranks=None) -> dict:
+    is_main = ranks is None or ranks.is_main
     partition = cfg.phase if cfg.phase in ("train", "test", "val") else "test"
     ds = SESYDDataset(cfg.data_dir, partition,
                       bbox_sampling_step=cfg.bbox_sampling_step)
@@ -85,20 +110,27 @@ def main(argv=None) -> dict:
     if is_pp and cfg.dense_layout and args.serve_mode != "flax":
         raise ValueError("--dense_layout true: the YOLaT++ engine has no "
                          "dense route (its convs run the edge-window kernel)")
-    loader = PackedLoader(ds, batch_size=cfg.batch_size,
-                          edge_window=not cfg.dense_layout,
-                          dense=cfg.dense_layout, **extra_plans_for(cfg))
+    dp = {} if ranks is None else dict(n_devices=ranks.world,
+                                       rank=ranks.rank)
+    loader = local_first(ranks, "loader", lambda: PackedLoader(
+        ds, batch_size=cfg.batch_size, edge_window=not cfg.dense_layout,
+        dense=cfg.dense_layout, **extra_plans_for(cfg), **dp))
     model, epoch, best = load_checkpoint(cfg, device)
     if device.type == "cuda" and args.serve_mode != "flax":
-        _build.library()  # build the kernels before the evaluation loop
+        # build the kernels before the evaluation loop
+        local_first(ranks, "kernels", _build.library)
     launched = dict(_build.launch_counts)
-    results = evaluate(cfg, model, loader, max_det=cfg.max_det, verbose=True,
-                       serve=args.serve_mode, device=device)
+    results = evaluate(cfg, model, loader, max_det=cfg.max_det,
+                       verbose=is_main, serve=args.serve_mode, device=device,
+                       group=None if ranks is None else ranks.host_group)
     counts = {k: v - launched[k] for k, v in _build.launch_counts.items()}
     results["launches"] = counts
+    if not is_main:
+        return results
     print(format_confusion(results["confusion"], ds.class_dict))
     print(f"checkpoint epoch={epoch} best={best:.4f}")
-    print(f"{len(ds)} images in {len(loader)} batches on "
+    print(f"{len(ds)} images in {len(loader)} batches"
+          + (f" per rank over {ranks.world} ranks" if ranks else "") + " on "
           f"{device_name(device)} ({args.serve_mode}, "
           f"{'dense table' if cfg.dense_layout else 'edge window'}, "
           f"{cfg.nms_algorithm}); kernel launches: "

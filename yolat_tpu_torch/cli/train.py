@@ -1,4 +1,4 @@
-"""Training CLI on one device.
+"""Training CLI, on one device or data parallel.
 
 Counterpart of `yolat_tpu/cli/train.py` with the training flags of
 `yolat_tpu/cli/common.build_parser` (:83-191) that the port runs, under
@@ -11,6 +11,8 @@ the same names:
       [--profile yolat_pp_fast] [--eval_start 20] [--root_dir log]
       [--pretrained_model ckpt_dir|ckpt_dir/ckpt_<tag>|ref.pth]
       [--scan_steps K] [--max_steps N] [--device cuda]
+      [--n_devices D [--coordinator host:port --process_id I
+                      --n_processes P]]
 
 `--device` defaults to cuda and raises when CUDA is absent; the CLI never
 moves to the CPU on its own. `--max_steps` ends the run after N train
@@ -23,6 +25,16 @@ time) and the launch counts of the fused pool head's kernels and of the
 window layout's kernels 9 and 10 and of the banded YOLaT++ route's
 kernels 7 and 8, forward and backward apart (they count the evaluation's
 forward passes too), and the CUDA graphs captured and replayed.
+
+`--n_devices D` trains data parallel over D devices
+(`train/trainer.run_training(ranks=)`): the CLI starts one process per
+local rank (`parallel/launch.spawn_ranks`), rank r on `cuda:r` over NCCL
+with `--device cuda` (fewer cards than local ranks raise), or on the CPU
+over gloo with `--device cpu`. Over several nodes, D counts the devices
+of all of them, each node runs the CLI with its `--process_id` of
+`--n_processes`, and `--coordinator host:port` names the store that rank
+0 serves (`yolat_tpu/cli/common.py:132, 177-183`). Rank 0 prints the
+summary; every rank logs its LossMean.
 
 `--arch yolat_pp` trains YOLaT++ (`nn/yolat_pp.py`) on one of three routes
 through its primitive level: per super edge over the padded buffer (the
@@ -40,6 +52,11 @@ import torch
 
 from yolat_tpu_torch.config import PROFILES, Config, apply_profile
 from yolat_tpu_torch.ops import _build
+from yolat_tpu_torch.parallel.distributed import (initialize_from_config,
+                                                  local_device_count,
+                                                  shutdown)
+from yolat_tpu_torch.parallel.launch import spawn_ranks
+from yolat_tpu_torch.parallel.mesh import rank_device
 from yolat_tpu_torch.train.trainer import run_training
 
 
@@ -115,6 +132,13 @@ def build_parser() -> argparse.ArgumentParser:
     add("--max_steps", default=0, type=int,
         help="stop after this many train steps (0: run every epoch)")
     add("--device", default="cuda", type=str)
+    add("--n_devices", default=d.n_devices, type=int,
+        help="data-parallel devices over all nodes, one process each")
+    add("--coordinator", default=d.coordinator, type=str,
+        help="host:port of the store rank 0 serves (several nodes)")
+    add("--process_id", default=d.process_id, type=int)
+    add("--n_processes", default=d.n_processes, type=int,
+        help="nodes; > 1 needs --coordinator")
     return p
 
 
@@ -154,16 +178,36 @@ def device_name(device) -> str:
             else "cpu")
 
 
-def main(argv=None) -> dict:
-    args = build_parser().parse_args(argv)
-    device = device_from_arg(args.device)
-    cfg = config_from_args(args, argv).replace(phase="train")
+def data_parallel(cfg) -> bool:
+    return cfg.n_devices > 1 or cfg.n_processes > 1
+
+
+def run_ranks(cfg, device, worker, *args) -> dict:
+    """worker(local_rank, store_path, cfg, device_type, *args) in one
+    process per local rank; rank 0's return value."""
+    local = local_device_count(cfg, device.type)
+    return spawn_ranks(worker, local, (cfg, device.type) + args)[0]
+
+
+def _train_rank(local_rank, store_path, cfg, device_type, max_steps):
+    device = rank_device(local_rank, device_type)
+    ranks = initialize_from_config(cfg, local_rank, device,
+                                   store_path=store_path)
+    try:
+        return _train(cfg, device, max_steps, ranks)
+    finally:
+        shutdown(ranks)
+
+
+def _train(cfg, device, max_steps, ranks=None) -> dict:
     launched = dict(_build.launch_counts)  # this run's launches are the rise
     graphs = dict(_build.graph_counts)
-    _, results = run_training(cfg, device, max_steps=args.max_steps or None)
+    _, results = run_training(cfg, device, max_steps=max_steps, ranks=ranks)
     counts = {k: v - launched[k] for k, v in _build.launch_counts.items()}
     graphed = {k: v - graphs[k] for k, v in _build.graph_counts.items()}
     results["launches"], results["graphs"] = counts, graphed
+    if ranks is not None and not ranks.is_main:
+        return results
     secs = max(results["train_seconds"], 1e-9)
     print(f"best test_value={results.get('best_value', 0):.4f} "
           f"MAP@0.5={results.get('map_50', 0):.4f} "
@@ -179,8 +223,19 @@ def main(argv=None) -> dict:
               "banded_gather", "banded_gather_bwd", "banded_scatter_own",
               "banded_scatter_own_bwd"))
           + f"; CUDA graphs captured={graphed['captured']}, "
-          f"replayed={graphed['replayed']}")
+          f"replayed={graphed['replayed']}"
+          + (f" (rank 0 of {ranks.world})" if ranks is not None else ""))
     return results
+
+
+def main(argv=None) -> dict:
+    args = build_parser().parse_args(argv)
+    device = device_from_arg(args.device)
+    cfg = config_from_args(args, argv).replace(phase="train")
+    max_steps = args.max_steps or None
+    if data_parallel(cfg):
+        return run_ranks(cfg, device, _train_rank, max_steps)
+    return _train(cfg, device, max_steps)
 
 
 if __name__ == "__main__":

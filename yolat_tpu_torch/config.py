@@ -124,6 +124,12 @@ class Config:
                                     # and 8) instead of the padded buffer
     profile: str = ""               # named flag bundle applied at parse time
     pretrained_model: str = ""
+    # data parallel: one process per device; n_devices counts GLOBAL
+    # devices over n_processes nodes (parallel/distributed.py)
+    n_devices: int = 1
+    coordinator: str = ""           # host:port of the store (rank 0's node)
+    process_id: int = 0             # this node's index
+    n_processes: int = 0            # nodes; 0 / 1 = one node
 
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)

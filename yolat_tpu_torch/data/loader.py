@@ -1,12 +1,19 @@
 """Packed loader over `yolat_tpu_torch.data.dataset.SESYDDataset`.
 
-Counterpart of `yolat_tpu/data/dataset.py:209-600` (`PackedLoader`) for
-one device: no buckets, no mixup; with `preproc_workers`, the cold loads
-run in a spawn process pool (:238-265, :309-358), in submission order.
-With shuffle, epoch e visits the files in the order
+Counterpart of `yolat_tpu/data/dataset.py:209-608` (`PackedLoader`,
+`stack_shards`): no buckets, no mixup; with `preproc_workers`, the cold
+loads run in a spawn process pool (:238-265, :309-358), in submission
+order. With shuffle, epoch e visits the files in the order
 `np.random.default_rng(seed + e).shuffle` gives, exactly as `_iter_sync`
 (:517-529) orders them, so both packages train on the same batch
-sequence. Pad sizes follow
+sequence. Data parallel (:517-574): every rank builds the same global
+step schedule (windows of `batch_size * n_devices` files, the same rng
+draws), node `host_id` of `n_hosts` keeps `steps[:even][host_id::n_hosts]`
+(equal step counts per node), and local rank `rank` packs window `rank` of
+each step, so one rank's loader yields what the JAX loader's [D, ...]
+batch holds in row `rank`. A rank whose window is empty (the last short
+step) still yields an all-masked batch: every rank steps, or the others
+wait in the collective. Pad sizes follow
 `PackedLoader.compute_pad` (:402-454): the sum of the `batch_size` largest
 per-file counts per dimension, rounded up as `PadSizes` does
 (`yolat_tpu/data/packing.py:53-79`), computed from this port's own
@@ -72,6 +79,9 @@ class PackedLoader:
     graph, proposals, CompactFile) in that many spawn processes, at most
     one per core, the pad pass's cold scan included; the batches are byte
     for byte those of preproc_workers=0. `close()` stops the pool.
+    n_devices, host_id, n_hosts and rank select one rank's windows of the
+    global step schedule (module docstring); the pads come from the whole
+    split, so every rank packs to one shape. The defaults are one device.
     """
 
     def __init__(self, dataset, batch_size: int = 4, prefetch: int = 1,
@@ -79,9 +89,16 @@ class PackedLoader:
                  shuffle: bool = False, seed: int = 0,
                  ew_transpose: bool = False, dense: bool = False,
                  d_max: int | None = None, super_family: bool = False,
-                 sew_plan: str = "own", preproc_workers: int = 0):
+                 sew_plan: str = "own", preproc_workers: int = 0,
+                 n_devices: int = 1, host_id: int = 0, n_hosts: int = 1,
+                 rank: int = 0):
         if prefetch not in (0, 1):
             raise ValueError("prefetch is 0 or 1")
+        if not (0 <= rank < n_devices and 0 <= host_id < n_hosts):
+            raise ValueError(f"rank {rank} of {n_devices} local devices, "
+                             f"node {host_id} of {n_hosts}")
+        self.n_devices, self.rank = n_devices, rank
+        self.host_id, self.n_hosts = host_id, n_hosts
         self.ds = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -177,7 +194,8 @@ class PackedLoader:
                                  else 0))
 
     def __len__(self):
-        return -(-len(self.ds) // self.batch_size)
+        steps = -(-len(self.ds) // (self.batch_size * self.n_devices))
+        return steps // self.n_hosts if self.n_hosts > 1 else steps
 
     def epoch_order(self):
         """The next epoch's file order (advances the epoch counter)."""
@@ -188,12 +206,25 @@ class PackedLoader:
             rng.shuffle(order)
         return order
 
-    def _iter_sync(self):
+    def rank_windows(self) -> list:
+        """The next epoch's windows of this rank (advances the epoch
+        counter): the global schedule's steps of this node, window `rank`
+        of each."""
         order = self.epoch_order()
-        stream = self._load_many(order)
-        for start in range(0, len(order), self.batch_size):
-            loads = [next(stream)
-                     for _ in order[start:start + self.batch_size]]
+        per_step = self.batch_size * self.n_devices
+        steps = [order[s:s + per_step] for s in range(0, len(order),
+                                                      per_step)]
+        if self.n_hosts > 1:
+            even = (len(steps) // self.n_hosts) * self.n_hosts
+            steps = steps[:even][self.host_id::self.n_hosts]
+        lo = self.rank * self.batch_size
+        return [w[lo:lo + self.batch_size] for w in steps]
+
+    def _iter_sync(self):
+        windows = self.rank_windows()
+        stream = self._load_many([i for w in windows for i in w])
+        for window in windows:
+            loads = [next(stream) for _ in window]
             files = [l[0] for l in loads]
             batch = pack_files(files, [l[1] for l in loads],
                                [l[2] for l in loads], self.pad,
@@ -233,3 +264,11 @@ class PackedLoader:
         t.join()
         if err:
             raise err[0]
+
+
+def stack_shards(shards: list) -> dict:
+    """[D] list of batch dicts -> dict of [D, ...] arrays (the JAX loader's
+    stacked batch; 0-d leaves such as n_images become [D]). The pack-time
+    plans' lengths follow each batch: stack batches with their plans at
+    capacity (`ops.plans.pad_plans`)."""
+    return {k: np.stack([s[k] for s in shards], axis=0) for k in shards[0]}

@@ -158,23 +158,45 @@ class Evaluator:
         self.n_total = 0
         self.confusion = np.zeros((n_classes, n_classes), dtype=np.int64)
 
+    def image_stats(self, det_boxes, det_scores, det_labels, gt_boxes_px,
+                    gt_labels):
+        """One image's statistics (per threshold, `batch_statistics`) and
+        GT labels: what `add_image` accumulates, as a host object that a
+        rank can send (`eval/runner.evaluate(group=)`)."""
+        return ([batch_statistics(det_boxes, det_scores, det_labels,
+                                  gt_boxes_px, gt_labels, float(th))
+                 for th in self.ths], list(gt_labels))
+
+    def add_image_stats(self, stats) -> None:
+        samples, gt_labels = stats
+        self.gt_labels_all += gt_labels
+        for i, s in enumerate(samples):
+            self.samples[i].append(s)
+
     def add_image(self, det_boxes, det_scores, det_labels, gt_boxes_px, gt_labels):
         """All arrays numpy; det_* already NMS-filtered & score-ordered;
         gt boxes in pixels."""
-        self.gt_labels_all += list(gt_labels)
-        for i, th in enumerate(self.ths):
-            self.samples[i].append(
-                batch_statistics(det_boxes, det_scores, det_labels,
-                                 gt_boxes_px, gt_labels, float(th))
-            )
+        self.add_image_stats(self.image_stats(det_boxes, det_scores,
+                                              det_labels, gt_boxes_px,
+                                              gt_labels))
+
+    def proposal_stats(self, pred_label, gt_label):
+        """(correct, total, confusion counts) of one batch's proposals."""
+        pred_label = np.asarray(pred_label)
+        gt_label = np.asarray(gt_label)
+        confusion = np.zeros_like(self.confusion)
+        np.add.at(confusion, (gt_label, pred_label), 1)
+        return int((pred_label == gt_label).sum()), len(pred_label), confusion
+
+    def add_proposal_stats(self, stats) -> None:
+        n_true, n_total, confusion = stats
+        self.n_true += n_true
+        self.n_total += n_total
+        self.confusion += confusion
 
     def add_proposals(self, pred_label, gt_label):
         """Proposal-level top-1 accuracy + confusion (train.py:383-388)."""
-        pred_label = np.asarray(pred_label)
-        gt_label = np.asarray(gt_label)
-        self.n_true += int((pred_label == gt_label).sum())
-        self.n_total += len(pred_label)
-        np.add.at(self.confusion, (gt_label, pred_label), 1)
+        self.add_proposal_stats(self.proposal_stats(pred_label, gt_label))
 
     def compute(self) -> dict:
         out = {"map_per_th": [], "ths": self.ths.tolist()}

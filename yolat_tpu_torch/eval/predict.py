@@ -12,7 +12,9 @@ pixel scaling, a per-image slot layout and class-offset NMS.
 `make_serving_fn` is the counterpart of `yolat_tpu/eval/predict.py:212-405`
 (`kept_batch_keys`, `make_serving_fn`): the batch's kept leaves in one
 buffer, one transfer, and on the card one CUDA graph per signature,
-optionally over a chunk of K batches.
+optionally over a chunk of K batches. `make_dp_predict_fn` (:189-209) is
+its data-parallel form: each rank serves its own row of a [D, ...]
+batch, with no collective.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from yolat_tpu_torch.ops.iou import inflate_boxes
 from yolat_tpu_torch.ops.nms import batched_nms
 from yolat_tpu_torch.ops.plans import (EW_BATCH_KEYS, EW_KEYS, SEW_KEYS,
                                        ew_of)
+from yolat_tpu_torch.parallel.mesh import shard_leading_axis
 from yolat_tpu_torch.utils.cuda_graph import CapturedStep
 
 
@@ -229,3 +232,21 @@ def make_serving_fn(cfg, example_batch: dict, chunk: int | None = None,
     fn.route = route
     fn.captured = graph  # [the CapturedStep] after the first call on the card
     return fn
+
+
+def make_dp_predict_fn(cfg, example_stacked: dict, rank: int,
+                       device="cuda", **kw):
+    """Data-parallel serving, the counterpart of `make_dp_predict_fn`
+    (`yolat_tpu/eval/predict.py:189-209`): fn(stacked [D, ...] numpy
+    batch, `data/loader.stack_shards`) -> this rank's detections
+    (`Fetched`), the rank's row served through `make_serving_fn` (on the
+    card a CUDA graph replay). Prediction has no collective inside it; a
+    rank whose loader yields its own windows calls make_serving_fn
+    directly."""
+    fn = make_serving_fn(cfg, shard_leading_axis(example_stacked, rank),
+                         device=device, **kw)
+
+    def dp_fn(stacked):
+        return fn(shard_leading_axis(stacked, rank))
+
+    return dp_fn

@@ -15,6 +15,15 @@ the f32 running statistics with momentum 0.1 and the unbiased variance
 var * n / max(n - 1, 1) (torch.nn.BatchNorm1d's convention). Eval uses
 the running statistics. Either way y = (x - mean) * rsqrt(var + eps) *
 weight + bias in f32, returned in x's type.
+Data parallel (`yolat_tpu/nn/layers.py:81-84`, the model's `axis_name`):
+with `sync_group` set (`parallel.set_sync_group`), MaskedBatchNorm sums
+(count, total, total_sq) over the group's ranks, packed in one [2C + 1]
+f32 tensor (one collective per layer), before the mean and variance,
+through the differentiable sum (`parallel.distributed.all_reduce_sum`,
+psum's transpose in the backward); the running statistics move from those
+global moments, so every rank holds the same ones. FusedPoolFusion hands
+its group to the fused head (kernels 3 and 11). With no group set, both
+are what they are on one device.
 Weight init matches the reference model_init: Kaiming-normal (fan_in,
 ReLU gain) for Linear weights, zero biases (`init_weights`).
 """
@@ -25,6 +34,7 @@ import torch
 from torch import nn
 
 from yolat_tpu_torch.ops.fused_pool_train import fused_pool_train
+from yolat_tpu_torch.parallel.distributed import all_reduce_sum
 
 
 class MaskedBatchNorm(nn.Module):
@@ -41,6 +51,7 @@ class MaskedBatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(features))
         self.register_buffer("num_batches_tracked",
                              torch.zeros((), dtype=torch.int64))
+        self.sync_group = None  # a process group: moments over its ranks
 
     @torch.no_grad()
     def update_running(self, mean, var, count) -> None:
@@ -63,6 +74,13 @@ class MaskedBatchNorm(nn.Module):
                 count = xf.new_full((), float(x.shape[0]))
                 total = xf.sum(dim=0)
                 total_sq = (xf * xf).sum(dim=0)
+            if self.sync_group is not None:
+                c = total.shape[0]
+                packed = all_reduce_sum(
+                    torch.cat([count.reshape(1), total, total_sq]),
+                    self.sync_group)
+                count, total, total_sq = (packed[0], packed[1:c + 1],
+                                          packed[c + 1:])
             count = torch.clamp(count, min=1.0)
             mean = total / count
             var = torch.clamp(total_sq / count - mean * mean, min=0.0)
@@ -124,7 +142,7 @@ class FusedPoolFusion(MLP):
         maskf = node_mask.float()[:, None]
         pooled, mean, var, count = fused_pool_train(
             cat, maskf, lin.weight.t(), lin.bias, bn.weight, bn.bias,
-            blk_first, n_prop)
+            blk_first, n_prop, group=bn.sync_group)
         bn.update_running(mean, var, count)
         return pooled
 

@@ -22,6 +22,15 @@ then closed form over [Cin, H]-sized tensors (the Gram matrix, gram @ W
 and xm @ (W diag(c2) W^T) stay torch.matmul, as the JAX package left
 them to XLA).
 
+Data parallel (`yolat_tpu/ops/fused_pool_train.py:84-87, 158-174`): with
+a process group, `_stats` sums (n, zsum, zsq) over its ranks (one packed
+[2H + 1] tensor) before the scale and shift kernel 3 folds in, and the
+backward sums (usum, uzraw) over them between kernel 11 and the epilogue,
+so c1 and c2 come from global sums; dW, db, dgamma and dbeta stay local
+(the DP step averages them), db with the local mask count n_l, as in
+JAX. Kernels 3 and 11 do not change, and their plain versions take the
+same sums, so both routes run this code.
+
 Routes: CUDA tensors take kernels 3 and 11, CPU tensors their plain
 versions (`folded_mlp_block_max_plain`, `fused_pool_train_bwd_plain`),
 each route recomputing in its own forward's bits; any other device
@@ -32,6 +41,7 @@ to compare the two routes on the card.
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from yolat_tpu_torch.ops import _build
 from yolat_tpu_torch.ops.block_max import (NEG, folded_mlp_block_max,
@@ -46,10 +56,22 @@ CI_MAX = 128
 KCHUNKS = 32        # row chunks of kernel 11's x^T s pass
 
 
-def _stats(xm, maskf, w, b):
+def _sum_over(group, *parts):
+    """Each part summed over the ranks of `group` in one collective."""
+    flat = torch.cat([p.reshape(-1) for p in parts])
+    dist.all_reduce(flat, group=group)
+    out, at = [], 0
+    for p in parts:
+        out.append(flat[at:at + p.numel()].reshape(p.shape))
+        at += p.numel()
+    return out
+
+
+def _stats(xm, maskf, w, b, group=None):
     """Closed-form masked BN train moments of z = x@W + b (f32): mean, var
     (biased), count (clamped at 1), the masked row sum sx and the Gram
-    matrix x^T x."""
+    matrix x^T x (both local). With a group, the count and the moments are
+    summed over its ranks."""
     xf, wf, bf = xm.float(), w.float(), b.float()
     n = maskf.sum()
     sx = xf.sum(dim=0)
@@ -57,6 +79,8 @@ def _stats(xm, maskf, w, b):
     gram = xf.t() @ xf
     zsum = sxw + n * bf
     zsq = (wf * (gram @ wf)).sum(dim=0) + 2.0 * bf * sxw + n * bf * bf
+    if group is not None:
+        n, zsum, zsq = _sum_over(group, n, zsum, zsq)
     n = torch.clamp(n, min=1.0)
     mean = zsum / n
     var = torch.clamp(zsq / n - mean * mean, min=0.0)
@@ -150,20 +174,20 @@ def fused_pool_train_bwd(xm, maskf, w, sc, pooled_b, gp_b,
 
 class FusedPoolTrain(torch.autograd.Function):
     """(x [N, Cin], maskf [N, 1] f32, W [Cin, H], b [H], gamma [H],
-    beta [H], blk_first [N/8] sorted block owners, n_prop, route) ->
-    pooled [P, H] in x's type, mean [H], var [H] (biased), count (f32
-    scalar). Only pooled carries a gradient; mean/var/count feed the BN
-    running statistics."""
+    beta [H], blk_first [N/8] sorted block owners, n_prop, route, group)
+    -> pooled [P, H] in x's type, mean [H], var [H] (biased), count (f32
+    scalar; over the group's ranks with a group). Only pooled carries a
+    gradient; mean/var/count feed the BN running statistics."""
 
     @staticmethod
     def forward(ctx, x, maskf, w, b, gamma, beta, blk_first, n_prop: int,
-                route: str = "kernel"):
+                route: str = "kernel", group=None):
         if route not in ("kernel", "plain"):
             raise ValueError(f"route {route!r}: 'kernel' or 'plain'")
         if x.device.type not in ("cpu", "cuda"):
             raise ValueError(f"fused_pool_train: no route for {x.device}")
         xm = x * maskf.to(x.dtype)
-        mean, var, n, sx, gram = _stats(xm, maskf, w, b)
+        mean, var, n, sx, gram = _stats(xm, maskf, w, b, group)
         sc = _scale_shift(mean, var, b, gamma, beta)
         block_max = (folded_mlp_block_max if route == "kernel"
                      else folded_mlp_block_max_plain)
@@ -179,7 +203,7 @@ class FusedPoolTrain(torch.autograd.Function):
         # by exact equality with maxima computed from these very bits
         ctx.save_for_backward(xm, maskf, w, b, blk_first, mean, var, n, sx,
                               gram, sc, pooled)
-        ctx.route = route
+        ctx.route, ctx.group = route, group
         ctx.gamma_dtype, ctx.beta_dtype = gamma.dtype, beta.dtype
         ctx.mark_non_differentiable(mean, var, n)
         return pooled, mean, var, n
@@ -198,15 +222,19 @@ class FusedPoolTrain(torch.autograd.Function):
         bwd = (fused_pool_train_bwd if ctx.route == "kernel"
                else fused_pool_train_bwd_plain)
         dw_u, dx_s, usum, uzraw = bwd(xm, maskf, w, sc, pooled_b, gp_b)
-        # u-sums with z' = x@W (no bias): sum u*z adds b * sum u
-        uzsum = uzraw + bf * usum
-        ssum = usum * inv
-        szsum = uzsum * inv
-        szc = (szsum - mean * ssum) / (var + BN_EPS)
+        # u-sums with z' = x@W (no bias): sum u*z adds b * sum u. The BN
+        # coupling constants c1, c2 come from the sums over all ranks (the
+        # moments are global); the parameter gradients stay local
+        usum_g, uzraw_g = ((usum, uzraw) if ctx.group is None
+                           else _sum_over(ctx.group, usum, uzraw))
+        uzsum_g = uzraw_g + bf * usum_g
+        szc = (uzsum_g * inv - mean * (usum_g * inv)) / (var + BN_EPS)
         c2 = -szc / n
-        c1 = -(ssum / n) - mean * c2
+        c1 = -(usum_g * inv / n) - mean * c2
+        uzsum = uzraw + bf * usum
+        n_l = torch.clamp(maskf.sum(), min=1.0)  # the local mask count
         dw = dw_u + sx[:, None] * (c1 + bf * c2)[None, :] + (gram @ wf) * c2
-        db = usum * inv + n * c1 + c2 * (sx @ wf + n * bf)
+        db = usum * inv + n_l * c1 + c2 * (sx @ wf + n_l * bf)
         dgamma = (uzsum - mean * usum) * inv_sig
         dbeta = usum
         m2 = (wf * c2[None, :]) @ wf.t()
@@ -217,15 +245,15 @@ class FusedPoolTrain(torch.autograd.Function):
         dx = (dx * mrow).to(xm.dtype)
         return (dx, None, dw.to(w.dtype), db.to(b.dtype),
                 dgamma.to(ctx.gamma_dtype), dbeta.to(ctx.beta_dtype), None,
-                None, None)
+                None, None, None)
 
 
 def fused_pool_train(x, maskf, w, b, gamma, beta, blk_first, n_prop: int,
-                     route: str = "kernel"):
+                     route: str = "kernel", group=None):
     """The fused head; see FusedPoolTrain. w is [Cin, H] (the JAX Dense
-    kernel layout)."""
+    kernel layout); group syncs the batch moments over its ranks."""
     return FusedPoolTrain.apply(x, maskf, w, b, gamma, beta, blk_first,
-                                n_prop, route)
+                                n_prop, route, group)
 
 
 def fused_pool_available(n_rows: int, plan) -> bool:

@@ -19,12 +19,15 @@ rounds at other points than the JAX step.
 `make_train_step` is the eager step: the CPU path and the oracle.
 `make_scan_train_step` runs K steps per call from one staged transfer; on
 the card each step replays one CUDA graph (see its docstring).
+`make_dp_train_step` is the data-parallel step over a process group
+(`yolat_tpu/train/loop.py:269-304`), eager.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.func import functional_call
 
 from yolat_tpu_torch.data.packing import finalize_batch
@@ -33,6 +36,7 @@ from yolat_tpu_torch.data.staging import (PackSpec, StagedBuffers,
 from yolat_tpu_torch.nn.model import detection_loss
 from yolat_tpu_torch.ops.plans import (EW_BATCH_KEYS, SEW_KEYS,
                                        SEW_TRAIN_KEYS)
+from yolat_tpu_torch.parallel.mesh import set_sync_group
 from yolat_tpu_torch.utils.cuda_graph import CapturedStep
 
 # float batch fields that feed matmuls: cast to the compute dtype
@@ -109,6 +113,59 @@ def make_train_step(cfg, model, optimizer, scheduler=None):
         if scheduler is not None:
             scheduler.step()
         return {k: v.detach() for k, v in loss.items()}
+
+    return step
+
+
+def make_dp_train_step(cfg, model, optimizer, scheduler=None, group=None):
+    """step(batch, generator) -> {'loss', 'loss_cls'} averaged over the
+    ranks of `group` (the world group by default), for this rank's tensor
+    batch; updates the model in place, identically on every rank. The
+    counterpart of `make_dp_train_step` (`yolat_tpu/train/loop.py:269-304`,
+    its pmean :192-194).
+
+    The loss and backward are `make_train_step`'s, with the model's batch
+    moments summed over the group (`parallel.set_sync_group`: every
+    MaskedBatchNorm and the fused head). Then the gradients of every
+    parameter (in `model.parameters()` order, a parameter without one as
+    zeros) and the loss values cross in one flat f32 buffer: one
+    all-reduce, then / W, which is pmean. Every rank must draw from the
+    same generator state (JAX replicates one key to every shard), and
+    every rank steps, an all-masked batch included. Eager: gloo cannot be
+    captured in a CUDA graph (the JAX trainer's scan also runs at one
+    device only). torch's DistributedDataParallel is not used: its
+    bucket order and buffer broadcast are not pmean's."""
+    if not dist.is_initialized():
+        raise RuntimeError("make_dp_train_step needs an initialised process "
+                           "group (parallel.distributed."
+                           "initialize_from_config)")
+    group = group or dist.group.WORLD
+    set_sync_group(model, group)
+    w = dist.get_world_size(group)
+    params = [p for p in model.parameters() if p.requires_grad]
+
+    def step(batch: dict, generator=None, aug=None):
+        fb = prepare_batch(cfg, batch, generator, aug)
+        loss = forward_loss(cfg, model, fb, generator)
+        optimizer.zero_grad(set_to_none=False)
+        loss["loss"].backward()
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        keys = sorted(loss)
+        flat = torch.cat([p.grad.reshape(-1).float() for p in params]
+                         + [loss[k].detach().float().reshape(1)
+                            for k in keys])
+        dist.all_reduce(flat, group=group)
+        flat /= w
+        at = 0
+        for p in params:
+            p.grad.copy_(flat[at:at + p.numel()].view_as(p))
+            at += p.numel()
+        optimizer.step()
+        if scheduler is not None:
+            scheduler.step()
+        return {k: flat[at + i].to(loss[k].dtype) for i, k in enumerate(keys)}
 
     return step
 

@@ -1,8 +1,8 @@
-"""Training orchestration on one device.
+"""Training orchestration, on one device or data parallel.
 
 Counterpart of `yolat_tpu/train/trainer.py:27-321` (`run_training`; the
-reference's cad_recognition/train.py:173-321) for a single process on one
-device: no mesh, no multi-host, no buckets or mixup. The steps go through
+reference's cad_recognition/train.py:173-321), without buckets or mixup.
+On one device the steps go through
 `train/loop.make_scan_train_step` (on the card CUDA graph replays) in
 chunks of `cfg.scan_steps` batches of one shape signature, the plans at
 capacity (`ops.plans.pad_plans`), as the JAX trainer chunks them
@@ -23,6 +23,22 @@ Randomness: the model is initialised from `torch.Generator` seeded with
 cfg.seed (on the CPU, so every device starts from the same weights); the
 augmentation and dropout draws come from a generator on the training
 device seeded with cfg.seed + 1.
+
+Data parallel (`ranks`, a `parallel.distributed.Ranks`; the JAX trainer's
+mesh and multi-host branch, :29-40, :106-118, :159-215): this process is
+one rank. Every rank builds the same model from cfg.seed (then broadcast
+from rank 0 as a guard: `parallel.replicate`), takes its windows of the
+global step schedule (`PackedLoader(n_devices=, host_id=, n_hosts=,
+rank=)`) and runs the eager DP step (`train/loop.make_dp_train_step`)
+one batch per call: `--scan_steps` applies at one device only, as in
+JAX (:216). Local rank 0 builds the kernels and warms the dataset caches
+before the other ranks (a store barrier), and a store barrier stands
+before the first step and before each evaluation. The evaluation runs
+over all ranks, each on its windows of the test split, the AP table
+gathered in the global image order (`eval/runner.evaluate(group=)`); the
+JAX trainer evaluates on process 0's devices alone, with the same result.
+Rank 0 alone writes checkpoints and makes the experiment directory; the
+other ranks log (their LossMean too) under `<exp_dir>/rank<r>/`.
 """
 
 from __future__ import annotations
@@ -36,17 +52,22 @@ import torch
 from yolat_tpu_torch.data.dataset import SESYDDataset
 from yolat_tpu_torch.data.loader import (PackedLoader, extra_plans_for,
                                          train_plans_for)
+from yolat_tpu_torch.data.packing import to_device
 from yolat_tpu_torch.data.staging import batch_signature
 from yolat_tpu_torch.eval.runner import evaluate
 from yolat_tpu_torch.nn.layers import init_weights
 from yolat_tpu_torch.nn.model import build_model
 from yolat_tpu_torch.ops import _build
 from yolat_tpu_torch.ops.plans import pad_plans
+from yolat_tpu_torch.parallel.distributed import (coordination_barrier,
+                                                  local_first)
+from yolat_tpu_torch.parallel.mesh import replicate
 from yolat_tpu_torch.train.checkpoint import (CheckpointManager,
                                               load_train_state,
                                               split_checkpoint_path,
                                               state_from_pth, train_state)
-from yolat_tpu_torch.train.loop import make_scan_train_step
+from yolat_tpu_torch.train.loop import (make_dp_train_step,
+                                        make_scan_train_step)
 from yolat_tpu_torch.train.optim import make_optimizer, make_scheduler
 from yolat_tpu_torch.utils.experiment import (ScalarWriter, configure_logger,
                                               make_experiment_dir)
@@ -67,13 +88,28 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _dp_chunk_fn(cfg, model, optimizer, scheduler, ranks, device):
+    """The DP step behind make_scan_train_step's interface: run(batches,
+    generator) -> {'loss', 'loss_cls'} [len(batches)], one step a batch."""
+    step = make_dp_train_step(cfg, model, optimizer, scheduler, ranks.group)
+
+    def run(batches, generator=None) -> dict:
+        ms = [step(to_device(b, device), generator) for b in batches]
+        return {k: torch.stack([m[k] for m in ms]) for k in ms[0]}
+
+    return run
+
+
 def run_training(cfg, device, exp_dir: str | None = None,
-                 max_steps: int | None = None):
+                 max_steps: int | None = None, ranks=None):
     """Train per cfg on `device`; returns (model, results). results holds
     the last evaluation's table plus best_value, exp_dir, steps, images,
     train_seconds (wall time of the train steps, synchronised), losses
-    (every step's loss) and eval_batches (batches evaluated in all)."""
+    (every step's loss) and eval_batches (batches evaluated in all).
+    With `ranks` this process is one rank of a data-parallel run (module
+    docstring); steps, images and eval_batches are then this rank's."""
     device = torch.device(device)
+    is_main = ranks is None or ranks.is_main
     if cfg.pp_banded_super and cfg.drop_edge > 0.0:
         raise ValueError(
             "pp_banded_super with drop_edge > 0: edge dropout strips the "
@@ -91,28 +127,51 @@ def run_training(cfg, device, exp_dir: str | None = None,
     test_ds = SESYDDataset(cfg.data_dir, "test",
                            bbox_sampling_step=cfg.bbox_sampling_step)
     cfg = cfg.replace(n_classes=train_ds.n_classes)
-    if exp_dir is None:
+    if exp_dir is None and is_main:
         jobname = (f"{cfg.exp_name}-{cfg.conv}-n{cfg.n_blocks}-C{cfg.n_filters}"
                    f"-lr{cfg.lr}_B{cfg.batch_size}")
         exp_dir = make_experiment_dir(cfg.root_dir, jobname)["exp_dir"]
-    os.makedirs(exp_dir, exist_ok=True)
-    configure_logger(exp_dir)
-    writer = ScalarWriter(exp_dir)
-    ckpt = CheckpointManager(os.path.join(exp_dir, "checkpoint"))
+    if ranks is not None:  # every rank under rank 0's directory
+        if is_main:
+            ranks.store.set("yolat_exp_dir", (exp_dir or "").encode())
+        exp_dir = exp_dir or ranks.store.get("yolat_exp_dir").decode()
+    log_dir = exp_dir if is_main else os.path.join(exp_dir,
+                                                   f"rank{ranks.rank}")
+    os.makedirs(log_dir, exist_ok=True)
+    configure_logger(log_dir, tag="" if ranks is None
+                     else f"[rank {ranks.rank}] ")
+    writer = ScalarWriter(log_dir)
+    ckpt = (CheckpointManager(os.path.join(exp_dir, "checkpoint"))
+            if is_main else None)
 
     # each layout packs what its conv branch reads: the edge-window plan
     # with its transpose, the dense neighbour table, or neither
     window = cfg.train_layout == "window"
     layout_kw = dict(edge_window=window, ew_transpose=window,
                      dense=cfg.train_layout == "dense")
-    train_loader = PackedLoader(train_ds, batch_size=cfg.batch_size,
-                                shuffle=True, seed=cfg.seed,
-                                **{**layout_kw, **train_plans_for(cfg)})
-    test_loader = PackedLoader(test_ds, batch_size=cfg.batch_size * 2,
-                               **{**layout_kw, **extra_plans_for(cfg)})
+    # the train split in this rank's windows of the global schedule; the
+    # test split over all ranks as one node, so every image is evaluated
+    train_dp = test_dp = {}
+    if ranks is not None:
+        train_dp = dict(n_devices=ranks.local_world, host_id=ranks.node,
+                        n_hosts=ranks.n_nodes, rank=ranks.local_rank)
+        test_dp = dict(n_devices=ranks.world, rank=ranks.rank)
+
+    def make_loaders():  # the host library's build and the dataset caches
+        return (PackedLoader(train_ds, batch_size=cfg.batch_size,
+                             shuffle=True, seed=cfg.seed,
+                             **{**layout_kw, **train_plans_for(cfg),
+                                **train_dp}),
+                PackedLoader(test_ds, batch_size=cfg.batch_size * 2,
+                             **{**layout_kw, **extra_plans_for(cfg),
+                                **test_dp}))
+
+    train_loader, test_loader = local_first(ranks, "loaders", make_loaders)
     steps_per_epoch = max(len(train_loader), 1)
 
     model = init_model(cfg, device)
+    if ranks is not None:
+        replicate(model, ranks.group)
     optimizer = make_optimizer(cfg.optimizer, model.parameters(), cfg.lr,
                                cfg.weight_decay)
     scheduler = make_scheduler(optimizer, cfg.lr, cfg.lr_adjust_freq,
@@ -135,11 +194,21 @@ def run_training(cfg, device, exp_dir: str | None = None,
     train_loader.epoch = max(start_epoch, 0)
 
     if device.type == "cuda":
-        _build.library()  # build the kernels as set-up, outside the timed loop
+        # build the kernels as set-up, outside the timed loop
+        local_first(ranks, "kernels", _build.library)
     if cfg.scan_steps < 1:
         raise ValueError(f"scan_steps {cfg.scan_steps}: at least 1")
-    scan_fn = make_scan_train_step(cfg, model, optimizer, scheduler,
-                                   cfg.scan_steps)
+    if ranks is None:
+        chunk_len = cfg.scan_steps
+        scan_fn = make_scan_train_step(cfg, model, optimizer, scheduler,
+                                       cfg.scan_steps)
+    else:
+        if cfg.scan_steps > 1:
+            logging.info("--scan_steps %d: the data-parallel step runs one "
+                         "batch per call", cfg.scan_steps)
+        chunk_len = 1
+        scan_fn = _dp_chunk_fn(cfg, model, optimizer, scheduler, ranks,
+                               device)
     generator = torch.Generator(device=device).manual_seed(cfg.seed + 1)
     losses = AverageMeter()
     test_value = 0.0
@@ -180,6 +249,7 @@ def run_training(cfg, device, exp_dir: str | None = None,
                              epoch, it, losses.avg, losses.val)
                 losses.reset()
 
+        coordination_barrier(ranks, "train")
         _sync(device)
         t0 = time.perf_counter()
         chunk: list = []
@@ -190,7 +260,7 @@ def run_training(cfg, device, exp_dir: str | None = None,
                 chunk = []
             chunk.append(b)
             done = max_steps is not None and n_steps + len(chunk) >= max_steps
-            if len(chunk) == cfg.scan_steps or done:
+            if len(chunk) == chunk_len or done:
                 run_chunk(chunk)
                 chunk = []
             if done:
@@ -209,17 +279,23 @@ def run_training(cfg, device, exp_dir: str | None = None,
         train_seconds += time.perf_counter() - t0
 
         if epoch >= cfg.eval_start or done or epoch == cfg.total_epochs:
+            coordination_barrier(ranks, "eval")
             results = evaluate(cfg, model, test_loader, max_det=cfg.max_det,
-                               device=device)
+                               device=device,
+                               group=None if ranks is None
+                               else ranks.host_group)
             test_value = results["test_value"]
             n_eval_batches += len(test_loader)
-            logging.info("Epoch:%d MAP@0.5:%.4f MAP@ALL:%.4f top1:%.4f (%.1fs)",
-                         epoch, results["map_50"], results["map_all"],
-                         results["top1_acc"], time.time() - t_epoch)
+            if is_main:
+                logging.info(
+                    "Epoch:%d MAP@0.5:%.4f MAP@ALL:%.4f top1:%.4f (%.1fs)",
+                    epoch, results["map_50"], results["map_all"],
+                    results["top1_acc"], time.time() - t_epoch)
         is_best = test_value > best_value
         best_value = max(test_value, best_value)
-        ckpt.save(train_state(model, optimizer, scheduler, it), epoch,
-                  best_value, is_best)
+        if ckpt is not None:
+            ckpt.save(train_state(model, optimizer, scheduler, it), epoch,
+                      best_value, is_best)
         if done:
             break
 

@@ -26,10 +26,11 @@ def make_experiment_dir(root_dir: str, jobname: str) -> dict:
     return {"exp_dir": exp_dir, "ckpt_dir": ckpt_dir}
 
 
-def configure_logger(exp_dir: str, level: str = "info") -> None:
+def configure_logger(exp_dir: str, level: str = "info", tag: str = "") -> None:
+    """File + stdout logging; `tag` prefixes every message (a rank's)."""
     logger = logging.getLogger()
     logger.setLevel(getattr(logging, level.upper()))
-    fmt = logging.Formatter("%(asctime)s %(message)s")
+    fmt = logging.Formatter(f"%(asctime)s {tag}%(message)s")
     for handler in list(logger.handlers):
         logger.removeHandler(handler)
     fh = logging.FileHandler(
