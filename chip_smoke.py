@@ -220,6 +220,21 @@ no jax. Phases, each of which raises on failure (non-zero exit):
      ranks and rank 0's checkpoint, then the DP
      step's wall, device busy time and idle share per rank (gloo through
      the host: not NCCL scaling).
+ 21. detection CLIs: a test split of 8 bench-scale SVGs (phase 6's
+     writer) through `cli.detect` from phase 6's checkpoint dir, in its
+     loop with a recording renderer, in flax, fast and fast_bf16, one image
+     per call: fast held to flax per image (boxes rtol 1e-6 / atol 1e-4,
+     scores 1e-5; a detection on one side only must be a pair at the
+     hard-NMS threshold or a swap of near-equal scores, at most 2%),
+     fast_bf16's counts and largest score difference printed; on the fast
+     routes kernels 1, 2 and N1 launched 2, 1 and 1 times per image and one
+     graph captured per (slot cap, signature) key, replayed once per image;
+     `--merge_nms` draws `merge_nms` of each call's kept proposals bit for
+     bit; the warm mean ms per image of each mode; `cli.detect_badcase`
+     (TP, FP, FN per drawn image); `cli.export_ckpt` on phase 6's
+     checkpoint dir, bit-equal to phase 6's trained.pth; then, where
+     matplotlib imports, `cli.detect.main` with one PNG per image, and
+     where it does not, a line saying so and `main`'s refusal.
 Everything it runs comes from yolat_tpu_torch, the synthetic SVG writer
 included: it imports neither jax nor the JAX package yolat_tpu.
 The kernels line (a JSON object describing each kernel; launches are
@@ -920,7 +935,8 @@ def train_kernel_phase(model, batch, dev_line):
 
 def train_phase(work, dev_line):
     """cli.train on bench-scale SVGs (bf16, fused head), then the trained
-    weights through cli.infer; returns the train path's launch counts."""
+    weights through cli.infer; returns the train path's launch counts, the
+    data root, the checkpoint dir and the trained weights' reference .pth."""
     from yolat_tpu_torch.cli import infer
     from yolat_tpu_torch.cli import train as train_cli
     from yolat_tpu_torch.config import Config
@@ -979,7 +995,7 @@ def train_phase(work, dev_line):
           f"{len(recs)} records for {N_SVGS} trained-on SVGs")
     print(f"served the trained checkpoint (epoch {epoch}): {len(recs)} "
           f"records, {sum(len(r['detections']) for r in recs)} detections")
-    return counts, root
+    return counts, root, ckdir, pth
 
 
 def _library_ms(fn) -> float:
@@ -3389,6 +3405,293 @@ def dp_gloo_phase(bench_root, train_root, work, dev_line):
     print(f"dp phase: {secs:.1f} s for the two ranks [{dev_line}]")
 
 
+# phase 21: the detection CLIs (cli.detect, cli.detect_badcase,
+# cli.export_ckpt) on a test split of DETECT_SVGS bench-scale SVGs written
+# by phase 6's writer, served from phase 6's checkpoint dir (one proposal
+# per image survives its 8 steps: the root) and from seeded weights that
+# keep many (DETECT_MANY_MIN detections per image at least)
+DETECT_SVGS = 8
+DETECT_MODES = ("flax", "fast", "fast_bf16")
+DETECT_MANY_MIN = 100
+NMS_IOU = 0.5  # Config.nms_iou
+
+
+def _iou64(a, b) -> float:
+    a = [float(v) for v in a]
+    b = [float(v) for v in b]
+    iw = max(0.0, min(a[2], b[2]) - max(a[0], b[0]))
+    ih = max(0.0, min(a[3], b[3]) - max(a[1], b[1]))
+    inter = iw * ih
+    union = ((a[2] - a[0]) * (a[3] - a[1]) + (b[2] - b[0]) * (b[3] - b[1])
+             - inter)
+    return inter / union if union > 0 else 0.0
+
+
+def _pair_detections(got: dict, want: dict) -> tuple:
+    """Pair one image's detections of two runs by class and box (rtol
+    1e-6, atol 1e-4, tests/test_torch_detect.py's limits) -> (pairs,
+    unpaired of got, unpaired of want)."""
+    import numpy as np
+
+    left = list(range(len(want["boxes"])))
+    pairs, alone = [], []
+    for i, box in enumerate(got["boxes"]):
+        j = next((j for j in left if got["classes"][i] == want["classes"][j]
+                  and np.allclose(box, want["boxes"][j], rtol=1e-6,
+                                  atol=1e-4)), None)
+        if j is None:
+            alone.append(i)
+        else:
+            left.remove(j)
+            pairs.append((i, j))
+    return pairs, alone, left
+
+
+def _match_detections(got: dict, want: dict, what: str) -> int:
+    """The CPU test's rule (tests/test_torch_detect.py match_detections):
+    paired scores within rtol/atol 1e-5; a detection on one side only must
+    be a pair at the hard-NMS threshold (a same-class detection kept by
+    both, ranked above it, at an IoU within 1e-5 of it); at most 2% of the
+    detections. Returns how many were left on one side."""
+    import numpy as np
+
+    pairs, ua, ub = _pair_detections(got, want)
+    for i, j in pairs:
+        check(abs(got["scores"][i] - want["scores"][j])
+              <= 1e-5 + 1e-5 * abs(want["scores"][j]),
+              f"{what}: scores {got['scores'][i]} vs {want['scores'][j]}")
+    for rec, mine, both in ((got, ua, [i for i, _ in pairs]),
+                            (want, ub, [j for _, j in pairs])):
+        for k in mine:
+            check(any(rec["classes"][p] == rec["classes"][k]
+                      and rec["scores"][p] > rec["scores"][k]
+                      and abs(_iou64(rec["boxes"][p], rec["boxes"][k])
+                              - NMS_IOU) <= 1e-5 for p in both),
+                  f"{what}: detection {k} on one side only, not at the NMS "
+                  f"threshold, box {np.asarray(rec['boxes'][k]).tolist()}")
+    n = len(ua) + len(ub)
+    check(n <= 0.02 * max(len(got["boxes"]), len(want["boxes"]), 1),
+          f"{what}: {n} detections on one side only")
+    return n
+
+
+def _detect_recorder(store: list):
+    import numpy as np
+
+    def render(svg_path, width, height, boxes, scores, classes, class_names,
+               out_path, score_th=0.75):
+        store.append({"file": svg_path, "out": out_path,
+                      "w": float(width), "h": float(height),
+                      "boxes": np.asarray(boxes), "scores": np.asarray(scores),
+                      "classes": np.asarray(classes), "score_th": score_th})
+    return render
+
+
+def _many_proposal_pth(root: str, path: str) -> str:
+    """Seeded canonical weights at width 64 (randomised BatchNorm terms,
+    `seeded_model`) with the background logit's bias raised by 5, as
+    tests/test_torch_detect.py makes its weights: the roots fall to
+    background, so their children are kept and hard NMS and merge_nms
+    select among hundreds of overlapping proposals per image."""
+    import torch
+
+    from yolat_tpu_torch.config import Config
+    from yolat_tpu_torch.data.dataset import SESYDDataset
+    from yolat_tpu_torch.nn.model import seeded_model
+    from yolat_tpu_torch.train.checkpoint import save_reference_checkpoint
+
+    model = seeded_model(Config(n_classes=SESYDDataset(root, "test").n_classes,
+                                n_filters=64), seed=21)
+    with torch.no_grad():
+        model.prediction_cls[-1][0].bias[-1] += 5.0
+    save_reference_checkpoint(model, path)
+    return path
+
+
+def _detect_argv(root: str, pretrained: str) -> list:
+    return ["--data_dir", root, "--pretrained_model", pretrained,
+            "--n_filters", "64", "--conf_th", "0.0", "--device", "cuda"]
+
+
+def _detect_weights(work, root, weights, pretrained, dev_line) -> dict:
+    """cli.detect under `pretrained` in each serve mode and fast
+    `--merge_nms`, through its loop with a recording renderer: fast held
+    to flax, fast_bf16 reported, kernels 1 / 2 / N1 at 2 / 1 / 1 launches
+    per image in the fast modes, a graph per (slot cap, signature), the
+    merged boxes merge_nms of each call's kept proposals bit for bit.
+    Returns {mode: (records, result)}."""
+    import numpy as np
+
+    from yolat_tpu_torch.cli import detect
+    from yolat_tpu_torch.eval.merge_nms import merge_nms
+    from yolat_tpu_torch.ops import _build
+
+    argv = _detect_argv(root, pretrained)
+    n = DETECT_SVGS
+    runs = {}
+    for mode in DETECT_MODES + ("merge",):
+        flags = (["--serve_mode", "fast", "--merge_nms"] if mode == "merge"
+                 else ["--serve_mode", mode])
+        rec: list = []
+        _build.reset_launch_counts()
+        res = detect.detect(argv + flags + [
+            "--out_dir", os.path.join(work, f"detect_{weights}_{mode}")],
+            render=_detect_recorder(rec))
+        check(len(rec) == len(res["images"]) == n,
+              f"{weights} {mode}: {len(rec)} images drawn")
+        for r in rec:
+            check(r["boxes"].shape[1:] == (4,) and np.isfinite(r["boxes"]).all()
+                  and np.isfinite(r["scores"]).all() and r["w"] > 0
+                  and r["out"].endswith(".png"),
+                  f"{weights} {mode}: a bad record")
+        if mode != "flax":
+            want = {"edge_window_message_sum": 2 * n,
+                    "folded_mlp_block_max2": n, "nms_fixpoint": n}
+            got = {k: res["launches"][k] for k in want}
+            check(got == want, f"{weights} {mode}: launches {got}, "
+                  f"want {want}")
+            check(res["graphs"]["captured"] == res["serving_fns"] and
+                  res["graphs"]["replayed"] == n,
+                  f"{weights} {mode}: graphs {res['graphs']} for "
+                  f"{res['serving_fns']} (slot cap, signature) keys")
+        runs[mode] = (rec, res)
+
+    flax, fast, bf16 = (runs[m][0] for m in DETECT_MODES)
+    check(all(len(r["boxes"]) > 0 for r in flax),
+          f"{weights} flax: an image without detections")
+    flips = [_match_detections(f, w, f"{weights} fast vs flax, image {i}")
+             for i, (f, w) in enumerate(zip(fast, flax))]
+    bf16_rows = []
+    for b, w in zip(bf16, flax):
+        pairs, _, _ = _pair_detections(b, w)
+        err = max((abs(float(b["scores"][p]) - float(w["scores"][q]))
+                   for p, q in pairs), default=0.0)
+        bf16_rows.append((len(b["boxes"]), len(w["boxes"]), len(pairs),
+                          err))
+    merges = []
+    for r, img in zip(runs["merge"][0], runs["merge"][1]["images"]):
+        out = img["outputs"]
+        kept = out["kept"]
+        m = merge_nms(out["prop_boxes"][kept], out["prop_obj"][kept],
+                      out["prop_cls"][kept], conf_thres=0.0, nms_thres=0.4)
+        check(np.array_equal(r["boxes"], m["boxes"])
+              and np.array_equal(r["scores"], m["obj_conf"] * m["cls_conf"])
+              and np.array_equal(r["classes"], m["classes"])
+              and r["score_th"] == 0.0, f"{weights} --merge_nms: not "
+              "merge_nms of the call's kept proposals")
+        merges.append((int(kept.sum()), len(m["boxes"])))
+    if weights == "many":
+        check(all(len(r["boxes"]) >= DETECT_MANY_MIN for r in flax),
+              f"many: flax detections per image "
+              f"{[len(r['boxes']) for r in flax]}, want {DETECT_MANY_MIN}+")
+        check(all(m >= 2 and k - m >= 3 for k, m in merges),
+              f"many: (kept, merged) per image {merges}, want several "
+              "merges on every image")
+    print(f"phase 21 cli.detect, {weights} weights: " + "; ".join(
+        f"{m}: {sum(len(r['boxes']) for r in runs[m][0])} detections on "
+        f"{n} images, ms per image: warm mean "
+        f"{1e3 * statistics.fmean(runs[m][1]['times_s'][1:]):.3f} (calls 2 "
+        f"onward, as the CLI prints it), steady mean "
+        f"{_steady_ms(runs[m][1]):.3f} (the calls that made no serving "
+        f"fn), launches "
+        f"{ {k: v for k, v in runs[m][1]['launches'].items() if v} }, graphs "
+        f"{runs[m][1]['graphs']} over {runs[m][1]['serving_fns']} (slot cap, "
+        f"signature) keys" for m in DETECT_MODES + ("merge",))
+        + f" [{dev_line}]")
+    print(f"phase 21 {weights} fast vs flax: every image within the CPU "
+          f"test's limits (boxes rtol 1e-6 / atol 1e-4, scores 1e-5); "
+          f"detections per image {[len(r['boxes']) for r in flax]}, on one "
+          f"side only (each at the NMS threshold) {flips}")
+    print(f"phase 21 {weights} fast_bf16 vs flax per image (bf16 count, "
+          f"flax count, paired, max |score diff| of the pairs): {bf16_rows}")
+    print(f"phase 21 {weights} --merge_nms: merge_nms of each call's kept "
+          f"proposals, bit for bit; (kept, merged) per image {merges}")
+    return runs
+
+
+def _steady_ms(res: dict) -> float:
+    steady = [t for t, s in zip(res["times_s"], res["set_up"]) if not s]
+    return 1e3 * statistics.fmean(steady) if steady else float("nan")
+
+
+def detect_phase(work, ckpt_dir, trained_pth, dev_line):
+    """Phase 21: cli.detect (`_detect_weights`) under phase 6's checkpoint
+    dir and under seeded weights that keep many proposals,
+    cli.detect_badcase under both, cli.export_ckpt against phase 6's .pth,
+    and cli.detect.main where matplotlib imports (one PNG per image) or its
+    refusal where it does not."""
+    import torch
+
+    from yolat_tpu_torch.cli import detect, detect_badcase, export_ckpt
+    from yolat_tpu_torch.data.synthetic import write_dataset
+
+    t_start = time.perf_counter()
+    root = os.path.join(work, "detect_svgs")
+    write_dataset(root, n_train=0, n_test=DETECT_SVGS, seed=19, width=2000.0,
+                  height=1500.0, n_rooms=6, symbols_per_room=(1, 3))
+    try:
+        import matplotlib  # noqa: F401
+        have_mpl = True
+    except ImportError:
+        have_mpl = False
+        print("phase 21: overlays not drawn: matplotlib is not installed on "
+              "this machine (cli.detect.main and cli.detect_badcase.main "
+              "refuse; the detections are checked through the loop)")
+    many = _many_proposal_pth(root, os.path.join(work, "detect_many.pth"))
+    weights = {"phase6": ckpt_dir, "many": many}
+    fast = _detect_weights(work, root, "phase6", ckpt_dir, dev_line)["fast"][0]
+    _detect_weights(work, root, "many", many, dev_line)
+
+    # bad cases: the module route, TP / FP / FN per drawn image
+    for name, pretrained in weights.items():
+        bad: list = []
+        res = detect_badcase.badcase(_detect_argv(root, pretrained) + [
+            "--out_dir", os.path.join(work, f"badcase_{name}")],
+            render=lambda *a: bad.append(a))
+        check(len(bad) == res["n_bad"] <= DETECT_SVGS,
+              f"badcase {name}: {res['n_bad']}")
+        kinds = [(sum(k == "tp" for _, k in a[3]),
+                  sum(k == "fp" for _, k in a[3]), len(a[4])) for a in bad]
+        print(f"phase 21 cli.detect_badcase, {name} weights: {res['n_bad']} "
+              f"of {DETECT_SVGS} images drawn, (TP, FP, FN) per drawn image "
+              f"{kinds}")
+
+    # export: phase 6's checkpoint dir to a reference .pth
+    out = os.path.join(work, "exported.pth")
+    export_ckpt.main(["--pretrained_model", ckpt_dir, "--n_filters", "64",
+                      "--out", out])
+    got = torch.load(out, weights_only=True)
+    want = torch.load(trained_pth, weights_only=True)
+    check(got["epoch"] == want["epoch"]
+          and list(got["state_dict"]) == list(want["state_dict"])
+          and all(torch.equal(got["state_dict"][k], v)
+                  for k, v in want["state_dict"].items()),
+          "the exported .pth is not phase 6's trained.pth")
+    print(f"phase 21 cli.export_ckpt: {len(want['state_dict'])} tensors "
+          f"bit-equal to phase 6's trained.pth (epoch {got['epoch']})")
+
+    # the CLI itself: PNGs where matplotlib imports, its refusal elsewhere
+    png_dir = os.path.join(work, "detect_png")
+    argv = _detect_argv(root, ckpt_dir)
+    if have_mpl:
+        detect.main(argv + ["--serve_mode", "fast", "--out_dir", png_dir])
+        want_png = sorted(os.path.basename(r["out"]) for r in fast)
+        check(sorted(os.listdir(png_dir)) == want_png
+              and all(os.path.getsize(os.path.join(png_dir, p)) > 0
+                      for p in want_png), "cli.detect.main: one PNG per image")
+        print(f"phase 21 cli.detect.main: {len(want_png)} PNGs")
+    else:
+        try:
+            detect.main(argv + ["--serve_mode", "fast", "--out_dir", png_dir])
+            check(False, "cli.detect.main ran without matplotlib")
+        except RuntimeError as e:
+            check("matplotlib" in str(e) and not os.path.exists(png_dir),
+                  f"cli.detect.main's refusal: {e}")
+        print("phase 21 cli.detect.main refused before the first image: "
+              "matplotlib is absent")
+    print(f"phase 21: {time.perf_counter() - t_start:.1f} s")
+
+
 def _finite(v) -> bool:
     return v == v and abs(v) != float("inf")
 
@@ -3473,7 +3776,8 @@ def main() -> int:
         res.update(train_kernel_phase(model, batch, dev_line))
 
         # 6. train
-        train_counts, train_root = train_phase(work, dev_line)
+        train_counts, train_root, train_ckpt, trained_pth = train_phase(
+            work, dev_line)
         counts.update({k: train_counts[k] for k in (
             "folded_mlp_block_max", "fused_pool_train_bwd")})
 
@@ -3598,6 +3902,10 @@ def main() -> int:
         dp_nccl_phase(route_batches, work, dev_line)
         dp_gloo_phase(root, train_root, work, dev_line)
         print(f"phase 20: {time.perf_counter() - t0:.1f} s")
+
+        # 21. the detection CLIs: cli.detect in each serve mode,
+        # cli.detect_badcase, cli.export_ckpt
+        detect_phase(work, train_ckpt, trained_pth, dev_line)
 
     # the kernels line
     sources = {"edge_window_message_sum": (

@@ -71,9 +71,20 @@ def load_checkpoint(cfg, device):
     return model.to(device).eval(), epoch, best
 
 
-def main(argv=None) -> dict:
-    p = build_parser()
-    p.description = "yolat_tpu_torch evaluation"
+def serving_loader(cfg, ds, batch_size: int, serve_mode: str,
+                   **kw) -> PackedLoader:
+    """The loader of the serving CLIs (test, detect, detect_badcase): the
+    edge-window plan, or under cfg.dense_layout the dense neighbour table
+    and no plan, with the plans cfg's arch reads (`extra_plans_for`)."""
+    if cfg.arch in PP_ARCHS and cfg.dense_layout and serve_mode != "flax":
+        raise ValueError("--dense_layout true: the YOLaT++ engine has no "
+                         "dense route (its convs run the edge-window kernel)")
+    return PackedLoader(ds, batch_size=batch_size,
+                        edge_window=not cfg.dense_layout,
+                        dense=cfg.dense_layout, **extra_plans_for(cfg), **kw)
+
+
+def add_serving_flags(p) -> None:
     p.add_argument("--serve_mode", default="flax",
                    choices=("flax", "fast", "fast_bf16"),
                    help="flax = the eval-mode module; fast / fast_bf16 = the "
@@ -81,6 +92,12 @@ def main(argv=None) -> dict:
     p.add_argument("--dense_layout", default=False, type=_bool,
                    help="pack the dense neighbour table instead of the "
                         "edge-window plan (the engine takes kernel 4)")
+
+
+def main(argv=None) -> dict:
+    p = build_parser()
+    p.description = "yolat_tpu_torch evaluation"
+    add_serving_flags(p)
     args = p.parse_args(argv)
     device = device_from_arg(args.device)
     cfg = config_from_args(args, argv)
@@ -107,14 +124,10 @@ def _test(cfg, args, device, ranks=None) -> dict:
     # the layout under test is the batch's: the model takes no window branch
     cfg = cfg.replace(n_classes=ds.n_classes, train_layout="sparse")
     is_pp = cfg.arch in PP_ARCHS
-    if is_pp and cfg.dense_layout and args.serve_mode != "flax":
-        raise ValueError("--dense_layout true: the YOLaT++ engine has no "
-                         "dense route (its convs run the edge-window kernel)")
     dp = {} if ranks is None else dict(n_devices=ranks.world,
                                        rank=ranks.rank)
-    loader = local_first(ranks, "loader", lambda: PackedLoader(
-        ds, batch_size=cfg.batch_size, edge_window=not cfg.dense_layout,
-        dense=cfg.dense_layout, **extra_plans_for(cfg), **dp))
+    loader = local_first(ranks, "loader", lambda: serving_loader(
+        cfg, ds, cfg.batch_size, args.serve_mode, **dp))
     model, epoch, best = load_checkpoint(cfg, device)
     if device.type == "cuda" and args.serve_mode != "flax":
         # build the kernels before the evaluation loop

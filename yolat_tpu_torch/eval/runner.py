@@ -8,7 +8,8 @@ eval-mode module (the parity route; the name is the JAX package's),
 eager, 'fast' / 'fast_bf16' the folded-BN engine of cfg's arch with its
 kernels, through `make_serving_fn` (one transfer of the kept arrays, on
 the card a CUDA graph) with the plans at capacity, one per (slot cap,
-signature), as `yolat_tpu/eval/runner.py:80-100` does.
+signature), as `yolat_tpu/eval/runner.py:80-100` does
+(`batch_predictor`, which `cli.detect` serves through too).
 
 Data parallel (`group`, :30-32, :85-87): each rank predicts the batches
 of its own loader (its windows of the split: `PackedLoader(n_devices=,
@@ -35,6 +36,42 @@ from yolat_tpu_torch.eval.predict import (img_slot_cap, make_predict_core,
 from yolat_tpu_torch.ops.plans import pad_plans
 
 
+def batch_predictor(cfg, model, serve: str = "flax", device=None,
+                    max_det: int = 300):
+    """predict(numpy batch) -> numpy detections dict (`make_predict_core`'s
+    keys) on the route `serve` names, with each batch's exact slot cap
+    (`img_slot_cap`), as `yolat_tpu/eval/runner.py:56-100` predicts:
+    'flax' the eval-mode `model`, eager; 'fast' / 'fast_bf16' the arch's
+    folded-BN engine through `make_serving_fn` over the plans at capacity
+    (`pad_plans`), one serving fn, on the card one CUDA graph, per (slot
+    cap, batch signature), kept in `predict.serving_fns`. The model is
+    folded as it stands: put it in eval mode first."""
+    if serve not in ("flax", "fast", "fast_bf16"):
+        raise ValueError(f"serve {serve!r}: flax, fast or fast_bf16")
+    device = device or next(model.parameters()).device
+    folded = fold_params_for(cfg, model, device) if serve != "flax" else None
+    fns: dict = {}
+
+    def predict(batch: dict) -> dict:
+        cap = img_slot_cap(batch)
+        if folded is None:
+            core = make_predict_core(cfg, model=model, max_det=max_det,
+                                     img_slots=cap)
+            with torch.no_grad():
+                return {k: v.cpu().numpy() for k, v in
+                        core(to_device(batch, device)).items()}
+        staged = pad_plans(batch)
+        key = (cap, batch_signature(staged))
+        if key not in fns:
+            fns[key] = make_serving_fn(
+                cfg, staged, device=device, folded=folded,
+                bf16=serve == "fast_bf16", max_det=max_det, img_slots=cap)
+        return fns[key](staged).numpy()
+
+    predict.serving_fns = fns
+    return predict
+
+
 def evaluate(cfg, model, loader, max_det: int = 300, verbose: bool = False,
              serve: str = "flax", device=None, group=None) -> dict:
     """The AP table of `model` over the loader's batches (numpy dicts):
@@ -42,33 +79,14 @@ def evaluate(cfg, model, loader, max_det: int = 300, verbose: bool = False,
     is put in eval mode and returned to its former mode. With `group` (a
     process group that carries host objects), the table of all its ranks'
     batches (module docstring)."""
-    if serve not in ("flax", "fast", "fast_bf16"):
-        raise ValueError(f"serve {serve!r}: flax, fast or fast_bf16")
-    device = device or next(model.parameters()).device
     was_training = model.training
     model.eval()
-    folded = fold_params_for(cfg, model, device) if serve != "flax" else None
     ev = Evaluator(cfg.n_classes)
     steps: list = []  # per batch: (proposal statistics, image statistics)
-    fast_fns: dict = {}
     try:
+        predict = batch_predictor(cfg, model, serve, device, max_det)
         for batch in loader:
-            cap = img_slot_cap(batch)
-            if folded is None:
-                predict = make_predict_core(cfg, model=model, max_det=max_det,
-                                            img_slots=cap)
-                with torch.no_grad():
-                    out = {k: v.cpu().numpy() for k, v in
-                           predict(to_device(batch, device)).items()}
-            else:
-                staged = pad_plans(batch)
-                key = (cap, batch_signature(staged))
-                if key not in fast_fns:
-                    fast_fns[key] = make_serving_fn(
-                        cfg, staged, device=device, folded=folded,
-                        bf16=serve == "fast_bf16", max_det=max_det,
-                        img_slots=cap)
-                out = fast_fns[key](staged).numpy()
+            out = predict(batch)
             kept = out["kept"]
             images = []
             for img in range(min(batch["gt_bbox"].shape[0],
