@@ -2,13 +2,12 @@
 train-mode module's banded route against its sparse route and yolat_tpu's,
 the refusals of a batch without its plan, a fresh model as the canonical
 detector, dropout's generator, the train step's repairs under edge dropout,
-the compute type of the super-edge attributes, and the train CLI with
-evaluation, checkpoint and the test CLI. The train step itself (loss,
-gradients, 3 Adam steps) is held in tests/test_torch_pp_train_step.py.
+and the compute type of the super-edge attributes. The train step itself
+(loss, gradients, 3 Adam steps) is held in tests/test_torch_pp_train_step.py,
+the train CLI with evaluation, checkpoint and the test CLI in
+tests/test_torch_pp_train_cli.py.
 Inputs, helpers and the tolerances: tests/torch_pp_train_common.py.
 """
-
-import os
 
 import jax
 import jax.numpy as jnp
@@ -16,12 +15,9 @@ import numpy as np
 import pytest
 import torch
 
-from torch_pp_train_common import (ROUTES, WIDTH, _by_name, _configs,
-                                   _jax_forward, _jax_state, _port_model,
-                                   batches, toy)
+from torch_pp_train_common import (WIDTH, _by_name, _configs, _jax_forward,
+                                   _jax_state, _port_model, batches, toy)
 from yolat_tpu.data.packing import finalize_batch as jax_finalize
-from yolat_tpu_torch.cli import test as test_cli
-from yolat_tpu_torch.cli import train as train_cli
 from yolat_tpu_torch.config import PP_GATES, Config
 from yolat_tpu_torch.data.packing import to_device
 from yolat_tpu_torch.nn.model import build_model
@@ -214,36 +210,3 @@ def test_e_attr_super_reaches_the_mlp_in_the_compute_type(toy):
     loss.backward()
     for name, p in model.named_parameters():
         assert p.dtype == torch.float32 and p.grad.dtype == torch.float32, name
-
-
-@pytest.mark.parametrize("fused", ["false", "true"])
-@pytest.mark.parametrize("route", list(ROUTES))
-def test_train_cli_trains_evaluates_and_the_test_cli_restores(
-        tmp_path, synthetic_root, capsys, route, fused):
-    flags = {"per_edge": ["--arch", "yolat_pp"],
-             "banded": ["--arch", "yolat_pp", "--pp_banded_super", "true"],
-             "factored": ["--profile", "yolat_pp_fast"]}[route]
-    res = train_cli.main(["--data_dir", synthetic_root, "--device", "cpu",
-                          "--n_filters", "8", "--batch_size", "2",
-                          "--max_steps", "2", "--fused_head_train", fused,
-                          "--root_dir", str(tmp_path), "--print_freq", "1"]
-                         + flags)
-    assert res["steps"] == 2 and len(res["losses"]) == 2
-    assert all(np.isfinite(res["losses"])) and res["eval_batches"] == 1
-    for k in ("map_50", "map_all", "top1_acc"):
-        assert np.isfinite(res[k]), k
-    line = capsys.readouterr().out.strip().splitlines()[-1]
-    assert "2 steps" in line and "banded_gather=0, banded_gather_bwd=0, " \
-        "banded_scatter_own=0, banded_scatter_own_bwd=0" in line
-    ck = os.path.join(res["exp_dir"], "checkpoint")
-    assert os.path.exists(os.path.join(ck, "ckpt_1.pt"))
-    table = test_cli.main(["--data_dir", synthetic_root, "--phase", "test",
-                           "--device", "cpu", "--n_filters", "8",
-                           "--batch_size", "2", "--pretrained_model", ck]
-                          + flags)
-    assert len(table["map_per_th"]) == 10
-    np.testing.assert_allclose(table["map_50"], res["map_50"], atol=1e-6)
-    if route == "per_edge" and fused == "false" \
-            and not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="CUDA is not available"):
-            train_cli.main(["--data_dir", synthetic_root] + flags)

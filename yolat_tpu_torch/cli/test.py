@@ -34,7 +34,7 @@ prints the table, which is the single-device table of the split.
 
 from __future__ import annotations
 
-from yolat_tpu_torch.cli.train import (_bool, build_parser, config_from_args,
+from yolat_tpu_torch.cli.train import (build_parser, config_from_args,
                                        data_parallel, device_from_arg,
                                        device_name, run_ranks)
 from yolat_tpu_torch.config import PP_ARCHS
@@ -89,9 +89,6 @@ def add_serving_flags(p) -> None:
                    choices=("flax", "fast", "fast_bf16"),
                    help="flax = the eval-mode module; fast / fast_bf16 = the "
                         "folded-BN serving engine")
-    p.add_argument("--dense_layout", default=False, type=_bool,
-                   help="pack the dense neighbour table instead of the "
-                        "edge-window plan (the engine takes kernel 4)")
 
 
 def main(argv=None) -> dict:

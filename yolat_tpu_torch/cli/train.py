@@ -11,6 +11,7 @@ the same names:
       [--profile yolat_pp_fast] [--eval_start 20] [--root_dir log]
       [--pretrained_model ckpt_dir|ckpt_dir/ckpt_<tag>|ref.pth]
       [--scan_steps K] [--max_steps N] [--device cuda]
+      [--buckets B] [--do_mixup 1] [--dense_layout true] [--postname S]
       [--n_devices D [--coordinator host:port --process_id I
                       --n_processes P]]
 
@@ -24,7 +25,17 @@ train rate (steps/s and images/s over the synchronised train-step wall
 time) and the launch counts of the fused pool head's kernels and of the
 window layout's kernels 9 and 10 and of the banded YOLaT++ route's
 kernels 7 and 8, forward and backward apart (they count the evaluation's
-forward passes too), and the CUDA graphs captured and replayed.
+forward passes too), the CUDA graphs captured, replayed and freed, the
+bytes the live graphs hold, the batch signatures met and the pad growths.
+On the card the graphs captured equal the signatures met: one per bucket,
+and one more per pad that mixup grows.
+
+`--buckets B` packs the train split in B size buckets, each with its own
+pads; `--do_mixup 1` mixes every CC with a random CC of its file on each
+training load (seeded with `--seed`; the pads grow to fit; refused over
+several nodes); `--dense_layout true` packs the dense neighbour table for
+the evaluation (the module's dense branch; `cli.test`'s engine takes
+kernel 4 with it). `--postname` is accepted and unused, as in the JAX CLI.
 
 `--n_devices D` trains data parallel over D devices
 (`train/trainer.run_training(ranks=)`): the CLI starts one process per
@@ -79,6 +90,9 @@ def build_parser() -> argparse.ArgumentParser:
     add("--in_channels", default=d.in_channels, type=int)
     add("--bbox_sampling_step", default=d.bbox_sampling_step, type=int)
     add("--data_aug", default=d.data_aug, type=_bool)
+    add("--do_mixup", default=d.do_mixup, type=float,
+        help="> 0: mix every CC with a random CC of its file on each "
+             "training load (the pads grow to fit)")
     add("--drop_edge", default=d.drop_edge, type=float)
     add("--total_epochs", default=d.total_epochs, type=int)
     add("--lr", default=d.lr, type=float)
@@ -89,6 +103,8 @@ def build_parser() -> argparse.ArgumentParser:
     add("--print_freq", default=d.print_freq, type=int)
     add("--optimizer", default=d.optimizer, type=str,
         choices=("adam", "adamw", "radam"))
+    add("--postname", default="", type=str,
+        help="accepted and unused, as in the JAX CLI")
     add("--arch", default=d.arch, type=str)
     add("--conv", default=d.conv, type=str)
     add("--n_filters", default=d.n_filters, type=int)
@@ -108,6 +124,9 @@ def build_parser() -> argparse.ArgumentParser:
              "weights, f32 BN statistics")
     add("--fused_head_train", default=d.fused_head_train, type=_bool,
         help="train-mode fused pool head (kernels 3 and 11)")
+    add("--dense_layout", default=d.dense_layout, type=_bool,
+        help="pack the dense neighbour table for evaluation (cli.test's "
+             "engine then takes kernel 4; the module its dense branch)")
     add("--train_layout", default=d.train_layout, type=str,
         choices=("sparse", "window", "dense"),
         help="conv layout: the padded edge list, the edge-window plan "
@@ -125,6 +144,9 @@ def build_parser() -> argparse.ArgumentParser:
     add("--profile", default=d.profile, type=str,
         choices=("",) + tuple(PROFILES),
         help="named flag bundle; flags typed beside it keep their values")
+    add("--buckets", default=d.buckets, type=int,
+        help="size buckets of the train loader, each with its own pads "
+             "and, on the card, its own CUDA graph")
     add("--scan_steps", default=d.scan_steps, type=int,
         help="train steps per dispatch: their batches cross in one "
              "transfer and, on the card, replay one CUDA graph back to "
@@ -223,7 +245,10 @@ def _train(cfg, device, max_steps, ranks=None) -> dict:
               "banded_gather", "banded_gather_bwd", "banded_scatter_own",
               "banded_scatter_own_bwd"))
           + f"; CUDA graphs captured={graphed['captured']}, "
-          f"replayed={graphed['replayed']}"
+          f"replayed={graphed['replayed']}, released="
+          f"{results['graphs_released']}, holding "
+          f"{results['graph_bytes']} bytes; batch signatures="
+          f"{results['signatures']}, pad growths={results['pad_growths']}"
           + (f" (rank 0 of {ranks.world})" if ranks is not None else ""))
     return results
 

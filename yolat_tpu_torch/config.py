@@ -69,6 +69,7 @@ class Config:
     in_channels: int = 5
     bbox_sampling_step: int = 10
     data_aug: bool = True
+    do_mixup: float = 0.0           # > 0: training-time mixup of CCs
     drop_edge: float = 0.0
 
     # train
@@ -113,6 +114,8 @@ class Config:
     scan_steps: int = 1             # train steps per dispatch: one transfer
                                     # of that many batches, their steps
                                     # replayed back to back (JAX: lax.scan)
+    buckets: int = 1                # size-bucketed padding of the train
+                                    # loader: one graph per bucket's shape
     iou_aware_loss: bool = False    # soft {class: q, background: 1-q} targets
     iou_aware_mode: str = "abs"     # q = IoU ('abs') or IoU / best sibling
     pos_class_weight: float = 1.0   # positive rows' loss weight

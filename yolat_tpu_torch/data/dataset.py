@@ -2,7 +2,8 @@
 
 Counterpart of `yolat_tpu/data/dataset.py:28-206` (the loader workers'
 entry points, `CACHE_VERSION`, `_atomic_pickle`, `SESYDDataset` with
-`ctor_kwargs`) without training-time mixup and the anchor-statistics tool.
+`ctor_kwargs`) and training-time mixup, without the anchor-statistics
+tool.
 Each SVG goes through the graph build and the proposal generator of
 `yolat_tpu_torch.geom`, on the host library (`geom/_native.py`); both
 stages are cached on disk beside the SVG under the JAX package's file
@@ -61,11 +62,14 @@ class SESYDDataset:
     """Files from `<root>/<partition>_list.txt` (or an explicit `files`
     list, for bare SVGs); `load(i)` -> (ProposalFile, (gt_bbox, gt_labels),
     (width, height)). `mode` picks the class vocabulary and defaults from
-    the path, as the reference does (graph_dict3.py:57)."""
+    the path, as the reference does (graph_dict3.py:57). `do_mixup` draws
+    a fresh mixed proposal set on every load from one rng seeded by
+    `seed`, and bypasses the proposal cache (the graph cache stays)."""
 
     def __init__(self, root: str, partition: str = "train",
                  bbox_sampling_step: int = 10, mode: str | None = None,
                  class_dict: dict | None = None, cache: bool = True,
+                 do_mixup: bool = False, seed: int = 0,
                  files: list | None = None, require_gt: bool = True):
         self.root = root
         self.partition = partition
@@ -94,13 +98,16 @@ class SESYDDataset:
         self.class_dict = class_dict
         self.n_classes = len(set(class_dict.values()))
         self.cache = cache
+        self.do_mixup = do_mixup
+        self._rng = np.random.default_rng(seed)
 
     def __len__(self):
         return len(self.files)
 
     def ctor_kwargs(self) -> dict:
         """Constructor arguments that rebuild this dataset in a worker
-        process, everything resolved (mode, class vocabulary, file list)."""
+        process, everything resolved (mode, class vocabulary, file list).
+        Mixup is left out: its draws would diverge across processes."""
         return dict(root=self.root, partition=self.partition,
                     bbox_sampling_step=self.step, mode=self.mode,
                     class_dict=self.class_dict, cache=self.cache,
@@ -146,12 +153,13 @@ class SESYDDataset:
         gt_key = "" if len(gt_bbox) else ".nogt"
         cache_path = path.replace(
             ".svg", f".props{self.step}{gt_key}.v{CACHE_VERSION}.pkl")
-        if self.cache and os.path.exists(cache_path):
+        if self.cache and not self.do_mixup and os.path.exists(cache_path):
             with open(cache_path, "rb") as f:
                 pf = ProposalFile.from_dict(pickle.load(f))
         else:
             pf = generate_proposals(graph, gt_bbox, gt_labels, self.n_classes,
-                                    bbox_sampling_step=self.step)
-            if self.cache:
+                                    bbox_sampling_step=self.step,
+                                    do_mixup=self.do_mixup, rng=self._rng)
+            if self.cache and not self.do_mixup:
                 _atomic_pickle(cache_path, pf.to_dict())
         return pf, (gt_bbox, gt_labels), (w, h)

@@ -26,7 +26,11 @@ rest; graph_dict3.py:743-768) is flattened to index ranges: slice arrays
 per proposal plus (cc_slice, root_of_cc) — everything the two-pass predictor
 needs, with no Python object trees.
 
-Port of `yolat_tpu/geom/proposals.py:1-742` without training-time mixup.
+Training-time mixup (graph_dict3.py:791-907) pairs every CC with a random
+CC side by side before the sweep; the mixed graph then goes through the
+same window pipeline.
+
+Port of `yolat_tpu/geom/proposals.py:1-742`.
 Each CC's windows go through the host library's window pipeline
 (`geom/_native.py`, `csrc/geomcore.cpp`) in one call, consumed in bulk;
 the per-window numpy loop below is the oracle (`_native.disabled()`) and
@@ -322,6 +326,8 @@ def generate_proposals(
     gt_labels: np.ndarray,
     n_classes: int,
     bbox_sampling_step: int = 10,
+    do_mixup: bool = False,
+    rng: np.random.Generator | None = None,
 ) -> ProposalFile:
     """Generate the per-file proposal set from a built graph dict."""
     cc = graph["cc"]
@@ -341,6 +347,13 @@ def generate_proposals(
     cc = [[int(o2n[i]) for i in cluster] for cluster in cc]
     pos = pos[~is_control]
     is_super = is_super[~is_control]
+
+    if do_mixup:
+        if rng is None:
+            rng = np.random.default_rng()
+        cc, pos, edge, edge_super, e_attr, e_attr_super, is_super = mixup(
+            cc, pos, edge, edge_super, e_attr, e_attr_super, is_super, rng
+        )
 
     n_nodes = len(pos)
 
@@ -631,3 +644,88 @@ class _Accumulator:
             cc_slice=np.asarray(self.cc_slice, dtype=np.int64),
             root_of_cc=np.asarray(self.root_of_cc, dtype=np.int64),
         )
+
+
+# ---------------------------------------------------------------------------
+# mixup (graph_dict3.py:791-907)
+# ---------------------------------------------------------------------------
+
+
+def _normalize_pos_aspect(p: np.ndarray) -> np.ndarray:
+    """Aspect-preserving unit normalisation (mixup.normalize_pos,
+    graph_dict3.py:818-828): divide both axes by the larger extent."""
+    min_x, max_x = p[:, 0].min(), p[:, 0].max()
+    min_y, max_y = p[:, 1].min(), p[:, 1].max()
+    s = max(max_x - min_x, max_y - min_y)
+    s = s if s > 0 else 1.0
+    return (p - [min_x, min_y]) / s
+
+
+def mixup(cc, pos, edge, edge_super, e_attr, e_attr_super, is_super,
+          rng: np.random.Generator):
+    """Pair every CC with a random CC side-by-side; new merged CCs carry
+    fully-bipartite super edges with zeroed attributes."""
+    n = len(pos)
+    cc_of = np.zeros(n, dtype=np.int64)
+    for ci, cluster in enumerate(cc):
+        cc_of[np.asarray(cluster, dtype=np.int64)] = ci
+
+    edge_cc = cc_of[edge[:, 0]] if len(edge) else np.zeros(0, np.int64)
+    super_cc = cc_of[edge_super[:, 0]] if len(edge_super) else np.zeros(0, np.int64)
+
+    new_cc, new_pos, new_edge, new_super = [], [], [], []
+    new_e_attr, new_e_attr_super, new_is_super = [], [], []
+    offset = n
+
+    for ci in range(len(cc)):
+        cj = int(rng.integers(len(cc)))
+        a = np.asarray(cc[ci], dtype=np.int64)
+        b = np.asarray(cc[cj], dtype=np.int64)
+
+        pa = _normalize_pos_aspect(pos[a])
+        pb = _normalize_pos_aspect(pos[b])
+        if rng.random() < 0.5:
+            pb = pb + [1 + rng.random() * 0.1, rng.random()]
+        else:
+            pb = pb + [rng.random(), 1 + 0.1 * rng.random()]
+
+        idx_a = offset + np.arange(len(a))
+        idx_b = offset + len(a) + np.arange(len(b))
+
+        remap = np.full(n, -1, dtype=np.int64)
+        remap[a] = idx_a
+        remap_b = np.full(n, -1, dtype=np.int64)
+        remap_b[b] = idx_b
+
+        ea_ids = np.where(edge_cc == ci)[0]
+        eb_ids = np.where(edge_cc == cj)[0]
+        sa_ids = np.where(super_cc == ci)[0]
+        sb_ids = np.where(super_cc == cj)[0]
+
+        bipartite = np.stack(
+            np.meshgrid(idx_a, idx_b, indexing="ij"), axis=-1
+        ).reshape(-1, 2)
+
+        new_pos.append(np.concatenate([pa, pb], axis=0))
+        new_is_super.append(np.concatenate([is_super[a], is_super[b]]))
+        new_cc.append(list(idx_a) + list(idx_b))
+        new_edge.append(np.concatenate([remap[edge[ea_ids]], remap_b[edge[eb_ids]]], axis=0))
+        new_super.append(
+            np.concatenate(
+                [remap[edge_super[sa_ids]], remap_b[edge_super[sb_ids]], bipartite], axis=0
+            )
+        )
+        new_e_attr.append(np.concatenate([e_attr[ea_ids], e_attr[eb_ids]], axis=0))
+        new_e_attr_super.append(
+            np.zeros((len(sa_ids) + len(sb_ids) + len(bipartite), 6))
+        )
+        offset += len(a) + len(b)
+
+    cc = cc + new_cc
+    pos = np.concatenate([pos] + new_pos, axis=0)
+    is_super = np.concatenate([is_super] + new_is_super)
+    edge = np.concatenate([edge] + new_edge, axis=0).astype(np.int64)
+    edge_super = np.concatenate([edge_super] + new_super, axis=0).astype(np.int64)
+    e_attr = np.concatenate([e_attr] + new_e_attr, axis=0)
+    e_attr_super = np.concatenate([e_attr_super] + new_e_attr_super, axis=0)
+    return cc, pos, edge, edge_super, e_attr, e_attr_super, is_super

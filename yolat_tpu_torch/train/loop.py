@@ -37,7 +37,7 @@ from yolat_tpu_torch.nn.model import detection_loss
 from yolat_tpu_torch.ops.plans import (EW_BATCH_KEYS, SEW_KEYS,
                                        SEW_TRAIN_KEYS)
 from yolat_tpu_torch.parallel.mesh import set_sync_group
-from yolat_tpu_torch.utils.cuda_graph import CapturedStep
+from yolat_tpu_torch.utils.cuda_graph import CapturedStep, side_stream
 
 # float batch fields that feed matmuls: cast to the compute dtype
 _COMPUTE_KEYS = ("x", "pos", "e_attr", "nbr_attr", "e_attr_super")
@@ -184,8 +184,8 @@ def train_batch_keys(cfg, batch: dict) -> tuple:
 def _eager_checked(fn):
     """fn() on a side stream with every host synchronisation an error: the
     capture that follows would fail on one, here it fails where it is."""
+    stream = side_stream(torch.cuda.current_device())
     mode = torch.cuda.get_sync_debug_mode()
-    stream = torch.cuda.Stream()
     stream.wait_stream(torch.cuda.current_stream())
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -217,6 +217,13 @@ def make_scan_train_step(cfg, model, optimizer, scheduler, n_steps: int):
     back inside a chunk. The optimizer must be capturable
     (`train.optim.make_optimizer` on CUDA parameters). On the CPU the same
     staging runs the eager step (`make_train_step`).
+
+    `run.captured` maps each signature to its entry, whose "bytes" is the
+    device memory its graph's private pool holds after the capture;
+    `run.stats()` gives the live graphs and the bytes they hold;
+    `run.release(sig)` frees a signature's graph and buffers, for a
+    signature that will not return (a bucket whose pads grew), and says
+    whether there was one.
     """
     step = make_train_step(cfg, model, optimizer)  # the schedule steps here
     device = next(model.parameters()).device
@@ -234,7 +241,7 @@ def make_scan_train_step(cfg, model, optimizer, scheduler, n_steps: int):
                 "row": (torch.empty(spec.total, dtype=torch.uint8,
                                     device=device)
                         if device.type == "cuda" else None),
-                "graph": None, "generator": generator}
+                "graph": None, "generator": generator, "bytes": 0}
         spec, buf, row = ent["spec"], ent["staged"].stage(batches), ent["row"]
         metrics = []
         for r in range(len(batches)):
@@ -248,6 +255,7 @@ def make_scan_train_step(cfg, model, optimizer, scheduler, n_steps: int):
                     lambda: step(spec.unpack(row), generator),
                     generators=() if generator is None else (generator,),
                     warmup=False)
+                ent["bytes"] = ent["graph"].pool_bytes()
             elif generator is not ent["generator"]:
                 raise ValueError("a captured train step draws from the "
                                  "generator it was captured with")
@@ -259,5 +267,13 @@ def make_scan_train_step(cfg, model, optimizer, scheduler, n_steps: int):
                 scheduler.step()
         return {k: torch.stack([m[k] for m in metrics]) for k in metrics[0]}
 
+    def release(sig) -> bool:
+        return graphs.pop(sig, None) is not None
+
+    def stats() -> dict:
+        return {"graphs": sum(e["graph"] is not None for e in graphs.values()),
+                "graph_bytes": sum(e["bytes"] for e in graphs.values())}
+
     run.captured = graphs  # per signature; its "graph" is the CapturedStep
+    run.release, run.stats = release, stats
     return run

@@ -1,19 +1,28 @@
 """Training orchestration, on one device or data parallel.
 
 Counterpart of `yolat_tpu/train/trainer.py:27-321` (`run_training`; the
-reference's cad_recognition/train.py:173-321), without buckets or mixup.
-On one device the steps go through
+reference's cad_recognition/train.py:173-321). The train split mixes up
+its CCs under cfg.do_mixup > 0 (seeded with cfg.seed) and its loader packs
+cfg.buckets size buckets; the test loader stays unbucketed, with the dense
+neighbour table under cfg.dense_layout (the evaluation's module then takes
+its dense branch). On one device the steps go through
 `train/loop.make_scan_train_step` (on the card CUDA graph replays) in
 chunks of `cfg.scan_steps` batches of one shape signature, the plans at
 capacity (`ops.plans.pad_plans`), as the JAX trainer chunks them
 (`yolat_tpu/train/trainer.py:216-288`); a chunk cut short by a new
 signature, the epoch's end or `max_steps` runs as it is, and each chunk's
-losses are fetched once. The loaders pack what cfg.train_layout's conv branch reads
-('window' is refused together with edge dropout, which would leave its
-plan stale) and, for a YOLaT++ arch, the super-edge family: the train
-loader with the clique family's plan and its transpose only under
-cfg.pp_banded_super (refused together with edge dropout for the same
-reason), the test loader with what serving reads. Epoch loop over the
+losses are fetched once. Each bucket, and each pad that mixup grows, is a
+new signature, so one more eager first step and one more capture; a
+signature that a grown pad supersedes never returns, and its graph and
+buffers are freed when the bucket's next batch arrives (each capture holds
+a private memory pool, so the step's memory would otherwise grow with
+every growth). The results count the signatures met, the pad growths, the
+graphs freed and the bytes the live graphs hold. The loaders pack what
+cfg.train_layout's conv branch reads ('window' is refused together with
+edge dropout, which would leave its plan stale) and, for a YOLaT++ arch,
+the super-edge family: the train loader with the clique family's plan and
+its transpose only under cfg.pp_banded_super (refused together with edge
+dropout for the same reason), the test loader with what serving reads. Epoch loop over the
 shuffled train loader, evaluation every epoch from `eval_start` (and at
 the last epoch or when `max_steps` stops the run), per-epoch checkpoints with a best-by-`test_value` copy, a scalar
 log, and resume from a checkpoint directory, a `<dir>/ckpt_<tag>` path
@@ -90,13 +99,16 @@ def _sync(device) -> None:
 
 def _dp_chunk_fn(cfg, model, optimizer, scheduler, ranks, device):
     """The DP step behind make_scan_train_step's interface: run(batches,
-    generator) -> {'loss', 'loss_cls'} [len(batches)], one step a batch."""
+    generator) -> {'loss', 'loss_cls'} [len(batches)], one step a batch;
+    eager, so it holds no graph to release."""
     step = make_dp_train_step(cfg, model, optimizer, scheduler, ranks.group)
 
     def run(batches, generator=None) -> dict:
         ms = [step(to_device(b, device), generator) for b in batches]
         return {k: torch.stack([m[k] for m in ms]) for k in ms[0]}
 
+    run.release = lambda sig: False
+    run.stats = lambda: {"graphs": 0, "graph_bytes": 0}
     return run
 
 
@@ -123,7 +135,8 @@ def run_training(cfg, device, exp_dir: str | None = None,
             "on the device makes it stale; train with train_layout 'sparse' "
             "or 'dense', or without edge dropout")
     train_ds = SESYDDataset(cfg.data_dir, "train",
-                            bbox_sampling_step=cfg.bbox_sampling_step)
+                            bbox_sampling_step=cfg.bbox_sampling_step,
+                            do_mixup=cfg.do_mixup > 0, seed=cfg.seed)
     test_ds = SESYDDataset(cfg.data_dir, "test",
                            bbox_sampling_step=cfg.bbox_sampling_step)
     cfg = cfg.replace(n_classes=train_ds.n_classes)
@@ -160,11 +173,14 @@ def run_training(cfg, device, exp_dir: str | None = None,
     def make_loaders():  # the host library's build and the dataset caches
         return (PackedLoader(train_ds, batch_size=cfg.batch_size,
                              shuffle=True, seed=cfg.seed,
+                             buckets=cfg.buckets,
                              **{**layout_kw, **train_plans_for(cfg),
                                 **train_dp}),
                 PackedLoader(test_ds, batch_size=cfg.batch_size * 2,
                              **{**layout_kw, **extra_plans_for(cfg),
-                                **test_dp}))
+                                **test_dp,
+                                "dense": layout_kw["dense"]
+                                or cfg.dense_layout}))
 
     train_loader, test_loader = local_first(ranks, "loaders", make_loaders)
     steps_per_epoch = max(len(train_loader), 1)
@@ -213,7 +229,9 @@ def run_training(cfg, device, exp_dir: str | None = None,
     losses = AverageMeter()
     test_value = 0.0
     results: dict = {}
-    n_steps = n_images = n_eval_batches = 0
+    n_steps = n_images = n_eval_batches = n_released = 0
+    signatures: set = set()
+    bucket_sig: dict = {}  # bucket -> the signature of its last batch
     train_seconds = 0.0
     history: list = []
     done = False
@@ -253,11 +271,18 @@ def run_training(cfg, device, exp_dir: str | None = None,
         _sync(device)
         t0 = time.perf_counter()
         chunk: list = []
-        for batch in train_loader:
+        for bucket, batch in train_loader.iter_buckets():
             b = pad_plans(batch)
-            if chunk and batch_signature(b) != batch_signature(chunk[0]):
+            sig = batch_signature(b)
+            if chunk and sig != batch_signature(chunk[0]):
                 run_chunk(chunk)  # chunks never mix signatures
                 chunk = []
+            old = bucket_sig.get(bucket, sig)
+            bucket_sig[bucket] = sig
+            if old != sig and old not in bucket_sig.values():
+                # a grown pad: its old signature never returns
+                n_released += scan_fn.release(old)
+            signatures.add(sig)
             chunk.append(b)
             done = max_steps is not None and n_steps + len(chunk) >= max_steps
             if len(chunk) == chunk_len or done:
@@ -302,5 +327,9 @@ def run_training(cfg, device, exp_dir: str | None = None,
     writer.close()
     results.update(best_value=best_value, exp_dir=exp_dir, steps=n_steps,
                    images=n_images, train_seconds=train_seconds,
-                   losses=history, eval_batches=n_eval_batches)
+                   losses=history, eval_batches=n_eval_batches,
+                   signatures=len(signatures),
+                   pad_growths=train_loader.pad_growths,
+                   graphs_released=n_released,
+                   graph_bytes=scan_fn.stats()["graph_bytes"])
     return model, results
