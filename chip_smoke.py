@@ -278,7 +278,32 @@ no jax. Phases, each of which raises on failure (non-zero exit):
      scores), a one-sided detection also explained by a same-class
      one-sided detection of the other run that overlaps it above the NMS
      IoU within that limit (two near-tied boxes ranked apart), kernel 6
-     once per image; the phase's time.
+     once per image; the phase's time;
+ 23. the conv zoo (`nn/conv.py`, `nn/dynamic.py`, `nn/gen_conv.py`): on
+     the first train batch of phase 6's floorplans (batch 4, full width:
+     64 channels, 2 blocks, the 1024-wide fusion, the 2304 -> 512 -> 256
+     -> 17 head, f32, TF32 off), each of the 12 convs besides
+     attr_edge_gp2 as a seeded model in train mode, forward and backward
+     on the card against the same model and batch on the CPU (the plain
+     path): logits within CONV_ZOO_TOL of their scale, the loss, the
+     BatchNorm running statistics after the step, the gradients of the
+     tensors after the node max pool (the prediction head, the super
+     stream) at the relative Frobenius limit, and every gradient's
+     relative Frobenius error printed with the share of (proposal,
+     channel) pairs of the node max pool that have tied winners (the
+     compare-form max gradient gives each the cotangent; the card's and the
+     CPU's rounding break ties apart), held below CONV_ZOO_GRAD_TOL for
+     the convs without act -> BatchNorm ties; the bf16 fused-head train
+     step of gp2, edge, gat, gen and attr_edge_cf as graph replays, timed
+     in turns (synchronised host wall, staging included), with each
+     graph's pool; then `cli.train --conv
+     {edge, gat, gen, attr_edge_cf} --fused_head_train true --dtype
+     bfloat16` and `--conv sage --act gelu --norm layer` (f32) for a few
+     steps each (losses finite, kernels 3 and 11 once per fused step, one
+     capture per signature and replays), `cli.test --serve_mode flax` on
+     each checkpoint (N1 once per batch, the AP table finite), and the
+     refusals of `cli.test --serve_mode fast --conv edge` and `cli.train
+     --fused_head_train true --act gelu`; the phase's time.
 Everything it runs comes from yolat_tpu_torch, the synthetic SVG writer
 included: it imports neither jax nor the JAX package yolat_tpu.
 The kernels line (a JSON object describing each kernel; launches are
@@ -288,7 +313,9 @@ kernels 9, 10 and 4, phase 13's first `cli.infer` run for kernels 5 and 6,
 phase 16's banded run for kernels 7 and 8, phase 17's probe run for
 kernel 12, `edge_window_decomp`, phase 19's first `cli.infer --chunk 8`
 run for N1's fixpoint entry and its `cli.test` for the classfix entry;
-a replay adds the launches its capture recorded)
+a replay adds the launches its capture recorded; `conv_zoo_launches` on
+the rows of kernels 3, 11 and N1 counts phase 23's runs, each CLI run
+from 0)
 comes before the nvidia-smi line; the last line is
 {"ok": true, "device": {...}}. Each kernel's bound_ms is the larger of its
 bytes (each input read once, each output written once; of a gathered
@@ -4311,6 +4338,268 @@ def _finite(v) -> bool:
     return v == v and abs(v) != float("inf")
 
 
+# phase 23: the conv zoo on phase 6's floorplans
+ZOO_CONVS = ("attr_edge", "multilayer_edge", "attr_edge_gp", "attr_edge_cf",
+             "edge", "mr", "gcn", "gin", "sage", "rsage", "gat", "gen")
+ZOO_TIE_PRONE = ("gcn", "gat")  # act -> BatchNorm: tied max-pool winners
+ZOO_STEPS = 4
+ZOO_TRAINED = ("edge", "gat", "gen", "attr_edge_cf")  # bf16, fused head
+ZOO_TIMED = 10  # replays timed per conv, in turns
+# card against CPU, f32: logits (of their scale), the loss, the running
+# statistics (relative): the same math summed in other orders, through
+# train-mode BatchNorm (read <= 8.1e-6, 1.2e-7, 1.0e-6); the gradients
+# after the node max pool (relative Frobenius), where a ReLU gate of the
+# head that rounds apart moves a whole row's cotangent (read 2e-6 without
+# one, up to 1.76e-3 with)
+CONV_ZOO_TOL = {"logits": 1e-4, "loss": 1e-5, "stats": 1e-4, "head": 1e-2}
+# every gradient of a conv without act -> BatchNorm ties: relative
+# Frobenius (a pool winner or ReLU gate that rounds apart moves a few
+# entries; read <= 7.5e-3, GIN's eps, a sum that cancels); gcn and gat
+# read up to 0.244 and 0.061 with 42% and 21% of the pool's pairs tied
+CONV_ZOO_GRAD_TOL = 5e-2
+
+
+def _zoo_run(model, batch):
+    """Train-mode forward and backward of the detection loss: (logits,
+    loss, {name: grad}, {name: running statistic}, tied share)."""
+    import torch
+
+    from yolat_tpu_torch.nn.model import detection_loss
+    from yolat_tpu_torch.ops.segment import segment_max
+
+    model.train()
+    model.zero_grad()
+    logits = model(batch)[0]
+    loss = detection_loss(logits, batch["labels"],
+                          batch["proposal_mask"])["loss"]
+    loss.backward()
+    grads = {n: p.grad.detach().cpu().double()
+             for n, p in model.named_parameters()}
+    stats = {n: b.detach().cpu().double() for n, b in model.named_buffers()
+             if n.endswith(("running_mean", "running_var"))}
+    with torch.no_grad():
+        cat, _ = model.cls_net.features(batch)
+        n_prop, idx = batch["labels"].shape[0], batch["bbox_idx"].long()
+        mx = segment_max(cat, idx, n_prop, mask=batch["node_mask"])
+        hit = (cat == mx.index_select(0, idx)) & batch["node_mask"][:, None]
+        wins = torch.zeros_like(mx).index_add_(0, idx, hit.to(mx.dtype))
+        pm = batch["proposal_mask"]
+        tied = float(((wins[pm] > 1) & (mx[pm] != 0)).float().mean())
+    return (logits.detach().cpu().double(), loss.item(), grads, stats,
+            tied)
+
+
+def _zoo_card_cpu(root, dev_line) -> None:
+    """Phase 23 (a): each conv's seeded full-width model in train mode on
+    the card against the CPU's plain path, on the first train batch."""
+    import copy
+
+    import torch
+
+    from yolat_tpu_torch.config import Config
+    from yolat_tpu_torch.data.dataset import SESYDDataset
+    from yolat_tpu_torch.data.loader import PackedLoader, train_plans_for
+    from yolat_tpu_torch.data.packing import to_device
+    from yolat_tpu_torch.nn.model import seeded_model
+    from yolat_tpu_torch.train.loop import prepare_batch
+
+    ds = SESYDDataset(root, "train", bbox_sampling_step=10)
+    cfg = Config(n_classes=ds.n_classes, data_aug=False)
+    b = next(iter(PackedLoader(ds, batch_size=BATCH, prefetch=0,
+                               **train_plans_for(cfg))))
+    cpu_b = prepare_batch(cfg, to_device(b, "cpu"))
+    dev_b = prepare_batch(cfg, to_device(b, "cuda"))
+    rel = lambda a, r: float((a - r).norm() / max(float(r.norm()), 1e-30))  # noqa: E731
+    rows = []
+    for conv in ZOO_CONVS:
+        model = seeded_model(cfg.replace(conv=conv), seed=23)
+        t0 = time.perf_counter()
+        got = _zoo_run(copy.deepcopy(model).to("cuda"), dev_b)
+        torch.cuda.synchronize()
+        t_card = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = _zoo_run(model, cpu_b)
+        t_cpu = time.perf_counter() - t0
+        pm = cpu_b["proposal_mask"]
+        lg = (got[0][pm] - want[0][pm]).abs().max().item() / max(
+            want[0][pm].abs().max().item(), 1e-30)
+        ls = abs(got[1] - want[1]) / abs(want[1])
+        st = max(rel(got[3][k], v) for k, v in want[3].items())
+        # a Dense bias feeding a BatchNorm has a structurally zero
+        # gradient (noise below 1e-4): held absolutely
+        g_err = {k: rel(got[2][k], v) for k, v in want[2].items()
+                 if float(v.abs().max()) >= 1e-4}
+        noise = max(float((got[2][k] - v).abs().max())
+                    for k, v in want[2].items() if k not in g_err)
+        head = max(e for k, e in g_err.items()
+                   if k.startswith(("prediction_cls", "cls_net.fusion_block_super")))
+        worst = max(g_err, key=g_err.get)
+        finite = all(bool(torch.isfinite(g).all()) for g in got[2].values())
+        check(finite and lg <= CONV_ZOO_TOL["logits"]
+              and ls <= CONV_ZOO_TOL["loss"] and st <= CONV_ZOO_TOL["stats"]
+              and head <= CONV_ZOO_TOL["head"] and noise <= 1e-4,
+              f"phase 23 {conv}: card against CPU: logits {lg:.2e}, loss "
+              f"{ls:.2e}, running statistics {st:.2e}, head gradients "
+              f"{head:.2e}, noise-level gradients {noise:.2e} (limits "
+              f"{CONV_ZOO_TOL}, 1e-4), finite {finite}")
+        if conv not in ZOO_TIE_PRONE:
+            check(g_err[worst] <= CONV_ZOO_GRAD_TOL,
+                  f"phase 23 {conv}: gradient {worst} {g_err[worst]:.2e} "
+                  f"(limit {CONV_ZOO_GRAD_TOL}; tied pool pairs "
+                  f"{got[4]:.2%} on the card, {want[4]:.2%} on the CPU)")
+        rows.append((conv, lg, ls, st, head, worst, g_err[worst],
+                     statistics.median(g_err.values()), got[4], want[4],
+                     t_card, t_cpu))
+        print(f"phase 23 {conv}: card against CPU, logits {lg:.2e}, loss "
+              f"{ls:.2e}, running statistics {st:.2e}, head gradients "
+              f"{head:.2e}, noise-level gradients {noise:.2e}, gradients "
+              f"median {rows[-1][7]:.2e}, largest "
+              f"{g_err[worst]:.2e} ({worst}); tied max-pool pairs card "
+              f"{got[4]:.2%} CPU {want[4]:.2%}; forward + backward "
+              f"{1e3 * t_card:.1f} ms card (first call), {1e3 * t_cpu:.1f} "
+              f"ms CPU")
+    print(f"phase 23 card against CPU: {len(rows)} convs on a batch of "
+          f"{BATCH} ({cpu_b['pos'].shape[0]} node rows, "
+          f"{cpu_b['edge'].shape[0]} edge rows, {int(pm.sum())} proposals), "
+          f"limits {CONV_ZOO_TOL}, other gradients {CONV_ZOO_GRAD_TOL} "
+          f"except {ZOO_TIE_PRONE} (printed) [{dev_line}]")
+
+
+def _zoo_step_times(root, dev_line) -> None:
+    """Phase 23 (b): the bf16 fused-head train step of gp2 and of the four
+    trained convs as graph replays (`make_scan_train_step`, scan 1) on
+    phase 6's two train batches: the first step eager and captured, two
+    replays unclocked, then ZOO_TIMED replays in turns across the convs,
+    each synchronised (host wall, the batch's staging included), with the
+    bytes each graph's pool holds."""
+    import torch
+
+    from yolat_tpu_torch.config import Config
+    from yolat_tpu_torch.data.dataset import SESYDDataset
+    from yolat_tpu_torch.data.loader import PackedLoader, train_plans_for
+    from yolat_tpu_torch.ops.plans import pad_plans
+    from yolat_tpu_torch.train.loop import make_scan_train_step
+    from yolat_tpu_torch.train.optim import make_optimizer
+    from yolat_tpu_torch.train.trainer import init_model
+
+    ds = SESYDDataset(root, "train", bbox_sampling_step=10)
+    runs, times = {}, {}
+    for conv in ("attr_edge_gp2",) + ZOO_TRAINED:
+        cfg = Config(n_classes=ds.n_classes, dtype="bfloat16",
+                     fused_head_train=True, conv=conv)
+        batches = [pad_plans(b) for b in PackedLoader(
+            ds, batch_size=BATCH, prefetch=0, edge_window=False,
+            **train_plans_for(cfg))]
+        model = init_model(cfg, "cuda")
+        run = make_scan_train_step(cfg, model, make_optimizer(
+            cfg.optimizer, model.parameters(), cfg.lr), None, 1)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        for b in batches + batches[:1]:
+            run([b], gen)
+        runs[conv], times[conv] = (run, batches, gen), []
+    for i in range(ZOO_TIMED):
+        for conv, (run, batches, gen) in runs.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = run([batches[i % len(batches)]], gen)["loss"]
+            torch.cuda.synchronize()
+            times[conv].append(1e3 * (time.perf_counter() - t0))
+            check(_finite(float(loss[0])), f"phase 23 {conv}: loss {loss}")
+    for conv, (run, _, _) in runs.items():
+        t = sorted(times[conv])
+        print(f"phase 23 train step {conv} (bf16, fused head, batch {BATCH}, "
+              f"graph replay incl. staging): median {statistics.median(t):.3f}"
+              f" ms, range {t[0]:.3f}-{t[-1]:.3f} over {len(t)}; graph pool "
+              f"{run.stats()['graph_bytes']} bytes [{dev_line}]")
+    del runs
+    torch.cuda.empty_cache()
+
+
+def conv_zoo_phase(root, work, dev_line) -> dict:
+    """Phase 23: the conv zoo on phase 6's floorplans (`root`): card
+    against CPU per conv, then training and serving through the CLIs and
+    two refusals; returns the phase's launches of kernels 3, 11 and N1."""
+    from yolat_tpu_torch.cli import test as test_cli
+    from yolat_tpu_torch.cli import train as train_cli
+    from yolat_tpu_torch.ops import _build
+
+    t_start = time.perf_counter()
+    _zoo_card_cpu(root, dev_line)
+    _zoo_step_times(root, dev_line)
+    runs = [(["--conv", c, "--fused_head_train", "true", "--dtype",
+              "bfloat16"], True) for c in ZOO_TRAINED]
+    runs.append((["--conv", "sage", "--act", "gelu", "--norm", "layer"],
+                 False))
+    total = {"folded_mlp_block_max": 0, "fused_pool_train_bwd": 0,
+             "nms_fixpoint": 0}
+    base = ["--data_dir", root, "--device", "cuda", "--batch_size",
+            str(BATCH), "--n_filters", "64"]
+    for flags, fused in runs:
+        name = " ".join(flags)
+        _build.reset_launch_counts()
+        res = train_cli.main(base + flags + [
+            "--max_steps", str(ZOO_STEPS), "--print_freq", "2",
+            "--root_dir", os.path.join(work, "log_zoo")])
+        c = res["launches"]
+        check(res["steps"] == ZOO_STEPS and all(map(_finite, res["losses"])),
+              f"phase 23 cli.train {name}: {res['steps']} steps, losses "
+              f"{res['losses']}")
+        want = ZOO_STEPS if fused else 0
+        check(c["folded_mlp_block_max"] == want
+              and c["fused_pool_train_bwd"] == want,
+              f"phase 23 cli.train {name}: kernels 3 and 11 {want} times: {c}")
+        check(c["nms_fixpoint"] > 0,
+              f"phase 23 cli.train {name}: the evaluation ran no N1: {c}")
+        _check_graphs(res, 1, f"phase 23 cli.train {name}")
+        for k in total:
+            total[k] += c[k]
+        secs = res["train_seconds"]
+        print(f"phase 23 cli.train {name}: {res['steps']} steps of batch "
+              f"{BATCH}, {1e3 * secs / res['steps']:.3f} ms per step (first "
+              f"step and capture included); losses "
+              f"{[round(v, 4) for v in res['losses']]}; kernels 3 / 11 per "
+              f"step {c['folded_mlp_block_max'] / res['steps']:g} / "
+              f"{c['fused_pool_train_bwd'] / res['steps']:g}, N1 "
+              f"{c['nms_fixpoint']} in the evaluation; {_graph_line(res)} "
+              f"[{dev_line}]")
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        table = test_cli.main(base + [f for f in flags if f not in (
+            "--fused_head_train", "true", "--dtype", "bfloat16")] + [
+            "--phase", "test", "--serve_mode", "flax", "--pretrained_model",
+            os.path.join(res["exp_dir"], "checkpoint")])
+        wall = time.perf_counter() - t0
+        n1 = table["launches"]["nms_fixpoint"]
+        check(n1 > 0 and len(table["map_per_th"]) == 10
+              and all(map(_finite, table["map_per_th"]))
+              and _finite(table["top1_acc"]),
+              f"phase 23 cli.test {name}: N1 {n1}, AP {table['map_per_th']}")
+        total["nms_fixpoint"] += n1
+        print(f"phase 23 cli.test --serve_mode flax {name}: MAP@0.5 "
+              f"{table['map_50']:.4f}, MAP@all {table['map_all']:.4f}, top1 "
+              f"{table['top1_acc']:.4f}, AP per threshold "
+              f"{[round(v, 4) for v in table['map_per_th']]}; N1 launches "
+              f"{n1}; {1e3 * wall:.1f} ms (restore, load, pack, serve)")
+    refused = []
+    for argv, what in (
+            (base + ["--phase", "test", "--serve_mode", "fast", "--conv",
+                     "edge", "--pretrained_model", "unused"],
+             test_cli.main),
+            (base + ["--fused_head_train", "true", "--act", "gelu",
+                     "--max_steps", "1", "--root_dir",
+                     os.path.join(work, "log_zoo_refused")], train_cli.main)):
+        try:
+            what(argv)
+            check(False, f"phase 23: {argv} ran")
+        except ValueError as e:
+            refused.append(str(e).split(":")[0])
+    print(f"phase 23 refusals: {refused}; kernels 3 / 11 / N1 launched "
+          f"{total['folded_mlp_block_max']} / {total['fused_pool_train_bwd']}"
+          f" / {total['nms_fixpoint']} over the phase; phase 23: "
+          f"{time.perf_counter() - t_start:.1f} s")
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -4529,6 +4818,12 @@ def main() -> int:
         chart_phase(work, dev_line)
         print(f"phase 22: {time.perf_counter() - t0:.1f} s")
 
+        # 23. the conv zoo: card against CPU per conv, trained and served
+        # through the CLIs
+        zoo = conv_zoo_phase(train_root, work, dev_line)
+        check(all(v > 0 for v in zoo.values()),
+              f"phase 23 launched kernels 3, 11 and N1: {zoo}")
+
     # the kernels line
     sources = {"edge_window_message_sum": (
                    "yolat_tpu_torch/csrc/edge_window.cu",
@@ -4600,7 +4895,9 @@ def main() -> int:
                 "library_ms": res[k].get("library_ms"),
                 **{x: res[k][x] for x in ("queued_ms", "warm_ms",
                                           "library_device_ms")
-                   if x in res[k]}} for k in sources]
+                   if x in res[k]},
+                **({"conv_zoo_launches": zoo[k]} if k in zoo else {})}
+               for k in sources]
     print(json.dumps({"kernels": kernels}))
     print(dev_line)
     print(json.dumps({"ok": True, "device": {

@@ -5,6 +5,7 @@ Counterpart of `yolat_tpu/cli/infer.py`, on PyTorch and one CUDA device:
   python -m yolat_tpu_torch.cli.infer --input_dir DIR \
       --pretrained_model ckpt.pth [--out detections.jsonl] [--conf_th 0.5] \
       [--serve_mode fast|fast_bf16|module] [--device cuda]
+      [--conv NAME --act relu|leakyrelu|gelu|none --norm batch|layer|none]
       [--preproc_workers N] [--chunk 8]
       [--arch yolat_pp [--pp_factored_prim true] | --profile yolat_pp_fast]
 
@@ -16,9 +17,11 @@ Records are those of the JAX CLI:
 ({'state_dict': ...}, the keys of the reference SparseCADGCN; for
 `--arch yolat_pp` the keys of `nn.yolat_pp.YOLaTPlusPlus`, with
 `super_edge_mlp`, or `super_fact_mlp` under `--pp_factored_prim true` /
-`--profile yolat_pp_fast`). `--device` defaults to cuda and raises when
-CUDA is absent; the CLI never moves to the CPU on its own. The end line
-prints SVGs/s and the launch counts of the serving kernels: 1 and 2, and
+`--profile yolat_pp_fast`). A checkpoint of another `--conv`, `--act` or
+`--norm` than attr_edge_gp2 with ReLU and BatchNorm serves with
+`--serve_mode module`; the fast modes refuse it. `--device` defaults to
+cuda and raises when CUDA is absent; the CLI never moves to the CPU on
+its own. The end line prints SVGs/s and the launch counts of the serving kernels: 1 and 2, and
 for YOLaT++ also 5 and 6. `--preproc_workers N` runs the validation
 pass and the loader's cold loads in N spawn processes (`_validate_files`,
 `PackedLoader(preproc_workers=)`); the records are those of N = 0.
@@ -44,7 +47,8 @@ import numpy as np
 import torch
 
 from yolat_tpu_torch.cli.train import _bool, explicit_flags
-from yolat_tpu_torch.config import PP_ARCHS, PROFILES, Config, apply_profile
+from yolat_tpu_torch.config import (PP_ARCHS, PROFILES, Config,
+                                    apply_profile, check_serve_mode)
 from yolat_tpu_torch.data.dataset import SESYDDataset
 from yolat_tpu_torch.data.loader import PackedLoader, extra_plans_for
 from yolat_tpu_torch.eval import fast_forward as ff
@@ -75,6 +79,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--bbox_sampling_step", default=d.bbox_sampling_step, type=int)
     p.add_argument("--arch", default=d.arch, type=str)
     p.add_argument("--conv", default=d.conv, type=str)
+    p.add_argument("--act", default=d.act, type=str)
+    p.add_argument("--norm", default=d.norm, type=str)
     p.add_argument("--pp_factored_prim", default=d.pp_factored_prim,
                    type=_bool,
                    help="the YOLaT++ checkpoint holds super_fact_mlp (the "
@@ -176,6 +182,7 @@ def main(argv=None):
 
     cfg = _config(args, explicit_flags(build_parser(), argv),
                   ds.n_classes if ds is not None else 1)
+    check_serve_mode(cfg, args.serve_mode)
     launched = dict(_build.launch_counts)  # this run's launches are the rise
     graphs = dict(_build.graph_counts)
     t_start = time.perf_counter()
@@ -206,7 +213,8 @@ def main(argv=None):
 def _config(args, explicit: set, n_classes: int) -> Config:
     """The serving Config of the parsed flags; `explicit` (the flags the
     user typed) keep their values under --profile."""
-    kw = dict(arch=args.arch, conv=args.conv, in_channels=args.in_channels,
+    kw = dict(arch=args.arch, conv=args.conv, act=args.act, norm=args.norm,
+              in_channels=args.in_channels,
               n_filters=args.n_filters, n_blocks=args.n_blocks,
               n_blocks_out=args.n_blocks_out, classifier=args.classifier,
               nms_algorithm=args.nms_algorithm, nms_topk=args.nms_topk,

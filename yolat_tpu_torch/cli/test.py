@@ -12,7 +12,10 @@ plus:
 
 `--serve_mode flax` runs the eval-mode module (the parity route; the name
 is the JAX package's), `fast` / `fast_bf16` the folded-BN engine with its
-kernels. `--dense_layout true` packs the dense neighbour table and no
+kernels, which folds the attr_edge_gp2 conv with ReLU and BatchNorm only:
+a checkpoint of another `--conv`, `--act` or `--norm` (flags as
+`cli.train` takes them) serves through `flax`, and the fast modes refuse
+it (`config.check_serve_mode`). `--dense_layout true` packs the dense neighbour table and no
 edge-window plan, so the engine's convs take the fused dense message
 (kernel 4) instead of the edge-window message sum (kernel 1); the module
 route then takes the conv's dense branch. The checkpoint's training layout
@@ -37,7 +40,7 @@ from __future__ import annotations
 from yolat_tpu_torch.cli.train import (build_parser, config_from_args,
                                        data_parallel, device_from_arg,
                                        device_name, run_ranks)
-from yolat_tpu_torch.config import PP_ARCHS
+from yolat_tpu_torch.config import PP_ARCHS, check_serve_mode
 from yolat_tpu_torch.data.dataset import SESYDDataset
 from yolat_tpu_torch.data.loader import PackedLoader, extra_plans_for
 from yolat_tpu_torch.eval.metrics import format_confusion
@@ -76,6 +79,7 @@ def serving_loader(cfg, ds, batch_size: int, serve_mode: str,
     """The loader of the serving CLIs (test, detect, detect_badcase): the
     edge-window plan, or under cfg.dense_layout the dense neighbour table
     and no plan, with the plans cfg's arch reads (`extra_plans_for`)."""
+    check_serve_mode(cfg, serve_mode)
     if cfg.arch in PP_ARCHS and cfg.dense_layout and serve_mode != "flax":
         raise ValueError("--dense_layout true: the YOLaT++ engine has no "
                          "dense route (its convs run the edge-window kernel)")

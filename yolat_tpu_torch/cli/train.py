@@ -7,6 +7,8 @@ the same names:
   python -m yolat_tpu_torch.cli.train --data_dir DIR [--batch_size 4]
       [--total_epochs 200] [--lr 2.5e-4] [--dtype float32|bfloat16]
       [--fused_head_train true] [--train_layout sparse|window|dense]
+      [--conv attr_edge_gp2|edge|gat|...] [--act relu|leakyrelu|gelu|none]
+      [--norm batch|layer|none]
       [--arch yolat_pp [--pp_banded_super true | --pp_factored_prim true]]
       [--profile yolat_pp_fast] [--eval_start 20] [--root_dir log]
       [--pretrained_model ckpt_dir|ckpt_dir/ckpt_<tag>|ref.pth]
@@ -46,6 +48,16 @@ of all of them, each node runs the CLI with its `--process_id` of
 `--n_processes`, and `--coordinator host:port` names the store that rank
 0 serves (`yolat_tpu/cli/common.py:132, 177-183`). Rank 0 prints the
 summary; every rank logs its LossMean.
+
+`--conv NAME` trains the detector with any conv of `nn.conv.CONV_NAMES`
+and `--act` / `--norm` set its MLPs (`yolat_tpu/cli/common.py:112-115`).
+The window layout is attr_edge_gp2's; the dense layout (and
+`--dense_layout true`) takes gp2 and the six convs of `nn.conv.DENSE_CONVS`;
+`--fused_head_train true` needs `--act relu --norm batch`; each other
+combination is refused (`nn.model.check_model_config`). `--graph` other
+than bezier_cc_bb_iter is refused; `--bias`, `--k`, `--epsilon`,
+`--stochastic` and `--pos_edge_th` are accepted and unused, as in the JAX
+CLI.
 
 `--arch yolat_pp` trains YOLaT++ (`nn/yolat_pp.py`) on one of three routes
 through its primitive level: per super edge over the padded buffer (the
@@ -88,12 +100,16 @@ def build_parser() -> argparse.ArgumentParser:
     add("--data_dir", default=d.data_dir, type=str)
     add("--batch_size", default=d.batch_size, type=int)
     add("--in_channels", default=d.in_channels, type=int)
+    add("--graph", default=d.graph, type=str,
+        help="graph family; only bezier_cc_bb_iter trains")
     add("--bbox_sampling_step", default=d.bbox_sampling_step, type=int)
     add("--data_aug", default=d.data_aug, type=_bool)
     add("--do_mixup", default=d.do_mixup, type=float,
         help="> 0: mix every CC with a random CC of its file on each "
              "training load (the pads grow to fit)")
     add("--drop_edge", default=d.drop_edge, type=float)
+    add("--pos_edge_th", default=d.pos_edge_th, type=float,
+        help="accepted and unused, as in the JAX CLI")
     add("--total_epochs", default=d.total_epochs, type=int)
     add("--lr", default=d.lr, type=float)
     add("--lr_adjust_freq", default=d.lr_adjust_freq, type=float)
@@ -106,12 +122,27 @@ def build_parser() -> argparse.ArgumentParser:
     add("--postname", default="", type=str,
         help="accepted and unused, as in the JAX CLI")
     add("--arch", default=d.arch, type=str)
-    add("--conv", default=d.conv, type=str)
+    add("--conv", default=d.conv, type=str,
+        help="graph conv: attr_edge_gp2 (canonical), attr_edge, "
+             "multilayer_edge, attr_edge_gp, attr_edge_cf, edge, mr, gcn, "
+             "gin, sage, rsage, gat or gen")
+    add("--act", default=d.act, type=str,
+        help="MLP activation: relu, leakyrelu, gelu or none")
+    add("--norm", default=d.norm, type=str,
+        help="MLP norm: batch, layer or none")
+    add("--bias", default=d.bias, type=_bool,
+        help="accepted and unused, as in the JAX CLI")
     add("--n_filters", default=d.n_filters, type=int)
     add("--n_blocks", default=d.n_blocks, type=int)
     add("--n_blocks_out", default=d.n_blocks_out, type=int)
     add("--dropout", default=d.dropout, type=float)
     add("--classifier", default=d.classifier, type=str)
+    add("--k", default=d.k, type=int,
+        help="kNN blocks (not ported): accepted and unused")
+    add("--epsilon", default=d.epsilon, type=float,
+        help="kNN blocks (not ported): accepted and unused")
+    add("--stochastic", default=d.stochastic, type=_bool,
+        help="kNN blocks (not ported): accepted and unused")
     add("--pretrained_model", default="", type=str)
     add("--eval_start", default=d.eval_start, type=int)
     add("--map_step", default=d.map_step, type=int)

@@ -8,6 +8,19 @@ named flag bundles of `yolat_tpu/cli/common.py:23-80` (`PROFILES`,
 `apply_profile`). `arch` is the canonical detector or one of `PP_ARCHS`
 (YOLaT++, `yolat_tpu/eval/fast_forward.py:245`, with `PP_GATES` :246).
 
+`act`, `norm` and `conv` choose the detector's MLPs and conv
+(`nn.conv.CONV_NAMES`). `graph` is checked by the trainer (only
+'bezier_cc_bb_iter' trains, as in `yolat_tpu/train/trainer.py:42-49`).
+`bias`, `k`, `epsilon`, `stochastic` and `pos_edge_th` are parsed and
+carried, and nothing in the port reads them, as nothing in the JAX
+package does (`k`, `epsilon` and `stochastic` belong to the kNN blocks,
+`DynConv`, which are not ported yet).
+
+`check_serve_mode` refuses the folded engine (serve modes fast and
+fast_bf16) for any model but the attr_edge_gp2 conv with ReLU and
+BatchNorm, which is all it folds (the JAX package's `fold_params` fails
+with a KeyError there, or folds another function).
+
 One default differs: `dense_layout` is False here and True in the JAX
 package. There the dense neighbour table is the serving layout; the port
 serves over the edge-window plan, which exists for every batch, and packs
@@ -67,10 +80,12 @@ class Config:
     data_dir: str = "data/FloorPlansGraph5_iter"
     batch_size: int = 4
     in_channels: int = 5
+    graph: str = "bezier_cc_bb_iter"
     bbox_sampling_step: int = 10
     data_aug: bool = True
     do_mixup: float = 0.0           # > 0: training-time mixup of CCs
     drop_edge: float = 0.0
+    pos_edge_th: float = 5e-3       # carried, unread (as in JAX)
 
     # train
     total_epochs: int = 200
@@ -85,12 +100,18 @@ class Config:
     # model
     arch: str = CANONICAL_ARCH      # or one of PP_ARCHS (YOLaT++)
     conv: str = "attr_edge_gp2"
+    act: str = "relu"
+    norm: str = "batch"
+    bias: bool = True               # carried, unread (as in JAX)
     n_filters: int = 64
     n_blocks: int = 2
     n_blocks_out: int = 2
     dropout: float = 0.0
     classifier: str = "softmax"
     n_classes: int = 17
+    k: int = 16                     # kNN blocks (not ported): carried, unread
+    epsilon: float = 0.2
+    stochastic: bool = True
 
     # eval
     eval_start: int = 20            # eval every epoch from here
@@ -136,3 +157,16 @@ class Config:
 
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)
+
+
+def check_serve_mode(cfg, serve_mode: str) -> None:
+    """Refuse the folded engine for a model it does not fold."""
+    if serve_mode not in ("fast", "fast_bf16"):
+        return
+    if (cfg.conv, str(cfg.act).lower(), str(cfg.norm).lower()) != (
+            "attr_edge_gp2", "relu", "batch"):
+        raise ValueError(
+            f"--serve_mode {serve_mode} with --conv {cfg.conv} --act "
+            f"{cfg.act} --norm {cfg.norm}: the folded engine serves the "
+            "attr_edge_gp2 conv with ReLU and BatchNorm; serve this model "
+            "with --serve_mode flax (cli.infer: --serve_mode module)")

@@ -39,7 +39,7 @@ from __future__ import annotations
 
 import torch
 
-from yolat_tpu_torch.config import PP_ARCHS, PP_GATES
+from yolat_tpu_torch.config import PP_ARCHS, PP_GATES, check_serve_mode
 from yolat_tpu_torch.nn.yolat_pp import fourier_features, prefix_member_mean
 from yolat_tpu_torch.ops.banded_message import (
     banded_message_sum, banded_message_sum_both,
@@ -116,7 +116,9 @@ def fold_params_pp(model, device=None) -> dict:
 
 
 def fold_params_for(cfg, model, device=None) -> dict:
-    """The fold of cfg's arch: YOLaT++ or the canonical detector."""
+    """The fold of cfg's arch: YOLaT++ or the canonical detector; any other
+    conv or MLP is refused (`config.check_serve_mode`)."""
+    check_serve_mode(cfg, "fast")
     if getattr(cfg, "arch", "") in PP_ARCHS:
         return fold_params_pp(model, device)
     return fold_params(model, device)

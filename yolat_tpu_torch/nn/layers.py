@@ -1,13 +1,17 @@
 """Masked BatchNorm, the reference-shaped MLP block and the fused pool head.
 
-Counterpart of `yolat_tpu/nn/layers.py:43-237` (`MaskedBatchNorm`, `MLP`,
-`FusedPoolFusion`). The MLP is laid out as the reference's flat Sequential
-(gcn_lib/sparse/torch_nn.py:50-71): per stage Linear, then BatchNorm and
-the activation unless the stage is bare, so a stage-k Linear sits at index
-3k and its BatchNorm at 3k+1 — the state-dict keys
-`yolat_tpu/train/import_reference._export_mlp` (:138-165) writes. Dropout
-holds no tensor and takes no index, so reference `.pth` files load
-strictly whatever the dropout rate.
+Counterpart of `yolat_tpu/nn/layers.py:30-237` (`act_fn`,
+`MaskedBatchNorm`, `MLP`, `FusedPoolFusion`). The MLP is laid out as the
+reference's flat Sequential (gcn_lib/sparse/torch_nn.py:50-71): per stage
+Linear, then the norm (`norm`: 'batch', 'layer' or None) and the
+activation (`act`: 'relu', 'leakyrelu' with slope 0.2, 'gelu' in flax's
+tanh form, or None), each taking an index where it is there. With the
+defaults (ReLU, BatchNorm) a stage-k Linear sits at index 3k and its
+BatchNorm at 3k+1 — the state-dict keys
+`yolat_tpu/train/import_reference._export_mlp` (:138-165) writes; a bare
+stage (no norm, no activation) is its Linear alone. LayerNorm's epsilon is
+flax's 1e-6. Dropout holds no tensor and takes no index, so reference
+`.pth` files load strictly whatever the dropout rate.
 
 Train mode computes masked batch statistics (padding rows excluded) in
 f32 as E[z^2] - E[z]^2 clamped at 0, over max(count, 1) rows, and moves
@@ -100,27 +104,74 @@ def dropout(x, p: float, generator: torch.Generator | None):
     return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
 
 
-class MLP(nn.Sequential):
-    """Linear -> BatchNorm -> ReLU [-> dropout] per channel transition;
-    bare=True keeps only the Linear layers (the reference's classifier
-    stage). `mask` selects the rows of the BatchNorm statistics."""
+def _is_none(name) -> bool:
+    return name is None or str(name).lower() == "none"
 
-    def __init__(self, channels, bare: bool = False, drop: float = 0.0):
-        layers = []
+
+def act_layer(name):
+    """The activation module of `act` (`yolat_tpu/nn/layers.py:30-40`;
+    flax's nn.gelu is the tanh approximation), or None for 'none' / None."""
+    if _is_none(name):
+        return None
+    name = name.lower()
+    if name == "relu":
+        return nn.ReLU()
+    if name == "leakyrelu":
+        return nn.LeakyReLU(0.2)
+    if name == "gelu":
+        return nn.GELU(approximate="tanh")
+    raise NotImplementedError(f"--act {name!r}: relu, leakyrelu, gelu or none")
+
+
+def act_fn(name):
+    """`act_layer` as a function; the identity for 'none' / None."""
+    layer = act_layer(name)
+    return (lambda x: x) if layer is None else layer
+
+
+def norm_layer(name, features: int):
+    """MaskedBatchNorm for 'batch', flax's LayerNorm (epsilon 1e-6) for
+    'layer', None for 'none' / None."""
+    if _is_none(name):
+        return None
+    name = name.lower()
+    if name == "batch":
+        return MaskedBatchNorm(features)
+    if name == "layer":
+        return nn.LayerNorm(features, eps=1e-6)
+    raise NotImplementedError(f"--norm {name!r}: batch, layer or none")
+
+
+class MLP(nn.Sequential):
+    """Linear -> [norm] -> [act] [-> dropout] per channel transition
+    (`yolat_tpu/nn/layers.py:119-155`); the defaults are BatchNorm and
+    ReLU, and bare=True keeps only the Linear layers (the reference's
+    classifier stage). `mask` selects the rows of the BatchNorm
+    statistics."""
+
+    def __init__(self, channels, bare: bool = False, drop: float = 0.0,
+                 act="relu", norm="batch", bias: bool = True):
+        if bare:
+            act, norm = None, None
+        layers, ends = [], []
         for i in range(len(channels) - 1):
-            layers.append(nn.Linear(channels[i], channels[i + 1]))
-            if not bare:
-                layers += [MaskedBatchNorm(channels[i + 1]), nn.ReLU()]
+            layers.append(nn.Linear(channels[i], channels[i + 1], bias=bias))
+            for extra in (norm_layer(norm, channels[i + 1]), act_layer(act)):
+                if extra is not None:
+                    layers.append(extra)
+            ends.append(len(layers) - 1)
         super().__init__(*layers)
         self.drop = drop
+        # the last layer of each stage: dropout follows it in training
+        self.stage_ends = frozenset(ends) if drop > 0 else frozenset()
 
     def forward(self, x, mask=None, generator=None):
-        for layer in self:
+        for i, layer in enumerate(self):
             if isinstance(layer, MaskedBatchNorm):
                 x = layer(x, mask)
             else:
                 x = layer(x)
-            if isinstance(layer, nn.ReLU) and self.drop > 0 and self.training:
+            if i in self.stage_ends and self.training:
                 x = dropout(x, self.drop, generator)
         return x
 
@@ -134,11 +185,15 @@ class FusedPoolFusion(MLP):
     (`ops/fused_pool_train.py`); it moves the running statistics with
     MaskedBatchNorm's convention."""
 
-    def __init__(self, cin: int, h: int):
-        super().__init__([cin, h])
+    def __init__(self, cin: int, h: int, act="relu", norm="batch"):
+        super().__init__([cin, h], act=act, norm=norm)
 
     def pool(self, cat, node_mask, blk_first, n_prop: int):
         lin, bn = self[0], self[1]
+        if not (isinstance(bn, MaskedBatchNorm) and isinstance(self[2],
+                                                               nn.ReLU)):
+            raise ValueError("the fused pool head (--fused_head_train true) "
+                             "is BatchNorm and ReLU: --norm batch --act relu")
         maskf = node_mask.float()[:, None]
         pooled, mean, var, count = fused_pool_train(
             cat, maskf, lin.weight.t(), lin.bias, bn.weight, bn.bias,
@@ -150,9 +205,13 @@ class FusedPoolFusion(MLP):
 @torch.no_grad()
 def init_weights(module: nn.Module, generator: torch.Generator) -> None:
     """Kaiming-normal Linear weights (fan_in, ReLU gain), zero biases
-    (architecture3cc_rpn_gp_iter2.py:97-104); BatchNorm at identity."""
+    (architecture3cc_rpn_gp_iter2.py:97-104); BatchNorm at identity; a
+    module's own parameters through its `init_parameters(generator)`."""
     for m in module.modules():
         if isinstance(m, nn.Linear):
             nn.init.kaiming_normal_(m.weight, mode="fan_in",
                                     nonlinearity="relu", generator=generator)
-            nn.init.zeros_(m.bias)
+            if m.bias is not None:
+                nn.init.zeros_(m.bias)
+        elif hasattr(m, "init_parameters"):
+            m.init_parameters(generator)

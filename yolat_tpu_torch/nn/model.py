@@ -2,11 +2,20 @@
 
 Counterpart of `yolat_tpu/nn/model.py:39-288` (the reference's
 cad_recognition/architecture3cc_rpn_gp_iter2.py): a head conv
-(in_channels -> C), n_blocks-1 further convs (no residual for gp2), the
-fusion MLP C*n_blocks_out -> 1024 max-pooled per proposal beside the raw
-features, the super stream mean-pooled per proposal through its own
-fusion MLP, then the prediction MLP (2*(C*n_blocks_out+1024) -> 512 ->
-256 -> n_classes, dropout on the 256 stage), and `detection_loss`.
+(in_channels -> C), n_blocks-1 further convs, the fusion MLP
+C*n_blocks_out -> 1024 max-pooled per proposal beside the raw features,
+the super stream mean-pooled per proposal through its own fusion MLP, then
+the prediction MLP (2*(C*n_blocks_out+1024) -> 512 -> 256 -> n_classes,
+dropout on the 256 stage), and `detection_loss`.
+
+The conv is any of `nn.conv.CONV_NAMES` (`conv`; the MLPs take `act` and
+`norm`, `yolat_tpu/nn/model.py:61-159`). The canonical attr_edge_gp2 is
+dual-stream (a node stream and a super stream, no residual). Every other
+conv is single-stream: from the second conv on a residual adds its input
+(the reference's ResBlock, torch_vertex.py:829), and the super stream is
+the same features. attr_edge_gp is given [f || its proposal's mean of f],
+attr_edge_cf the node positions, and the dense table goes only to the
+convs of `nn.conv.DENSE_CONVS`.
 
 Train mode (`model.train()`) uses masked batch statistics everywhere. With
 `fused_pool` set (cfg.fused_head_train) the train-mode pool head is the
@@ -19,11 +28,12 @@ package does, counted in `Backbone.fused_fallbacks`.
 
 The conv layout follows the batch and `window_edges`
 (`yolat_tpu/nn/model.py:176-193`, cfg.train_layout == 'window'): with
-`window_edges` the convs run the window branch over the batch's
-edge-window plan (kernels 9 and 10) and a batch without the plan raises —
-the JAX model falls to the sparse branch there, which would hide the
-kernels; otherwise a batch that carries the dense neighbour table
-(`nbr_idx`) takes the dense branch, and any other batch the sparse one.
+`window_edges` (attr_edge_gp2 only) the convs run the window branch over
+the batch's edge-window plan (kernels 9 and 10) and a batch without the
+plan raises — the JAX model falls to the sparse branch there, which would
+hide the kernels; otherwise a batch that carries the dense neighbour table
+(`nbr_idx`) takes the dense branch (a conv without one raises), and any
+other batch the sparse one.
 
 Submodules carry the reference's names — `cls_net.head.gconv`,
 `cls_net.backbone.{i}.body.gconv`, `cls_net.fusion_block[_super]`,
@@ -39,7 +49,7 @@ import torch
 from torch import nn
 
 from yolat_tpu_torch.config import CANONICAL_ARCH, PP_ARCHS, PP_GATES
-from yolat_tpu_torch.nn.conv import AttrEdgeGP2
+from yolat_tpu_torch.nn.conv import CONV_NAMES, DENSE_CONVS, make_conv
 from yolat_tpu_torch.nn.layers import (MLP, FusedPoolFusion, MaskedBatchNorm,
                                        init_weights)
 from yolat_tpu_torch.nn.state_dict import (export_state_dict,
@@ -47,26 +57,31 @@ from yolat_tpu_torch.nn.state_dict import (export_state_dict,
                                            load_reference_state_dict)
 from yolat_tpu_torch.ops.fused_pool_train import fused_pool_available
 from yolat_tpu_torch.ops.plans import ew_train_of, plan_of
-from yolat_tpu_torch.ops.segment import (segment_max, segment_max_concat,
-                                         segment_mean)
+from yolat_tpu_torch.ops.segment import (segment_broadcast, segment_max,
+                                         segment_max_concat, segment_mean)
 
 FUSION = 1024  # fusion MLP width, fixed by the reference
+
+
+CANONICAL_CONV = "attr_edge_gp2"
 
 
 class _GConv(nn.Module):
     """The reference's GraphConv wrapper (`.gconv` holds the conv)."""
 
-    def __init__(self, cin: int, cout: int):
+    def __init__(self, cin: int, cout: int, conv: str = CANONICAL_CONV,
+                 act="relu", norm="batch"):
         super().__init__()
-        self.gconv = AttrEdgeGP2(cin, cout)
+        self.gconv = make_conv(conv, cin, cout, act, norm)
 
 
 class _ResBlock(nn.Module):
     """The reference's ResBlock (`.body`); its residual is off for gp2."""
 
-    def __init__(self, c: int):
+    def __init__(self, c: int, conv: str = CANONICAL_CONV, act="relu",
+                 norm="batch"):
         super().__init__()
-        self.body = _GConv(c, c)
+        self.body = _GConv(c, c, conv, act, norm)
 
 
 def takes_fused_head(module, cat, plan) -> bool:
@@ -88,26 +103,43 @@ def takes_fused_head(module, cat, plan) -> bool:
     return False
 
 
+def _check_window(conv: str) -> None:
+    if conv != CANONICAL_CONV:
+        raise ValueError(
+            f"--train_layout window with --conv {conv}: the window layout is "
+            f"the {CANONICAL_CONV} conv's (the JAX model builds its plan for "
+            "that conv alone and trains any other sparse)")
+
+
 class Backbone(nn.Module):
     def __init__(self, in_channels: int = 5, channels: int = 64,
                  n_blocks: int = 2, n_blocks_out: int = 2,
-                 fused_pool: bool = False, window_edges: bool = False):
+                 fused_pool: bool = False, window_edges: bool = False,
+                 conv: str = CANONICAL_CONV, act="relu", norm="batch"):
         super().__init__()
+        if window_edges:
+            _check_window(conv)
+        self.conv = conv
         self.n_blocks, self.n_blocks_out = n_blocks, n_blocks_out
         self.fusion_dims = channels * n_blocks_out
         self.fused_pool = fused_pool
         self.window_edges = window_edges
         # train-mode CPU batches that could not take the fused head
         self.fused_fallbacks = 0
-        self.head = _GConv(in_channels, channels)
-        self.backbone = nn.ModuleList(_ResBlock(channels)
+        self.head = _GConv(in_channels, channels, conv, act, norm)
+        self.backbone = nn.ModuleList(_ResBlock(channels, conv, act, norm)
                                       for _ in range(n_blocks - 1))
-        self.fusion_block = FusedPoolFusion(self.fusion_dims, FUSION)
-        self.fusion_block_super = MLP([self.fusion_dims, FUSION])
+        self.fusion_block = FusedPoolFusion(self.fusion_dims, FUSION, act,
+                                            norm)
+        self.fusion_block_super = MLP([self.fusion_dims, FUSION], act=act,
+                                      norm=norm)
 
     def features(self, batch: dict):
         """-> (cat [N, C * n_blocks_out], cat_super [N, C * n_blocks_out]):
         the last n_blocks_out conv outputs of both streams."""
+        if self.conv != CANONICAL_CONV:
+            cat = self._single_stream(batch)
+            return cat, cat
         args = (batch["edge"], batch["e_attr"], batch["edge_mask"],
                 batch["node_mask"])
         kw = {"dst_count": batch.get("dst_count")}
@@ -130,6 +162,40 @@ class Backbone(nn.Module):
             feats_super.append(s)
         lo = self.n_blocks - self.n_blocks_out
         return torch.cat(feats[lo:], dim=1), torch.cat(feats_super[lo:], dim=1)
+
+    def _single_stream(self, batch: dict):
+        """The features of a single-stream conv (`yolat_tpu/nn/model.py:
+        79-116`): cat [N, C * n_blocks_out]."""
+        kw = {}
+        if "nbr_idx" in batch:
+            if self.conv not in DENSE_CONVS:
+                raise ValueError(
+                    f"--conv {self.conv} has no dense neighbour-table branch "
+                    "(--train_layout dense, --dense_layout true): it takes "
+                    f"one of {', '.join(DENSE_CONVS)}")
+            kw["nbr"] = (batch["nbr_idx"], batch["nbr_attr"],
+                         batch["nbr_mask"])
+        if self.conv == "attr_edge_cf":
+            kw["pos"] = batch["pos"]
+        node_mask = batch["node_mask"]
+        args = (batch["edge"], batch["e_attr"], batch["edge_mask"], node_mask)
+
+        def apply(layer, f):
+            if self.conv == "attr_edge_gp":
+                # the proposal-pooled features gathered back to their nodes
+                # ride beside f (EdgConvGlobalPool, torch_vertex.py:343-425)
+                idx, plan = batch["bbox_idx"], plan_of(batch)
+                root = segment_mean(f, idx, batch["labels"].shape[0],
+                                    mask=node_mask, plan=plan,
+                                    counts=batch.get("prop_count"))
+                f = torch.cat([f, segment_broadcast(root, idx, f.shape[0],
+                                                    plan)], dim=1)
+            return layer.gconv(f, *args, **kw)
+
+        feats = [apply(self.head, batch["x"])]
+        for blk in self.backbone:
+            feats.append(apply(blk.body, feats[-1]) + feats[-1])
+        return torch.cat(feats[self.n_blocks - self.n_blocks_out:], dim=1)
 
     def forward(self, batch: dict):
         """-> (pooled [P, .] or the (fusion, cat) node-level parts to pool,
@@ -158,16 +224,18 @@ class SparseCADGCN(nn.Module):
     def __init__(self, n_classes: int, in_channels: int = 5,
                  channels: int = 64, n_blocks: int = 2, n_blocks_out: int = 2,
                  classifier: str = "softmax", dropout: float = 0.0,
-                 fused_pool: bool = False, window_edges: bool = False):
+                 fused_pool: bool = False, window_edges: bool = False,
+                 conv: str = CANONICAL_CONV, act="relu", norm="batch"):
         super().__init__()
         self.n_blocks = n_blocks
         self.classifier = classifier
+        self.conv, self.act, self.norm = conv, act, norm
         self.cls_net = Backbone(in_channels, channels, n_blocks, n_blocks_out,
-                                fused_pool, window_edges)
+                                fused_pool, window_edges, conv, act, norm)
         fusion_out = self.cls_net.fusion_dims + FUSION
         self.prediction_cls = nn.ModuleList([
-            MLP([fusion_out * 2, 512]),
-            MLP([512, 256], drop=dropout),
+            MLP([fusion_out * 2, 512], act=act, norm=norm),
+            MLP([512, 256], drop=dropout, act=act, norm=norm),
             MLP([256, n_classes], bare=True),
         ])
 
@@ -228,16 +296,56 @@ def detection_loss(pred_cls, labels, proposal_mask, classifier: str = "softmax",
     return {"loss": loss, "loss_cls": loss}
 
 
-def build_model(cfg):
-    """The detector of a `yolat_tpu_torch.config.Config`
-    (yolat_tpu/train/loop.py:47-81): the canonical SparseCADGCN, or
-    YOLaT++ (`nn.yolat_pp.YOLaTPlusPlus`) for an arch of `PP_ARCHS`."""
-    if cfg.conv != "attr_edge_gp2":
+def _canonical_mlps(cfg) -> bool:
+    return (str(cfg.act).lower(), str(cfg.norm).lower()) == ("relu", "batch")
+
+
+def check_model_config(cfg) -> None:
+    """Refuse what the JAX package runs silently or fails on without
+    saying why: an unknown conv; the dense table (--train_layout dense,
+    --dense_layout true) with a conv that has no dense branch; the fused
+    pool head or YOLaT++ with other MLPs than ReLU and BatchNorm (JAX's
+    fused head is ReLU + BN whatever --act says, so it would train one
+    function and evaluate another); YOLaT++ with another conv (its convs
+    are attr_edge_gp2 whatever --conv says); the window layout with
+    another conv (the JAX model trains it sparse)."""
+    if cfg.conv not in CONV_NAMES:
         raise NotImplementedError(
-            f"conv {cfg.conv!r}: this port runs the attr_edge_gp2 conv")
+            f"--conv {cfg.conv!r}: one of {', '.join(CONV_NAMES)}")
     if cfg.train_layout not in ("sparse", "window", "dense"):
         raise ValueError(f"train_layout {cfg.train_layout!r}: sparse, window "
                          "or dense")
+    if cfg.train_layout == "window":
+        _check_window(cfg.conv)
+    dense = cfg.train_layout == "dense" or cfg.dense_layout
+    if dense and cfg.conv != CANONICAL_CONV and cfg.conv not in DENSE_CONVS:
+        raise ValueError(
+            f"--train_layout dense / --dense_layout true with --conv "
+            f"{cfg.conv}: that conv has no dense neighbour-table branch (the "
+            "JAX package ignores the table there); the dense convs are "
+            f"{CANONICAL_CONV}, {', '.join(DENSE_CONVS)}")
+    if cfg.fused_head_train and not _canonical_mlps(cfg):
+        raise ValueError(
+            f"--fused_head_train true with --act {cfg.act} --norm "
+            f"{cfg.norm}: the fused pool head is ReLU and BatchNorm (--act "
+            "relu --norm batch)")
+    if cfg.arch in PP_ARCHS and not _canonical_mlps(cfg):
+        raise NotImplementedError(
+            f"--arch {cfg.arch} with --act {cfg.act} --norm {cfg.norm}: "
+            "YOLaT++ runs ReLU and BatchNorm in this port (--act relu --norm "
+            "batch)")
+    if cfg.arch in PP_ARCHS and cfg.conv != CANONICAL_CONV:
+        raise NotImplementedError(
+            f"--arch {cfg.arch} with --conv {cfg.conv}: YOLaT++'s convs are "
+            f"{CANONICAL_CONV}")
+
+
+def build_model(cfg):
+    """The detector of a `yolat_tpu_torch.config.Config`
+    (yolat_tpu/train/loop.py:47-81): SparseCADGCN with cfg's conv, act and
+    norm, or YOLaT++ (`nn.yolat_pp.YOLaTPlusPlus`) for an arch of
+    `PP_ARCHS`; `check_model_config` first."""
+    check_model_config(cfg)
     if cfg.arch in PP_ARCHS:
         from yolat_tpu_torch.nn.yolat_pp import YOLaTPlusPlus
 
@@ -260,7 +368,8 @@ def build_model(cfg):
     return SparseCADGCN(cfg.n_classes, cfg.in_channels, cfg.n_filters,
                         cfg.n_blocks, cfg.n_blocks_out, cfg.classifier,
                         cfg.dropout, cfg.fused_head_train,
-                        window_edges=cfg.train_layout == "window")
+                        window_edges=cfg.train_layout == "window",
+                        conv=cfg.conv, act=cfg.act, norm=cfg.norm)
 
 
 @torch.no_grad()
@@ -294,12 +403,14 @@ def _load_numpy_state(model, sd: dict):
 
 def load_jax_variables(model, variables):
     """JAX flax variables (numpy leaves) -> the port's weights, through the
-    reference state dict (`export_state_dict`) or, for a YOLaT++ model,
-    `export_state_dict_pp`."""
-    export = (export_state_dict if isinstance(model, SparseCADGCN)
-              else export_state_dict_pp)
-    return _load_numpy_state(model, export(variables,
-                                           n_blocks=model.n_blocks))
+    reference state dict (`export_state_dict`, for the model's conv and
+    act) or, for a YOLaT++ model, `export_state_dict_pp`."""
+    if isinstance(model, SparseCADGCN):
+        sd = export_state_dict(variables, n_blocks=model.n_blocks,
+                               conv=model.conv, act=model.act)
+    else:
+        sd = export_state_dict_pp(variables, n_blocks=model.n_blocks)
+    return _load_numpy_state(model, sd)
 
 
 def load_reference_checkpoint(model, path: str):

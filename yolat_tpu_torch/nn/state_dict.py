@@ -8,6 +8,19 @@ reference SparseCADGCN's names, so these state dicts load with
 `export_state_dict_pp` maps the JAX module's flat tree
 (`yolat_tpu/nn/yolat_pp.py`; `AttrEdgeGP2_{i}` at the top, not under
 `cls_net`) onto the names of `nn.yolat_pp.YOLaTPlusPlus`.
+
+The twelve other convs (`nn.conv.CONV_NAMES`): their flax trees
+(`AttrEdgeConv_{i}`, `AttrEdgeGP_{i}`, `AttrEdgeConvCF_{i}/mlp_0..7`,
+`EdgeConv_{i}`, `MRConv_{i}`, `GCNConv_{i}/{lin,bn}`, `GINConv_{i}/{eps,nn}`,
+`SAGEConv_{i}/{weight,nn,bias}`, `GATConv_{i}/{lin,a_src,a_dst,bias,bn}`,
+`GENConv_{i}/{aggr/t,mlp}`) go under the reference's prefixes
+`cls_net.head.gconv.*` and `cls_net.backbone.{i}.body.gconv.*` with the
+flax names; MLPs take the reference Sequential's indices (Linear, then the
+norm and the activation where there is one), so an MLP without a norm puts
+its Linear layers at 2k, and one without either at k. The reference's
+own key names for these convs (PyG's `att_src`, `lin_l`, ...) were not
+available to check these against: a reference `.pth` of one of them may
+need its keys renamed before it loads.
 """
 
 from __future__ import annotations
@@ -26,10 +39,12 @@ def strip_module_prefix(sd: Mapping) -> dict:
             for k, v in sd.items()}
 
 
-def _export_mlp(params: Mapping, stats: Mapping, prefix: str) -> dict:
-    """A flax MLP subtree (dense_k / bn_k) -> the reference's flat
-    Sequential keys: Lin at one index, then BN and the activation, which
-    holds no tensors but takes an index (torch_nn.py:50-71)."""
+def _export_mlp(params: Mapping, stats: Mapping, prefix: str,
+                act: bool = True) -> dict:
+    """A flax MLP subtree (dense_k, bn_k / ln_k) -> the reference's flat
+    Sequential keys: Lin at one index, then the norm and the activation
+    (`act`), each taking an index where it is there; the activation holds
+    no tensors (torch_nn.py:50-71)."""
     out: dict = {}
     n_stage = sum(1 for k in params if k.startswith("dense_"))
     idx = 0
@@ -38,13 +53,16 @@ def _export_mlp(params: Mapping, stats: Mapping, prefix: str) -> dict:
         out.update(_export_linear(d, f"{prefix}.{idx}"))
         idx += 1
         if f"bn_{k}" in params:
-            b, st = params[f"bn_{k}"], stats[f"bn_{k}"]
-            out[f"{prefix}.{idx}.weight"] = np.asarray(b["scale"])
-            out[f"{prefix}.{idx}.bias"] = np.asarray(b["bias"])
-            out[f"{prefix}.{idx}.running_mean"] = np.asarray(st["mean"])
-            out[f"{prefix}.{idx}.running_var"] = np.asarray(st["var"])
-            out[f"{prefix}.{idx}.num_batches_tracked"] = np.zeros((), np.int64)
-            idx += 2
+            out.update(_export_bn(params[f"bn_{k}"], stats[f"bn_{k}"],
+                                  f"{prefix}.{idx}"))
+            idx += 1
+        elif f"ln_{k}" in params:
+            ln = params[f"ln_{k}"]
+            out[f"{prefix}.{idx}.weight"] = np.asarray(ln["scale"])
+            out[f"{prefix}.{idx}.bias"] = np.asarray(ln["bias"])
+            idx += 1
+        if act:
+            idx += 1
     return out
 
 
@@ -55,29 +73,77 @@ def _export_linear(p: Mapping, prefix: str) -> dict:
     return out
 
 
-def export_state_dict(variables: Mapping, n_blocks: int = 2) -> dict:
-    """JAX flax variables ({'params', 'batch_stats'}, numpy leaves) -> the
-    reference's state dict (numpy leaves)."""
+def _export_bn(p: Mapping, st: Mapping, prefix: str) -> dict:
+    return {f"{prefix}.weight": np.asarray(p["scale"]),
+            f"{prefix}.bias": np.asarray(p["bias"]),
+            f"{prefix}.running_mean": np.asarray(st["mean"]),
+            f"{prefix}.running_var": np.asarray(st["var"]),
+            f"{prefix}.num_batches_tracked": np.zeros((), np.int64)}
+
+
+# the flax module name of each conv of the registry
+FLAX_CONV = {"attr_edge_gp2": "AttrEdgeGP2", "attr_edge": "AttrEdgeConv",
+             "multilayer_edge": "AttrEdgeConv", "attr_edge_gp": "AttrEdgeGP",
+             "attr_edge_cf": "AttrEdgeConvCF", "edge": "EdgeConv",
+             "mr": "MRConv", "gcn": "GCNConv", "gin": "GINConv",
+             "sage": "SAGEConv", "rsage": "SAGEConv", "gat": "GATConv",
+             "gen": "GENConv"}
+
+
+def _export_conv(conv: str, p: Mapping, s: Mapping, ref: str,
+                 act: bool) -> dict:
+    """One conv's flax subtree -> its keys under `ref`. The MLPs of gp2 and
+    gen are ReLU whatever act says."""
+    out: dict = {}
+    mlp_act = True if conv in ("attr_edge_gp2", "gen") else act
+    # gp2 in the order the JAX export writes its keys
+    order = (("nn", "lin_r", "mlp_node") if conv == "attr_edge_gp2"
+             else sorted(p))
+    for name in order:
+        v = p[name]
+        key = f"{ref}.{name}"
+        if isinstance(v, Mapping) and "dense_0" in v:
+            out.update(_export_mlp(v, s.get(name, {}), key, mlp_act))
+        elif isinstance(v, Mapping) and "kernel" in v:
+            if conv in ("sage", "rsage") and name == "weight":
+                # SAGE's weight is a [C_in, C_out] parameter, as the kernel
+                out[key] = np.asarray(v["kernel"])
+            else:
+                out.update(_export_linear(v, key))
+        elif isinstance(v, Mapping) and name == "bn":
+            out.update(_export_bn(v, s[name], key))
+        elif isinstance(v, Mapping):  # GENConv's aggr / msg_norm
+            out.update({f"{key}.{k}": np.asarray(a, np.float32)
+                        for k, a in v.items()})
+        else:
+            out[key] = np.asarray(v, np.float32)
+    return out
+
+
+def export_state_dict(variables: Mapping, n_blocks: int = 2,
+                      conv: str = "attr_edge_gp2", act="relu") -> dict:
+    """JAX flax variables ({'params', 'batch_stats'}, numpy leaves) of a
+    SparseCADGCN with `conv` and `act` -> the reference's state dict
+    (numpy leaves)."""
     params = variables["params"]
     stats = variables.get("batch_stats", {})
+    has_act = act is not None and str(act).lower() != "none"
     out: dict = {}
     cls_p, cls_s = params["cls_net"], stats.get("cls_net", {})
     for i in range(n_blocks):
-        name = f"AttrEdgeGP2_{i}"
+        name = f"{FLAX_CONV[conv]}_{i}"
         ref = ("cls_net.head.gconv" if i == 0
                else f"cls_net.backbone.{i - 1}.body.gconv")
-        p, s = cls_p[name], cls_s.get(name, {})
-        out.update(_export_mlp(p["nn"], s.get("nn", {}), f"{ref}.nn"))
-        out.update(_export_linear(p["lin_r"], f"{ref}.lin_r"))
-        out.update(_export_mlp(p["mlp_node"], s.get("mlp_node", {}),
-                               f"{ref}.mlp_node"))
+        out.update(_export_conv(conv, cls_p[name], cls_s.get(name, {}), ref,
+                                has_act))
     for name in ("fusion_block", "fusion_block_super"):
         out.update(_export_mlp(cls_p[name], cls_s.get(name, {}),
-                               f"cls_net.{name}"))
+                               f"cls_net.{name}", has_act))
     k = 0
     while f"pred_{k}" in params:
+        last = f"pred_{k + 1}" not in params
         out.update(_export_mlp(params[f"pred_{k}"], stats.get(f"pred_{k}", {}),
-                               f"prediction_cls.{k}"))
+                               f"prediction_cls.{k}", has_act and not last))
         k += 1
     return out
 

@@ -2,7 +2,8 @@
 
 Counterpart of `yolat_tpu/ops/segment.py`: `segment_broadcast` (:148),
 `segment_sum` (:218), `segment_mean` (:265), `segment_max` (:307),
-`segment_max_concat` (:396), with the two-level plan path (`_two_level`,
+`segment_max_concat` (:396), `segment_softmax` (:410), with the two-level
+plan path (`_two_level`,
 :161-207) and the plain scatter path. Conventions kept (:8-12): an empty
 segment gives 0 (mean and max), masked rows contribute nothing,
 low-precision sums accumulate in f32.
@@ -181,3 +182,25 @@ def segment_max_concat(parts, segment_ids, num_segments: int, mask=None,
     """segment_max(concat(parts, 1)) without the node-level concat."""
     return torch.cat([segment_max(p, segment_ids, num_segments, mask=mask,
                                   plan=plan) for p in parts], dim=1)
+
+
+def segment_softmax(data, segment_ids, num_segments: int, mask=None):
+    """Per-segment softmax along axis 0 (torch_scatter's scatter_softmax;
+    `yolat_tpu/ops/segment.py:410-426`): masked rows are filled with NEG
+    before the segment max, an empty segment's max becomes 0, masked rows
+    get weight 0 and the denominator is clamped at 1e-16. The max is
+    detached: softmax does not move with its shift, so its gradient
+    through the max is zero. Host-sync free (capturable)."""
+    if mask is not None:
+        keep = _expand(mask.bool(), data)
+        data = torch.where(keep, data, torch.full_like(data, NEG))
+    with torch.no_grad():
+        seg_max = _scatter(data, segment_ids, num_segments, "max", NEG)
+        seg_max = torch.where(seg_max <= NEG / 2, torch.zeros_like(seg_max),
+                              seg_max)
+    seg = segment_ids.long()
+    e = torch.exp(data - seg_max.index_select(0, seg))
+    if mask is not None:
+        e = torch.where(keep, e, torch.zeros_like(e))
+    denom = _scatter(e, segment_ids, num_segments, "sum", 0.0)
+    return e / torch.clamp(denom, min=1e-16).index_select(0, seg)

@@ -65,7 +65,7 @@ from yolat_tpu_torch.data.packing import to_device
 from yolat_tpu_torch.data.staging import batch_signature
 from yolat_tpu_torch.eval.runner import evaluate
 from yolat_tpu_torch.nn.layers import init_weights
-from yolat_tpu_torch.nn.model import build_model
+from yolat_tpu_torch.nn.model import build_model, check_model_config
 from yolat_tpu_torch.ops import _build
 from yolat_tpu_torch.ops.plans import pad_plans
 from yolat_tpu_torch.parallel.distributed import (coordination_barrier,
@@ -122,6 +122,11 @@ def run_training(cfg, device, exp_dir: str | None = None,
     docstring); steps, images and eval_batches are then this rank's."""
     device = torch.device(device)
     is_main = ranks is None or ranks.is_main
+    if cfg.graph != "bezier_cc_bb_iter":
+        raise NotImplementedError(
+            f"--graph {cfg.graph}: only the canonical 'bezier_cc_bb_iter' "
+            "pipeline trains (as in yolat_tpu/train/trainer.py:42-49)")
+    check_model_config(cfg)  # before any data is loaded
     if cfg.pp_banded_super and cfg.drop_edge > 0.0:
         raise ValueError(
             "pp_banded_super with drop_edge > 0: edge dropout strips the "
