@@ -304,6 +304,30 @@ no jax. Phases, each of which raises on failure (non-zero exit):
      each checkpoint (N1 once per batch, the AP table finite), and the
      refusals of `cli.test --serve_mode fast --conv edge` and `cli.train
      --fused_head_train true --act gelu`; the phase's time.
+ 24. the dynamic-graph family (`ops/knn.py`, the kNN blocks of
+     `nn/dynamic.py`, `nn/dense_graph.py`): on the first train batch of
+     phase 6's floorplans (63488 node rows), node features lifted to 64
+     channels by the seeded canonical model's first conv in eval mode,
+     k 16, f32: `knn_graph` over the whole batch with the node mask and
+     again with the images' ids as segments, each timed (median of 10
+     synchronised calls) with its own peak memory (held under 4 GiB),
+     its structure (dst order, no unmasked self edge, none across images
+     under segments, k real edges per real centre) and 256 seeded rows
+     against a float64 brute force (equal up to the a-priori f32 bound
+     of a near tie); one image card against CPU (the rows apart, each a
+     near tie); `dilated` at dilation 2, strided and stochastic (epsilon
+     0.2, 8 seeds: one k-subset of positions shared by every centre,
+     reproducible); each sparse block at 64 channels (DynConv edge and
+     mr, PlainDynBlock, ResDynBlock, DenseDynBlock, ResGraphBlock and
+     DenseGraphBlock on the batch's edges, ResBlockMultiEdge over the
+     shape, kNN and dilated kNN families) and the dense mirror on [4,
+     n_max, 64] with the per-image mask (DynConv2d edge and mr at
+     dilation 1 and 2, ResDynBlock2d, DenseDynBlock2d), seeded, in train
+     mode, forward and backward, card against CPU within KNN_BLOCK_TOL
+     (the CPU's side on its own kNN lists, computed once from the same
+     features; where the card's lists differ, the card's block held on
+     the CPU's lists after its own run); no kernel of the port launched;
+     the phase's time.
 Everything it runs comes from yolat_tpu_torch, the synthetic SVG writer
 included: it imports neither jax nor the JAX package yolat_tpu.
 The kernels line (a JSON object describing each kernel; launches are
@@ -4600,6 +4624,460 @@ def conv_zoo_phase(root, work, dev_line) -> dict:
     return total
 
 
+# phase 24: the dynamic-graph family (ops/knn, the kNN blocks of
+# nn/dynamic, nn/dense_graph) on phase 6's floorplans
+KNN_K = 16       # Config.k
+KNN_REPS = 10    # synchronised spans per timed knn_graph
+KNN_ROWS = 256   # rows held to a float64 brute force
+KNN_PEAK_BYTES = 4 << 30  # a call's own peak, above what it found
+KNN_EPSILON = 0.2
+# card against CPU, f32, phase 23's rules: outputs of their scale, running
+# statistics relative, gradients by relative Frobenius; a structurally
+# zero gradient (a Linear bias feeding a train-mode BatchNorm: its f32
+# noise over 1M edge rows read 0.64 relative, 4e-3 absolute) is held
+# absolutely at "noise" of the block's largest gradient
+KNN_BLOCK_TOL = {"out": 1e-4, "stats": 1e-4, "grad": 1e-2, "noise": 1e-4}
+KNN_DRAWS = 8  # seeds of the stochastic dilated draw
+
+
+def _near_tie_tol(x2, x2max, c: int):
+    """A priori bound on the f32 error of the difference of two scores of
+    one row: each score 2 x_i.x_j - |x_i|^2 - |x_j|^2 is within
+    (C + 2) u (2 |x_i||x_j| + |x_i|^2 + |x_j|^2) of its value, u = 2^-24."""
+    return 4 * (c + 2) * 2.0 ** -24 * (x2 + x2max)
+
+
+def _knn_structure(ei, em, k, mask, seg, what) -> None:
+    """dst = repeat(arange(N), k); no unmasked self edge; under segments
+    no unmasked edge across images; every real centre keeps k real edges
+    (every image has more than k real nodes)."""
+    import torch
+
+    src, dst = ei.long()
+    n = mask.shape[0]
+    check(torch.equal(dst, torch.arange(n, device=dst.device)
+                      .repeat_interleave(k)), f"{what}: dst order")
+    check(not bool((em & (src == dst)).any()),
+          f"{what}: an unmasked self edge")
+    if seg is not None:
+        check(not bool((em & (seg[src] != seg[dst])).any()),
+              f"{what}: an unmasked edge across images")
+    check(bool(em.reshape(n, k)[mask].all()),
+          f"{what}: a real centre with fewer than {k} real edges")
+
+
+def _dist64(x64, x2, rows, cols):
+    """float64 squared distances of `rows` to `cols` ([M] shared or
+    [len(rows), k] per row)."""
+    if cols.dim() == 1:
+        return (x2[rows, None] + x2[None, cols]
+                - 2 * x64[rows] @ x64[cols].t())
+    return ((x64[cols] - x64[rows, None, :]) ** 2).sum(-1)
+
+
+def _knn_brute(x64, ei, k, mask, seg, what) -> str:
+    """On KNN_ROWS seeded real rows: the float64 distances of the picked
+    neighbours, sorted, equal the row's k smallest float64 distances
+    within the a-priori bound of a near tie."""
+    import torch
+
+    n, c = x64.shape
+    x2 = (x64 * x64).sum(1)
+    mask = mask.cpu()
+    real = torch.nonzero(mask)[:, 0]
+    gen = torch.Generator().manual_seed(24)
+    rows = real[torch.randperm(len(real), generator=gen)[:KNN_ROWS]]
+    d = _dist64(x64, x2, rows, torch.arange(n))
+    d[:, ~mask] = float("inf")
+    d[torch.arange(len(rows)), rows] = float("inf")
+    if seg is not None:
+        s = seg.cpu()
+        d[s[rows][:, None] != s[None, :]] = float("inf")
+    true = d.topk(k, largest=False).values.sort(dim=1).values
+    src = ei[0].long().cpu().reshape(n, k)[rows]
+    picked = d.gather(1, src).sort(dim=1).values
+    gap = (picked - true).abs().max(dim=1).values
+    tol = _near_tie_tol(x2[rows], float(x2.max()), c)
+    worst = float((gap / tol).max())
+    check(bool((gap <= tol).all()),
+          f"{what}: brute force on {len(rows)} rows: a pick off by "
+          f"{worst:.3g} of the near-tie bound")
+    return (f"brute force on {len(rows)} rows: {int((gap > 0).sum())} rows "
+            f"with a near tie picked apart, largest gap "
+            f"{float(gap.max()):.3g} ({worst:.3g} of the bound)")
+
+
+def _rows_apart(x64, sa, sb, what) -> tuple:
+    """Neighbour lists [N, k] of one x from the card and the CPU: the
+    rows that differ, each explained by a near tie (the sorted float64
+    distances of both lists within the a-priori bound). -> (rows apart,
+    largest gap, largest gap over its bound)."""
+    import torch
+
+    c = x64.shape[1]
+    sa, sb = sa.long().cpu(), sb.long().cpu()
+    rows = torch.nonzero((sa != sb).any(dim=1))[:, 0]
+    if len(rows) == 0:
+        return 0, 0.0, 0.0
+    x2 = (x64 * x64).sum(1)
+    da = _dist64(x64, x2, rows, sa[rows]).sort(dim=1).values
+    db = _dist64(x64, x2, rows, sb[rows]).sort(dim=1).values
+    gap = (da - db).abs().max(dim=1).values
+    ratio = float((gap / _near_tie_tol(x2[rows], float(x2.max()), c)).max())
+    check(ratio <= 1.0, f"{what}: {len(rows)} rows apart, one by {ratio:.3g} "
+          "of the near-tie bound")
+    return len(rows), float(gap.max()), ratio
+
+
+@contextlib.contextmanager
+def _given_lists(module, name: str, lists):
+    """While a block runs, `module.name` (knn_graph or dense_knn) returns
+    the lists computed before for its k, on the caller's device; None:
+    no change."""
+    if lists is None:
+        yield
+        return
+    orig = getattr(module, name)
+
+    def given(x, k, *args, **kwargs):
+        out = lists[k]
+        if isinstance(out, tuple):
+            return tuple(t.to(x.device) for t in out)
+        return out.to(x.device)
+
+    setattr(module, name, given)
+    try:
+        yield
+    finally:
+        setattr(module, name, orig)
+
+
+def _block_run(block, x, args):
+    """Train-mode forward and backward of sum(out * cot), cot seeded: (out,
+    {name: grad} with 'x', {name: running statistic}, ms), the tensors
+    copied to the CPU as float64."""
+    import torch
+
+    block.train()
+    t0 = time.perf_counter()
+    xt = x.clone().requires_grad_(True)
+    out = block(xt, *args)
+    cot = torch.randn(out.shape, generator=torch.Generator().manual_seed(25))
+    (out * cot.to(out.device)).sum().backward()
+    if x.is_cuda:
+        torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p))
+             .detach().cpu().double() for n, p in block.named_parameters()}
+    grads["x"] = xt.grad.detach().cpu().double()
+    stats = {n: b.detach().cpu().double() for n, b in block.named_buffers()
+             if n.endswith(("running_mean", "running_var"))}
+    return out.detach().cpu().double(), grads, stats, ms
+
+
+def _hold_block(label, make, x, args, knn, what) -> None:
+    """One seeded block in train mode on the card and on the CPU, the same
+    weights and inputs. `args(device)` gives the block's other arguments;
+    `knn` = (module, name, the CPU's lists, k, the card's lists equal):
+    the CPU run takes its own lists (computed before from the same x), and
+    where the card's lists differ the card's block is held on the CPU's
+    lists after its own run."""
+    import copy
+
+    import torch
+
+    torch.manual_seed(24)
+    block = make()
+    fresh = copy.deepcopy(block)
+    module, name, cpu_lists, k, equal = knn or (None, None, None, 0, True)
+    with _given_lists(module, name, cpu_lists):
+        want = _block_run(block, x.cpu(), args("cpu"))
+    got = _block_run(copy.deepcopy(fresh).to("cuda"), x, args("cuda"))
+    held = ""
+    if not equal:
+        with _given_lists(module, name, cpu_lists):
+            got = _block_run(copy.deepcopy(fresh).to("cuda"), x,
+                             args("cuda"))[:3] + got[3:]
+        held = f"; held on the CPU's k={k} lists (the card's differ)"
+    rel = lambda a, r: float((a - r).norm() / max(float(r.norm()), 1e-30))  # noqa: E731
+    out = float((got[0] - want[0]).abs().max() / want[0].abs().max())
+    st = max((rel(got[2][n], v) for n, v in want[2].items()), default=0.0)
+    scale = max(float(v.abs().max()) for v in want[1].values())
+    floor = KNN_BLOCK_TOL["noise"] * scale
+    g_err = {n: rel(got[1][n], v) for n, v in want[1].items()
+             if float(v.abs().max()) >= floor}
+    noise = max((float((got[1][n] - v).abs().max()) / scale
+                 for n, v in want[1].items() if n not in g_err), default=0.0)
+    worst = max(g_err, key=g_err.get)
+    finite = all(bool(torch.isfinite(g).all()) for g in got[1].values())
+    check(finite and out <= KNN_BLOCK_TOL["out"]
+          and st <= KNN_BLOCK_TOL["stats"] and noise <= KNN_BLOCK_TOL["noise"]
+          and g_err[worst] <= KNN_BLOCK_TOL["grad"],
+          f"{what} {label}: card against CPU: output {out:.2e}, running "
+          f"statistics {st:.2e}, gradient {worst} {g_err[worst]:.2e}, "
+          f"noise-level gradients {noise:.2e} of {scale:.3g} (limits "
+          f"{KNN_BLOCK_TOL}), finite {finite}{held}")
+    print(f"{what} {label}: card against CPU, output {out:.2e} of scale, "
+          f"running statistics {st:.2e}, gradients median "
+          f"{statistics.median(g_err.values()):.2e}, largest "
+          f"{g_err[worst]:.2e} ({worst}), noise-level {noise:.2e} of the "
+          f"largest ({scale:.3g}); forward "
+          f"+ backward {got[3]:.1f} ms card (first call), {want[3]:.1f} ms "
+          f"CPU{held}")
+
+
+def _prefix(ei, em, n, k):
+    """The first k of each centre's neighbours of a knn_graph result."""
+    kk = ei.shape[1] // n
+    return (ei.reshape(2, n, kk)[:, :, :k].reshape(2, -1),
+            em.reshape(n, kk)[:, :k].reshape(-1))
+
+
+def knn_phase(root, dev_line) -> None:
+    """Phase 24: on the first train batch of phase 6's floorplans (`root`),
+    node features lifted to 64 channels by the seeded canonical model's
+    first conv (eval mode): knn_graph over the whole batch timed and
+    checked, one image card against CPU, dilated, each sparse block and
+    the dense mirror in train mode card against CPU; no kernel launches."""
+    import torch
+
+    from yolat_tpu_torch.cli.profile import _trace
+    from yolat_tpu_torch.config import Config
+    from yolat_tpu_torch.data.dataset import SESYDDataset
+    from yolat_tpu_torch.data.loader import PackedLoader, train_plans_for
+    from yolat_tpu_torch.data.packing import to_device
+    from yolat_tpu_torch.nn import dense_graph, dynamic
+    from yolat_tpu_torch.nn.model import seeded_model
+    from yolat_tpu_torch.ops import _build
+    from yolat_tpu_torch.ops.knn import dilated, knn_graph
+    from yolat_tpu_torch.train.loop import prepare_batch
+
+    t_start = time.perf_counter()
+    what = "phase 24"
+    _build.reset_launch_counts()
+    ds = SESYDDataset(root, "train", bbox_sampling_step=10)
+    cfg = Config(n_classes=ds.n_classes, data_aug=False)
+    b = prepare_batch(cfg, to_device(next(iter(PackedLoader(
+        ds, batch_size=BATCH, prefetch=0, **train_plans_for(cfg)))), "cuda"))
+    model = seeded_model(cfg).to("cuda").eval()
+    with torch.no_grad():
+        x = model.cls_net.head.gconv(
+            b["x"], b["x"], b["edge"], b["e_attr"], b["edge_mask"],
+            b["node_mask"], dst_count=b.get("dst_count"))[0].contiguous()
+    mask = b["node_mask"]
+    seg = b["image_id"].index_select(0, b["bbox_idx"].long())
+    n, c = x.shape
+    x_cpu, mask_cpu, seg_cpu = x.cpu(), mask.cpu(), seg.cpu()
+    x64 = x_cpu.double()
+    print(f"{what} data: {n} node rows ({int(mask.sum())} real), {c} "
+          f"channels from the canonical model's first conv, k {KNN_K}, "
+          f"{int(b['edge_mask'].sum())} shape edges [{dev_line}]")
+
+    # knn_graph over the whole batch: time, peak, structure, brute force
+    for label, s in (("node mask", None), ("node mask + image ids", seg)):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ei, em = knn_graph(x, KNN_K, mask=mask, segment_ids=s)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        ms = time_ms(lambda: knn_graph(x, KNN_K, mask=mask, segment_ids=s),
+                     reps=KNN_REPS)
+        check(peak < KNN_PEAK_BYTES,
+              f"{what} knn_graph ({label}): peak {peak / 2**30:.2f} GiB")
+        _knn_structure(ei, em, KNN_K, mask, s, f"{what} knn_graph ({label})")
+        brute = _knn_brute(x64, ei, KNN_K, mask, s,
+                           f"{what} knn_graph ({label})")
+        if s is None:  # where the call's device time goes
+            tr = _trace(lambda: knn_graph(x, KNN_K, mask=mask), 1)
+            check(tr["device_busy_ms_per_call"] is not None,
+                  f"{what}: the profiler saw no device time")
+            top = "; ".join(f"{k.split('(')[0][:70]} {v:.2f}" for k, v in
+                            tr["top_kernels_ms_per_call"][:8])
+            print(f"{what} knn_graph (node mask) profiled: "
+                  f"{tr['device_busy_ms_per_call']:.2f} ms device time in "
+                  f"{tr['device_kernels_per_call']:.0f} kernels; top ms: "
+                  f"{top}")
+        print(f"{what} knn_graph ({label}): N {n}, k {KNN_K}, "
+              f"{statistics.median(ms):.3f} ms median of {KNN_REPS} "
+              f"synchronised calls ({min(ms):.3f}-{max(ms):.3f}), peak "
+              f"{peak / 2**30:.3f} GiB above the {base / 2**30:.3f} GiB "
+              f"held before (limit {KNN_PEAK_BYTES / 2**30:.0f}); structure "
+              f"held; {brute} [{dev_line}]")
+
+    # one image, card against CPU
+    n0 = int(torch.nonzero(seg_cpu == 1)[0, 0])
+    a = knn_graph(x[:n0], KNN_K, mask=mask[:n0])
+    t0 = time.perf_counter()
+    bb = knn_graph(x_cpu[:n0], KNN_K, mask=mask_cpu[:n0])
+    t_cpu = time.perf_counter() - t0
+    apart, gap, ratio = _rows_apart(
+        x64[:n0], a[0][0].reshape(n0, KNN_K), bb[0][0].reshape(n0, KNN_K),
+        f"{what} one image")
+    same = (a[0].cpu() == bb[0]).all(dim=0).reshape(n0, KNN_K).all(dim=1)
+    check(torch.equal(a[1].cpu().reshape(n0, KNN_K)[same],
+                      bb[1].reshape(n0, KNN_K)[same]),
+          f"{what} one image: edge masks apart on equal rows")
+    print(f"{what} knn_graph one image ({n0} rows) card against CPU: "
+          f"{apart} rows apart, each a near tie (largest gap {gap:.3g}, "
+          f"{ratio:.3g} of the bound); CPU {t_cpu:.2f} s")
+
+    # the lists the blocks take: the CPU's (k 16 is the first 16 of k 32)
+    ei32, em32 = knn_graph(x, 2 * KNN_K, mask=mask)
+    card = {KNN_K: knn_graph(x, KNN_K, mask=mask), 2 * KNN_K: (ei32, em32)}
+    check(all(torch.equal(u, v) for u, v in zip(
+        _prefix(ei32, em32, n, KNN_K), card[KNN_K])),
+        f"{what}: the card's k {KNN_K} lists are the first {KNN_K} of k "
+        f"{2 * KNN_K}")
+    t0 = time.perf_counter()
+    cpu32 = knn_graph(x_cpu, 2 * KNN_K, mask=mask_cpu)
+    t_cpu = time.perf_counter() - t0
+    cpu = {KNN_K: _prefix(*cpu32, n, KNN_K), 2 * KNN_K: cpu32}
+    equal = {}
+    for k, (ei_k, _) in cpu.items():
+        apart, gap, ratio = _rows_apart(
+            x64, card[k][0][0].reshape(n, k), ei_k[0].reshape(n, k),
+            f"{what} batch k {k}")
+        equal[k] = apart == 0
+        print(f"{what} knn_graph batch k {k} card against CPU: {apart} rows "
+              f"apart, each a near tie (largest gap {gap:.3g}, {ratio:.3g} "
+              f"of the bound)")
+    print(f"{what}: the CPU's knn_graph of the batch at k {2 * KNN_K}: "
+          f"{t_cpu:.1f} s")
+
+    # dilated at dilation 2 over image-segmented lists: strided, stochastic
+    ei_s, em_s = knn_graph(x, 2 * KNN_K, mask=mask, segment_ids=seg)
+    st_ei, st_em = dilated(ei_s, em_s, KNN_K, 2)
+    check(all(torch.equal(u, v) for u, v in zip(
+        (st_ei, st_em), (ei_s.reshape(2, n, -1)[:, :, ::2].reshape(2, -1),
+                         em_s.reshape(n, -1)[:, ::2].reshape(-1)))),
+        f"{what} dilated strided: every second neighbour")
+    _knn_structure(st_ei, st_em, KNN_K, mask, seg, f"{what} dilated strided")
+    branches = []
+    for seed in range(24, 24 + KNN_DRAWS):
+        draws = [dilated(ei_s, em_s, KNN_K, 2, stochastic=True,
+                         epsilon=KNN_EPSILON,
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(seed)) for _ in range(2)]
+        check(all(torch.equal(u, v) for u, v in zip(*draws)),
+              f"{what} dilated stochastic: one seed, one draw")
+        r_ei, r_em = draws[0]
+        _knn_structure(r_ei, r_em, KNN_K, mask, seg,
+                       f"{what} dilated stochastic")
+        # the positions kept in each real centre's 32 (distinct) candidates
+        cand = ei_s[0].reshape(n, -1).cpu()[mask_cpu]
+        kept = r_ei[0].reshape(n, KNN_K).cpu()[mask_cpu]
+        hit = cand[:, None, :] == kept[:, :, None]
+        pos = hit.float().argmax(dim=2)
+        check(bool(hit.any(dim=2).all()) and bool((pos == pos[0]).all())
+              and len(set(pos[0].tolist())) == KNN_K,
+              f"{what} dilated stochastic: one k-subset of positions for "
+              "every centre")
+        branches.append(pos[0].tolist() != list(range(0, 2 * KNN_K, 2)))
+    print(f"{what} dilated at dilation 2 (image ids): strided every second; "
+          f"stochastic (epsilon {KNN_EPSILON}) over {KNN_DRAWS} seeds took "
+          f"the random branch {sum(branches)} times, each a k-subset of "
+          f"positions shared by all {len(pos)} real centres, reproducible "
+          f"from its seed; structure held")
+
+    # the sparse blocks at 64 channels on the batch
+    dyn = lambda k: (dynamic, "knn_graph", cpu, k, equal[k])  # noqa: E731
+
+    def on(dev, *ts):
+        return tuple(t.to(dev) if torch.is_tensor(t) else t for t in ts)
+
+    fam16 = cpu[KNN_K]
+    fam_d2 = dilated(*cpu32, KNN_K, 2)
+
+    def families(dev):
+        zero = lambda e: torch.zeros(e.shape[1], 4)  # noqa: E731
+        return ([b["edge"].to(dev), fam16[0].t().to(dev),
+                 fam_d2[0].t().to(dev)],
+                [b["e_attr"].to(dev), zero(fam16[0]).to(dev),
+                 zero(fam_d2[0]).to(dev)],
+                [b["edge_mask"].to(dev), fam16[1].to(dev),
+                 fam_d2[1].to(dev)], mask.to(dev))
+
+    graph_args = lambda dev: on(dev, b["edge"], b["e_attr"],  # noqa: E731
+                                b["edge_mask"], mask)
+    dyn_args = lambda dev: (mask.to(dev),)  # noqa: E731
+    blocks = (
+        ("DynConv edge", lambda: dynamic.DynConv(
+            c, c, KNN_K, 1, "edge", norm="batch"), dyn_args, dyn(KNN_K)),
+        ("DynConv mr", lambda: dynamic.DynConv(
+            c, c, KNN_K, 1, "mr", norm="batch"), dyn_args, dyn(KNN_K)),
+        ("PlainDynBlock edge d2", lambda: dynamic.PlainDynBlock(
+            c, KNN_K, 2, "edge", norm="batch"), dyn_args, dyn(2 * KNN_K)),
+        ("ResDynBlock mr", lambda: dynamic.ResDynBlock(
+            c, KNN_K, 1, "mr", norm="batch"), dyn_args, dyn(KNN_K)),
+        ("DenseDynBlock edge", lambda: dynamic.DenseDynBlock(
+            c, c, KNN_K, 1, "edge", norm="batch"), dyn_args, dyn(KNN_K)),
+        ("ResGraphBlock attr_edge", lambda: dynamic.ResGraphBlock(
+            c, "attr_edge", norm="batch"), graph_args, None),
+        ("DenseGraphBlock edge", lambda: dynamic.DenseGraphBlock(
+            c, c, "edge", norm="batch"), graph_args, None),
+        ("ResBlockMultiEdge edge (shape, kNN, kNN d2; the CPU's kNN lists)",
+         lambda: dynamic.ResBlockMultiEdge(c, "edge", 3, norm="batch"),
+         families, None))
+    for label, make, args, knn in blocks:
+        _hold_block(label, make, x, args, knn, what)
+
+    # the dense mirror: [4, n_max, 64] with the per-image mask
+    starts = [0] + [int(torch.nonzero(seg_cpu == i)[0, 0])
+                    for i in range(1, BATCH)]
+    ends = starts[1:] + [int(torch.nonzero(mask_cpu)[-1, 0]) + 1]
+    n_max = max(e - s for s, e in zip(starts, ends))
+    xd = torch.zeros(BATCH, n_max, c, device="cuda")
+    md = torch.zeros(BATCH, n_max, dtype=torch.bool, device="cuda")
+    for i, (s, e) in enumerate(zip(starts, ends)):
+        check(bool((seg_cpu[s:e][mask_cpu[s:e]] == i).all()),
+              f"{what}: image {i}'s rows are contiguous")
+        xd[i, :e - s], md[i, :e - s] = x[s:e], mask[s:e]
+    idx32 = dense_graph.dense_knn(xd, 2 * KNN_K, mask=md)
+    dcard = {KNN_K: dense_graph.dense_knn(xd, KNN_K, mask=md),
+             2 * KNN_K: idx32}
+    check(torch.equal(idx32[:, :, :KNN_K], dcard[KNN_K]),
+          f"{what}: dense_knn's k {KNN_K} is the first {KNN_K} of k "
+          f"{2 * KNN_K}")
+    t0 = time.perf_counter()
+    cidx32 = dense_graph.dense_knn(xd.cpu(), 2 * KNN_K, mask=md.cpu())
+    t_cpu = time.perf_counter() - t0
+    dcpu = {KNN_K: cidx32[:, :, :KNN_K].contiguous(), 2 * KNN_K: cidx32}
+    dequal = {}
+    xd64 = xd.cpu().double()
+    for k, idx in dcpu.items():
+        apart = 0
+        for i in range(BATCH):
+            r, gap, ratio = _rows_apart(xd64[i], dcard[k][i], idx[i],
+                                        f"{what} dense image {i} k {k}")
+            apart += r
+        dequal[k] = apart == 0
+        print(f"{what} dense_knn [{BATCH}, {n_max}] k {k} card against CPU: "
+              f"{apart} rows apart, each a near tie")
+    print(f"{what}: the CPU's dense_knn at k {2 * KNN_K}: {t_cpu:.1f} s")
+    dn = lambda k: (dense_graph, "dense_knn", dcpu, k, dequal[k])  # noqa: E731
+    dense_args = lambda dev: (md.to(dev),)  # noqa: E731
+    dense = (
+        ("DynConv2d edge d1", lambda: dense_graph.DynConv2d(
+            c, c, KNN_K, 1, "edge"), dn(KNN_K)),
+        ("DynConv2d edge d2", lambda: dense_graph.DynConv2d(
+            c, c, KNN_K, 2, "edge"), dn(2 * KNN_K)),
+        ("DynConv2d mr d1", lambda: dense_graph.DynConv2d(
+            c, c, KNN_K, 1, "mr"), dn(KNN_K)),
+        ("DynConv2d mr d2", lambda: dense_graph.DynConv2d(
+            c, c, KNN_K, 2, "mr"), dn(2 * KNN_K)),
+        ("ResDynBlock2d edge", lambda: dense_graph.ResDynBlock2d(
+            c, KNN_K, 1, "edge"), dn(KNN_K)),
+        ("DenseDynBlock2d mr d2", lambda: dense_graph.DenseDynBlock2d(
+            c, c, KNN_K, 2, "mr"), dn(2 * KNN_K)))
+    for label, make, knn in dense:
+        _hold_block(label, make, xd, dense_args, knn, what)
+
+    launched = {k: v for k, v in _build.launch_counts.items() if v}
+    check(not launched, f"{what} launched a kernel of the port: {launched}")
+    print(f"{what}: no kernel of the port launched; {time.perf_counter() - t_start:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -4823,6 +5301,10 @@ def main() -> int:
         zoo = conv_zoo_phase(train_root, work, dev_line)
         check(all(v > 0 for v in zoo.values()),
               f"phase 23 launched kernels 3, 11 and N1: {zoo}")
+
+        # 24. the dynamic-graph family: knn_graph over the bench batch,
+        # dilated, the kNN blocks and the dense mirror, card against CPU
+        knn_phase(train_root, dev_line)
 
     # the kernels line
     sources = {"edge_window_message_sum": (

@@ -1,7 +1,7 @@
 """Masked BatchNorm, the reference-shaped MLP block and the fused pool head.
 
 Counterpart of `yolat_tpu/nn/layers.py:30-237` (`act_fn`,
-`MaskedBatchNorm`, `MLP`, `FusedPoolFusion`). The MLP is laid out as the
+`MaskedBatchNorm`, `SumEmbedding`, `MLP`, `FusedPoolFusion`). The MLP is laid out as the
 reference's flat Sequential (gcn_lib/sparse/torch_nn.py:50-71): per stage
 Linear, then the norm (`norm`: 'batch', 'layer' or None) and the
 activation (`act`: 'relu', 'leakyrelu' with slope 0.2, 'gelu' in flax's
@@ -140,6 +140,28 @@ def norm_layer(name, features: int):
     if name == "layer":
         return nn.LayerNorm(features, eps=1e-6)
     raise NotImplementedError(f"--norm {name!r}: batch, layer or none")
+
+
+class SumEmbedding(nn.Module):
+    """The sum of one embedding per integer feature column, `emb_{i}`
+    (the Atom/BondEncoder pattern, gcn_lib/sparse/torch_nn.py:74-113):
+    x [N, F] int -> [N, emb_dim]. Weights start xavier-uniform, as flax's
+    nn.Embed under `xavier_uniform()`, drawn from `generator`."""
+
+    def __init__(self, feature_dims, emb_dim: int,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.n_features = len(feature_dims)
+        for i, dim in enumerate(feature_dims):
+            emb = nn.Embedding(dim, emb_dim)
+            nn.init.xavier_uniform_(emb.weight, generator=generator)
+            setattr(self, f"emb_{i}", emb)
+
+    def forward(self, x):
+        out = 0
+        for i in range(self.n_features):
+            out = out + getattr(self, f"emb_{i}")(x[:, i].long())
+        return out
 
 
 class MLP(nn.Sequential):

@@ -21,6 +21,13 @@ its Linear layers at 2k, and one without either at k. The reference's
 own key names for these convs (PyG's `att_src`, `lin_l`, ...) were not
 available to check these against: a reference `.pth` of one of them may
 need its keys renamed before it loads.
+
+`load_flax_module` loads the flax tree of a dynamic-graph block
+(`nn/dynamic.py`: the conv under flax's auto-name `<FLAX_CONV>_<i>`
+becomes `gconv`, or `gconvs.<i>` in ResBlockMultiEdge), of a module of
+the dense library (`nn/dense_graph.py`: `body`, `gconv`, `nn` as in flax,
+BasicConv's `dense_<i>` / `bn_<i>` at the Sequential's indices) or of
+`SumEmbedding` (`emb_<i>/embedding`) into the port's module.
 """
 
 from __future__ import annotations
@@ -196,3 +203,58 @@ def load_reference_state_dict(path: str) -> dict:
           else np.asarray(v) for k, v in obj.items()
           if hasattr(v, "shape") or np.isscalar(v)}
     return strip_module_prefix(sd)
+
+
+def _join(prefix: str, name) -> str:
+    return f"{prefix}.{name}" if prefix else str(name)
+
+
+def _has_act(act) -> bool:
+    return act is not None and str(act).lower() != "none"
+
+
+def export_module(module, params: Mapping, stats: Mapping,
+                  prefix: str = "") -> dict:
+    """The flax subtree (params, batch_stats) of one port module of
+    `nn/dynamic.py` (the blocks), `nn/dense_graph.py` or `SumEmbedding`
+    -> its state dict under `prefix` (numpy leaves)."""
+    from yolat_tpu_torch.nn import dense_graph, dynamic
+    from yolat_tpu_torch.nn.layers import SumEmbedding
+
+    if isinstance(module, SumEmbedding):
+        return {_join(prefix, f"emb_{i}.weight"):
+                np.asarray(params[f"emb_{i}"]["embedding"])
+                for i in range(module.n_features)}
+    if isinstance(module, dense_graph.BasicConv):
+        return _export_mlp(params, stats, prefix, module.has_act)
+    convs = ()
+    if isinstance(module, (dynamic.DynConv, dynamic.ResGraphBlock,
+                           dynamic.DenseGraphBlock)):
+        convs = ((0, "gconv"),)
+    elif isinstance(module, dynamic.ResBlockMultiEdge):
+        convs = tuple((i, f"gconvs.{i}") for i in range(len(module.gconvs)))
+    if convs:
+        out: dict = {}
+        for i, key in convs:
+            name = f"{FLAX_CONV[module.conv]}_{i}"
+            out.update(_export_conv(module.conv, params[name],
+                                    stats.get(name, {}), _join(prefix, key),
+                                    _has_act(module.act)))
+        return out
+    # the rest carry flax's names on their children (body, gconv, nn)
+    out = {}
+    for name, child in module.named_children():
+        out.update(export_module(child, params[name], stats.get(name, {}),
+                                 _join(prefix, name)))
+    return out
+
+
+def load_flax_module(module, variables: Mapping):
+    """Load flax variables ({'params', 'batch_stats'}, numpy leaves) of a
+    dynamic-graph block, a dense-library module or SumEmbedding into the
+    port's `module` (strict); returns it."""
+    sd = export_module(module, variables["params"],
+                       variables.get("batch_stats", {}))
+    module.load_state_dict({k: torch.from_numpy(np.array(v, copy=True))
+                            for k, v in sd.items()}, strict=True)
+    return module

@@ -1,8 +1,9 @@
 """Box IoU and the predict-time box inflation.
 
 Counterpart of `yolat_tpu/ops/iou.py` (`box_iou_matrix` :26,
-`xywh_to_xyxy` :49, `inflate_boxes` :61): no +1-pixel convention unless
-`plus1` (the reference's eval-protocol variant, det_util.py:214-244).
+`box_iou_pairwise` :36, `box_iou_plus1` :44, `xywh_to_xyxy` :49,
+`inflate_boxes` :61): no +1-pixel convention unless `plus1` (the
+reference's eval-protocol variant, det_util.py:214-244).
 """
 
 from __future__ import annotations
@@ -10,18 +11,33 @@ from __future__ import annotations
 import torch
 
 
+def _inter(b1, b2, p: float):
+    iw = torch.clamp(torch.minimum(b1[..., 2], b2[..., 2])
+                     - torch.maximum(b1[..., 0], b2[..., 0]) + p, min=0)
+    ih = torch.clamp(torch.minimum(b1[..., 3], b2[..., 3])
+                     - torch.maximum(b1[..., 1], b2[..., 1]) + p, min=0)
+    return iw * ih
+
+
+def _area(b, p: float):
+    return (b[..., 2] - b[..., 0] + p) * (b[..., 3] - b[..., 1] + p)
+
+
+def box_iou_pairwise(a, b, plus1: bool = False):
+    """Elementwise IoU between aligned box arrays [..., 4] (xyxy)."""
+    p = 1.0 if plus1 else 0.0
+    inter = _inter(a, b, p)
+    return inter / (_area(a, p) + _area(b, p) - inter + 1e-16)
+
+
 def box_iou_matrix(a, b, plus1: bool = False):
     """IoU matrix [A, B] between box sets [A, 4] and [B, 4] (xyxy)."""
-    p = 1.0 if plus1 else 0.0
-    a_, b_ = a[:, None, :], b[None, :, :]
-    iw = torch.clamp(torch.minimum(a_[..., 2], b_[..., 2])
-                     - torch.maximum(a_[..., 0], b_[..., 0]) + p, min=0)
-    ih = torch.clamp(torch.minimum(a_[..., 3], b_[..., 3])
-                     - torch.maximum(a_[..., 1], b_[..., 1]) + p, min=0)
-    inter = iw * ih
-    area_a = (a_[..., 2] - a_[..., 0] + p) * (a_[..., 3] - a_[..., 1] + p)
-    area_b = (b_[..., 2] - b_[..., 0] + p) * (b_[..., 3] - b_[..., 1] + p)
-    return inter / (area_a + area_b - inter + 1e-16)
+    return box_iou_pairwise(a[:, None, :], b[None, :, :], plus1)
+
+
+def box_iou_plus1(a, b):
+    """The eval-protocol variant (det_util.bbox_iou:214-244)."""
+    return box_iou_matrix(a, b, plus1=True)
 
 
 def xywh_to_xyxy(x):
