@@ -328,6 +328,29 @@ no jax. Phases, each of which raises on failure (non-zero exit):
      features; where the card's lists differ, the card's block held on
      the CPU's lists after its own run); no kernel of the port launched;
      the phase's time.
+ 25. the last modules (`data/toy.py`, `utils/profiling.py`,
+     `data/legacy.py`, `data/deepgcn_utils.py`, `get_anchor`,
+     `batch_statistics_loop`, `ScalarWriter`): the port's toy batch (4
+     images of 3 squares, node rows padded to 512), built here, served
+     through the canonical fast_bf16 graph and the YOLaT++ per-edge graph
+     (detections bit-identical to the eager predict; logits against the
+     eager f32 module, f32 within 1e-4 / 2e-4 of their scale, bf16 within
+     5e-2 with the argmax agreeing on over 97%) and trained 4 bf16
+     fused-head steps (the first eager, then a graph), kernels 1, 2, 3, 5,
+     6, 11 and N1 launched on that path, then every call of 1, 2, 5, 6 and
+     N1 in the predict cores and kernels 3 and 11 on the toy batch held to
+     their plain versions (phase 22's rules); `timed` against the
+     CUDA-event median of the canonical replay of the bench batch and a
+     ThroughputMeter over those replays; `trace` in a process of its own
+     (`scripts/traced_predict.py`: its trace's kernel records equal to the
+     launches counted there); `cost_analysis` of the eval module's predict
+     on the CPU and its refusal on the card (N1 launches there); each
+     `LegacySVGDataset` graph over phase 22's test diagrams, `get_anchor`
+     over the bench floorplans, `batch_statistics_loop` equal to
+     `batch_statistics` on phase 21's detections, alone and followed by
+     the GT boxes (true positives on every image), at IoU 0.05-0.95,
+     `PartNetDataset`'s refusal without h5py, `ScalarWriter`'s sinks; the
+     phase's time.
 Everything it runs comes from yolat_tpu_torch, the synthetic SVG writer
 included: it imports neither jax nor the JAX package yolat_tpu.
 The kernels line (a JSON object describing each kernel; launches are
@@ -3766,7 +3789,8 @@ def detect_phase(work, ckpt_dir, trained_pth, dev_line):
     dir and under seeded weights that keep many proposals,
     cli.detect_badcase under both, cli.export_ckpt against phase 6's .pth,
     and cli.detect.main where matplotlib imports (one PNG per image) or its
-    refusal where it does not."""
+    refusal where it does not. Returns (the test split's root, the flax
+    records of the seeded weights that keep many detections)."""
     import torch
 
     from yolat_tpu_torch.cli import detect, detect_badcase, export_ckpt
@@ -3787,8 +3811,8 @@ def detect_phase(work, ckpt_dir, trained_pth, dev_line):
     many = _many_proposal_pth(root, os.path.join(work, "detect_many.pth"))
     weights = {"phase6": ckpt_dir, "many": many}
     fast = _detect_weights(work, root, "phase6", ckpt_dir, dev_line)["fast"][0]
-    _detect_weights(work, root, "many", many, dev_line,
-                    many_min=DETECT_MANY_MIN)
+    many_runs = _detect_weights(work, root, "many", many, dev_line,
+                                many_min=DETECT_MANY_MIN)
 
     # bad cases: the module route, TP / FP / FN per drawn image
     for name, pretrained in weights.items():
@@ -3838,6 +3862,7 @@ def detect_phase(work, ckpt_dir, trained_pth, dev_line):
         print("phase 21 cli.detect.main refused before the first image: "
               "matplotlib is absent")
     print(f"phase 21: {time.perf_counter() - t_start:.1f} s")
+    return root, many_runs["flax"][0]
 
 
 # phase 22: the repo's other two datasets, written by the port's own
@@ -5078,6 +5103,383 @@ def knn_phase(root, dev_line) -> None:
     print(f"{what}: no kernel of the port launched; {time.perf_counter() - t_start:.1f} s")
 
 
+# phase 25: the last modules of the port: its toy batch (data/toy.py)
+# served and trained on the kernels, the profiling tools
+# (utils/profiling.py), and the host modules (data/legacy.py,
+# data/deepgcn_utils.py, get_anchor, batch_statistics_loop, ScalarWriter)
+TOY_STEPS = 4   # bf16 fused train steps on the toy batch: 1 eager, 3 graph
+TOY_REPS = 20   # replays timed per reading
+# the kernels on the toy batch's path, with N1: 1, 2, 3, 5, 6 (YOLaT++'s
+# per-edge serving sums its curve level with it), 11
+TOY_KERNELS = ("edge_window_message_sum", "folded_mlp_block_max2",
+               "folded_mlp_block_max", "banded_message_sum",
+               "banded_message_sum_both", "fused_pool_train_bwd",
+               "nms_fixpoint")
+
+
+def _toy_serve(label, cfg, model, folded, engine, batch_np, mod_tol,
+               dev_line) -> float:
+    """The toy batch through `make_serving_fn` (a CUDA graph, fast_bf16)
+    against the eager predict core, bit for bit (phase 19's rule for the
+    folded routes), and the engine's logits against the eager f32 module:
+    f32 within `mod_tol` of the logits' scale, bf16 within 5e-2 of it with
+    the argmax agreeing on over 97% of the real proposals (phase 13's
+    rules); returns the replay's median CUDA-event time (ms)."""
+    import numpy as np
+    import torch
+
+    from yolat_tpu_torch.data.packing import finalize_batch, to_device
+    from yolat_tpu_torch.eval.predict import (img_slot_cap, make_predict_core,
+                                              make_serving_fn)
+    from yolat_tpu_torch.ops.plans import pad_plans
+
+    staged = pad_plans(batch_np)
+    kw = dict(folded=folded, bf16=True, img_slots=img_slot_cap(batch_np),
+              detections_only=True)
+    fn = make_serving_fn(cfg, staged, device="cuda", **kw)
+    got = fn(staged).numpy()
+    eager = {k: v.cpu().numpy() for k, v in make_predict_core(cfg, **kw)(
+        to_device(batch_np, "cuda")).items()}
+    check(_np_equal(got, eager), f"{label}: the serving graph's detections "
+          "differ from the eager predict's")
+    check(int(got["valid"].sum()) > 0
+          and all(np.isfinite(got[k]).all() for k in ("boxes", "scores")),
+          f"{label}: no finite detections")
+    tb = finalize_batch(to_device(batch_np, "cuda"))
+    with torch.no_grad():
+        ref, _ = model(tb)
+        k32, _ = engine(folded, tb)
+        k16, _ = engine(folded, tb, bf16=True)
+    m = tb["proposal_mask"]
+    scale = max(1.0, ref[m].abs().max().item())
+    e32 = (k32 - ref)[m].abs().max().item()
+    e16 = (k16 - ref)[m].abs().max().item()
+    agree = (k16.argmax(1)[m] == ref.argmax(1)[m]).float().mean().item()
+    replay = fn.captured[0].replay
+    ms = statistics.median(time_ms(replay, TOY_REPS))
+    print(f"{label}: graph detections bit-identical to the eager predict "
+          f"({int(got['valid'].sum())} kept); logits {tuple(ref.shape)} "
+          f"(max|ref|={scale:.3e}) f32 route vs f32 module {e32:.3e} (<= "
+          f"{mod_tol:g} scale), bf16 route vs f32 module {e16:.3e} (<= 5e-2 "
+          f"scale), bf16 argmax agreement on {int(m.sum())} real proposals "
+          f"{agree:.4f} (> 0.97); replay {ms:.4f} ms (median of {TOY_REPS} "
+          f"CUDA-event spans) [{dev_line}]")
+    check(bool(torch.isfinite(k16).all()) and bool(torch.isfinite(k32).all()),
+          f"{label}: non-finite logits")
+    check(e32 <= mod_tol * scale, f"{label}: f32 route vs the module")
+    check(e16 <= 5e-2 * scale, f"{label}: bf16 route vs the f32 module")
+    check(agree > 0.97, f"{label}: bf16 argmax agreement {agree}")
+    return ms
+
+
+def _toy_train(batch_np, dev_line) -> dict:
+    """TOY_STEPS bf16 fused-head train steps on the toy batch through
+    `make_scan_train_step` (the first eager, then a capture and replays):
+    finite losses, kernels 3 and 11 launched; the replays' synchronised
+    wall times."""
+    import math
+
+    import torch
+
+    from yolat_tpu_torch.config import Config
+    from yolat_tpu_torch.ops.plans import pad_plans
+    from yolat_tpu_torch.train.loop import make_scan_train_step
+    from yolat_tpu_torch.train.optim import make_optimizer
+    from yolat_tpu_torch.train.trainer import init_model
+
+    cfg = Config(n_classes=17, dtype="bfloat16", fused_head_train=True)
+    model = init_model(cfg, "cuda")
+    run = make_scan_train_step(cfg, model, make_optimizer(
+        cfg.optimizer, model.parameters(), cfg.lr), None, 1)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    staged = pad_plans(batch_np)
+    losses, times = [], []
+    for _ in range(TOY_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run([staged], gen)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        losses.append(float(out["loss"][0]))
+    check(all(math.isfinite(v) for v in losses), f"toy train losses {losses}")
+    print(f"phase 25 toy train: {TOY_STEPS} bf16 fused-head steps, losses "
+          f"{[round(v, 6) for v in losses]}, ms per step (synchronised wall, "
+          f"staging included) {[round(t, 3) for t in times]} (the first "
+          f"eager, the second the capture) [{dev_line}]")
+    return {"model": model, "cfg": cfg, "step_ms": times[2:]}
+
+
+def _toy_trace(work, dev_line) -> dict:
+    """`scripts/traced_predict.py` in a process of its own: one eager
+    canonical predict of the toy batch under `utils.profiling.trace`, the
+    written trace's kernel records equal to the launches counted there."""
+    out = os.path.join(work, "toy_trace")
+    r = subprocess.run([sys.executable, "-m",
+                        "yolat_tpu_torch.scripts.traced_predict", "--out",
+                        out, "--device", "cuda"], cwd=REPO,
+                       capture_output=True, text=True, timeout=600)
+    check(r.returncode == 0, f"traced_predict failed ({r.returncode}):\n"
+          f"{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
+    res = json.loads(r.stdout.strip().splitlines()[-1])
+    want = {"edge_window_message_sum", "folded_mlp_block_max2",
+            "nms_fixpoint"}
+    check(set(res["launches"]) == want
+          and res["records"] == res["launches"],
+          f"trace records {res['records']}, launches {res['launches']}")
+    print(f"phase 25 trace: {os.path.basename(res['trace'])} holds "
+          f"{res['records']} kernel records for the launches "
+          f"{res['launches']} of one eager canonical bf16 predict of the "
+          f"toy batch (in a process of its own), and {res['cpu_ops']} CPU "
+          f"ops [{dev_line}]")
+    return res
+
+
+def _host_modules(work, floor_root, detect, dev_line) -> None:
+    """The ported host modules where they run on the card's machine: each
+    LegacySVGDataset graph over phase 22's diagrams, get_anchor over the
+    bench floorplans, batch_statistics_loop against batch_statistics on
+    phase 21's detections, PartNetDataset's refusal, ScalarWriter's sink."""
+    import importlib.util
+
+    import numpy as np
+
+    from yolat_tpu_torch.data.dataset import SESYDDataset
+    from yolat_tpu_torch.data.deepgcn_utils import PartNetDataset
+    from yolat_tpu_torch.data.legacy import LegacySVGDataset
+    from yolat_tpu_torch.eval.metrics import (batch_statistics,
+                                              batch_statistics_loop)
+    from yolat_tpu_torch.geom.svg_io import read_ground_truth_boxes
+    from yolat_tpu_torch.utils.experiment import ScalarWriter
+
+    diagrams = os.path.join(work, "diagrams")
+    for graph in ("bezier", "shape", "bezier_edge_attr"):
+        t0 = time.perf_counter()
+        ds = LegacySVGDataset(diagrams, "test", graph=graph)
+        items = [ds[i] for i in range(len(ds))]
+        n = sum(len(it["pos"]) for it in items)
+        e = sum(len(it["edge"]) for it in items)
+        covered = sum(int((it["gt_obj"] >= 0).sum()) for it in items)
+        check(len(items) > 0 and n > 0 and all(
+            len(it["x"]) == len(it["pos"]) == len(it["gt_cls"])
+            and np.isfinite(it["x"]).all() for it in items),
+            f"legacy {graph}: bad items")
+        print(f"phase 25 legacy {graph}: {len(items)} diagrams, {n} nodes, "
+              f"{e} edges, {covered} nodes inside a GT box "
+              f"({time.perf_counter() - t0:.2f} s)")
+    floors = SESYDDataset(floor_root, "train")
+    anchors = floors.get_anchor()
+    check(anchors and all(v["count"] > 0 and len(v["median"]) == 2
+                          for v in anchors.values()), f"anchors {anchors}")
+    print(f"phase 25 get_anchor: {len(anchors)} classes over the "
+          f"{len(floors)} bench floorplans, GT boxes per class "
+          f"{ {k: v['count'] for k, v in sorted(anchors.items())} }")
+    root, records = detect
+    ds = SESYDDataset(root, "test")
+    # the evaluator's thresholds 0.5:0.05:0.95 and lower ones; on each
+    # image the seeded weights' detections, then those followed by the GT
+    # boxes themselves (each GT's own box matches it at every threshold,
+    # unless a detection before it took that GT)
+    ths = np.round(np.arange(0.05, 0.951, 0.05), 2)
+    n_tp = {"seeded": 0, "with GT": 0}
+    n_det = 0
+    for r in records:
+        gt, lab = read_ground_truth_boxes(
+            r["file"].replace(".svg", ".xml"), r["w"], r["h"], ds.class_dict)
+        gt = np.asarray(gt) * np.array([r["w"], r["h"], r["w"], r["h"]])
+        lab = np.asarray(lab)
+        cases = {"seeded": (r["boxes"], r["scores"], r["classes"]),
+                 "with GT": (np.concatenate([r["boxes"], gt]),
+                             np.concatenate([r["scores"],
+                                             np.full(len(gt), -1.0)]),
+                             np.concatenate([r["classes"], lab]))}
+        for name, det in cases.items():
+            for th in ths:
+                args = det + (gt, lab, float(th))
+                want = batch_statistics(*args)[0]
+                got = batch_statistics_loop(*args)[0]
+                check(np.array_equal(got, want), "batch_statistics_loop "
+                      f"differs from batch_statistics on {r['file']} "
+                      f"({name}) at {th:.2f}")
+                n_tp[name] += int(got.sum())
+        n_det += len(r["boxes"])
+    check(n_tp["with GT"] >= len(ths) * sum(
+        1 for r in records), f"true positives {n_tp}")
+    print(f"phase 25 batch_statistics_loop: equal to batch_statistics on "
+          f"phase 21's {len(records)} images ({n_det} detections of the "
+          f"seeded weights, alone and followed by the GT boxes), at IoU "
+          f"0.05-0.95; true positives summed over the thresholds {n_tp}")
+    if importlib.util.find_spec("h5py") is None:
+        refusal = ""
+        try:
+            PartNetDataset(work)
+            check(False, "PartNetDataset built without h5py")
+        except ImportError as err:
+            refusal = str(err)
+        check("h5py" in refusal, f"PartNetDataset's refusal: {refusal}")
+        print(f"phase 25 PartNetDataset: refused, h5py is absent "
+              f"({refusal})")
+    else:
+        try:
+            PartNetDataset(work)
+            check(False, "PartNetDataset read a missing folder")
+        except FileNotFoundError:
+            pass
+        print("phase 25 PartNetDataset: h5py present; a missing folder "
+              "raises FileNotFoundError")
+    log = os.path.join(work, "toy_scalars")
+    os.makedirs(log, exist_ok=True)
+    w = ScalarWriter(log)
+    for step in range(1, 4):
+        w.add_scalar("loss", 0.5 * step, step)
+    w.close()
+    with open(os.path.join(log, "scalars.jsonl")) as f:
+        check([json.loads(line)["value"] for line in f] == [0.5, 1.0, 1.5],
+              "scalars.jsonl")
+    events = [p for p in os.listdir(log) if p.startswith("events.out")]
+    n_rec = 0
+    for p in events:  # TFRecords: length (8 bytes), its crc, data, crc
+        with open(os.path.join(log, p), "rb") as f:
+            data = f.read()
+        i = 0
+        while i < len(data):
+            i += 16 + int.from_bytes(data[i:i + 8], "little")
+            n_rec += 1
+    check(len(events) == int(w.tensorboard)
+          and (not w.tensorboard or n_rec == 4),
+          f"event files {events}, {n_rec} records")
+    print(f"phase 25 ScalarWriter: sinks JSON lines"
+          + (f" and a TensorBoard event file ({n_rec} records: the file's "
+             f"version and 3 scalars)" if w.tensorboard else
+             " alone (torch.utils.tensorboard does not import here)"))
+
+
+def toy_phase(work, floor_root, bench_np, detect, dev_line) -> None:
+    """Phase 25: the port's toy batch (4 images, nodes padded to 512)
+    served through the canonical fast_bf16 graph and the YOLaT++ per-edge
+    graph (`_toy_serve`) and trained (`_toy_train`), with kernels 1, 2, 3,
+    5, 6, 11 and N1 launched on that path and then held to their plain
+    versions (`_served_kernels`, `_head_routes`); the profiling tools
+    (`timed` against the CUDA-event median of the canonical replay of the
+    bench batch, a ThroughputMeter over those replays, `trace` in a child
+    process, `cost_analysis` on the CPU and its refusal on the card); the
+    host modules (`_host_modules`). The models are seeded as in phases 3
+    and 11 (the canonical detector from seed 0, YOLaT++ per-edge from seed
+    1), full width, eval mode."""
+    import torch
+
+    from yolat_tpu_torch.data.packing import finalize_batch, to_device
+    from yolat_tpu_torch.config import Config
+    from yolat_tpu_torch.eval.fast_forward import (fast_forward,
+                                                   fast_forward_pp,
+                                                   fold_params,
+                                                   fold_params_pp)
+    from yolat_tpu_torch.eval.predict import (img_slot_cap, make_predict_core,
+                                              make_serving_fn)
+    from yolat_tpu_torch.nn.model import seeded_model
+    from yolat_tpu_torch.ops import _build
+    from yolat_tpu_torch.ops.plans import pad_plans
+    from yolat_tpu_torch.data.toy import toy_batch
+    from yolat_tpu_torch.utils.profiling import (ThroughputMeter,
+                                                 cost_analysis, timed)
+
+    t_start = time.perf_counter()
+    t0 = time.perf_counter()
+    toy_np, pad = toy_batch()
+    print(f"phase 25 toy batch: {pad.n_images} images, N={pad.n_nodes} node "
+          f"rows ({int(toy_np['node_mask'].sum())} real), E={pad.n_edges}, "
+          f"S={pad.n_super}, P={pad.n_proposals} "
+          f"({int(toy_np['proposal_mask'].sum())} real proposals), built on "
+          f"this machine by data/toy.py in "
+          f"{time.perf_counter() - t0:.3f} s")
+    cfg = Config(n_classes=17)
+    model = seeded_model(cfg).to("cuda")
+    folded = fold_params(model, "cuda")
+    pp_cfg = Config(arch="yolat_pp", n_classes=17)
+    pp_model = seeded_model(pp_cfg, seed=1).to("cuda")
+    pp_folded = fold_params_pp(pp_model, "cuda")
+
+    # the main path: serve (graph and eager) and train; launches counted
+    _build.reset_launch_counts()
+    serve = _toy_serve("phase 25 toy serve canonical", cfg, model, folded,
+                       fast_forward, toy_np, 1e-4, dev_line)
+    pp_serve = _toy_serve("phase 25 toy serve YOLaT++ per-edge", pp_cfg,
+                          pp_model, pp_folded, fast_forward_pp, toy_np, 2e-4,
+                          dev_line)
+    train = _toy_train(toy_np, dev_line)
+    torch.cuda.synchronize()
+    counts = {k: _build.launch_counts[k] for k in TOY_KERNELS}
+    check(all(v > 0 for v in counts.values()),
+          f"phase 25: kernels 1, 2, 3, 5, 6, 11 and N1 launched: {counts}")
+    print(f"phase 25 launches on the toy batch's path: {counts}")
+
+    # each kernel held to its plain version on the toy batch's inputs
+    tb = finalize_batch(to_device(toy_np, "cuda"))
+    _served_kernels(cfg, folded, tb, "phase 25 toy canonical kernels",
+                    {"edge_window_message_sum", "folded_mlp_block_max2",
+                     "nms_fixpoint"}, dev_line)
+    _served_kernels(pp_cfg, pp_folded, tb, "phase 25 toy YOLaT++ kernels",
+                    {"edge_window_message_sum", "folded_mlp_block_max2",
+                     "banded_message_sum", "banded_message_sum_both",
+                     "nms_fixpoint"}, dev_line)
+    _head_routes(train["cfg"], [tb], "phase 25 toy fused head", dev_line)
+
+    # the profiling tools: timed against the event median of the canonical
+    # replay of the bench batch, and a ThroughputMeter over the replays
+    staged = pad_plans(bench_np)
+    fn = make_serving_fn(cfg, staged, device="cuda", folded=folded,
+                         bf16=True, img_slots=img_slot_cap(bench_np),
+                         detections_only=True)
+    fn(staged).numpy()
+    replay = fn.captured[0].replay
+    n_img = int(bench_np["n_images"])
+    mean_s = timed(replay, iters=TOY_REPS, warmup=3)
+    event = statistics.median(time_ms(replay, TOY_REPS))
+    meter = ThroughputMeter()
+    for _ in range(TOY_REPS):
+        replay()
+        meter.update(n_img)
+    torch.cuda.synchronize()
+    rate = meter.rate
+    check(0 < mean_s < 10 and 0 < event < 1e4 and rate > 0,
+          f"timed {mean_s} s, event median {event} ms, {rate} images/s")
+    print(f"phase 25 timed: canonical fast_bf16 replay of the bench batch "
+          f"({n_img} images) {1e3 * mean_s:.4f} ms mean per call "
+          f"({TOY_REPS} queued, one drain), CUDA-event median "
+          f"{event:.4f} ms ({TOY_REPS} spans, each waited for); "
+          f"ThroughputMeter {rate:.1f} images/s over {TOY_REPS} replays "
+          f"[{dev_line}]")
+
+    _toy_trace(work, dev_line)
+
+    # cost_analysis: the eval module's predict on the CPU, refused on the
+    # card (kernel N1 launches there)
+    cpu_model = seeded_model(cfg)
+    cpu_predict = make_predict_core(cfg, model=cpu_model)
+    t0 = time.perf_counter()
+    cost = cost_analysis(cpu_predict, to_device(toy_np, "cpu"))
+    cpu_s = time.perf_counter() - t0
+    check(cost["flops"] > 0 and cost["bytes_accessed"] is None,
+          f"cost_analysis {cost}")
+    refusal = ""
+    try:
+        cost_analysis(make_predict_core(cfg, model=model.eval()),
+                      to_device(toy_np, "cuda"))
+        check(False, "cost_analysis counted a call that launched kernels")
+    except RuntimeError as err:
+        refusal = str(err)
+    check("nms_fixpoint" in refusal, f"cost_analysis refusal: {refusal}")
+    print(f"phase 25 cost_analysis: the eval module's predict of the toy "
+          f"batch on the CPU {cost['flops']} flops (matmul family; "
+          f"{ {k: v for k, v in cost['raw'].items()} }; {cpu_s:.2f} s); on "
+          f"the card refused: {refusal.split(', whose')[0]}")
+
+    _host_modules(work, floor_root, detect, dev_line)
+    print(f"phase 25: toy serve replay canonical {serve:.4f} ms, "
+          f"YOLaT++ per-edge {pp_serve:.4f} ms, toy train step "
+          f"{statistics.median(train['step_ms']):.3f} ms (median of the "
+          f"replays); {time.perf_counter() - t_start:.1f} s [{dev_line}]")
+
+
 def main() -> int:
     import torch
 
@@ -5287,7 +5689,7 @@ def main() -> int:
 
         # 21. the detection CLIs: cli.detect in each serve mode,
         # cli.detect_badcase, cli.export_ckpt
-        detect_phase(work, train_ckpt, trained_pth, dev_line)
+        detected = detect_phase(work, train_ckpt, trained_pth, dev_line)
 
         # 22. diagrams and charts, written by the port's own writers:
         # trained and served through the CLIs
@@ -5305,6 +5707,10 @@ def main() -> int:
         # 24. the dynamic-graph family: knn_graph over the bench batch,
         # dilated, the kNN blocks and the dense mirror, card against CPU
         knn_phase(train_root, dev_line)
+
+        # 25. the last modules: the port's toy batch served and trained on
+        # the kernels, the profiling tools, the host modules
+        toy_phase(work, root, batches[0], detected, dev_line)
 
     # the kernels line
     sources = {"edge_window_message_sum": (

@@ -2,8 +2,8 @@
 
 Counterpart of `yolat_tpu/data/dataset.py:28-206` (the loader workers'
 entry points, `CACHE_VERSION`, `_atomic_pickle`, `SESYDDataset` with
-`ctor_kwargs`) and training-time mixup, without the anchor-statistics
-tool.
+`ctor_kwargs`, the anchor-statistics tool `get_anchor`) and training-time
+mixup.
 Each SVG goes through the graph build and the proposal generator of
 `yolat_tpu_torch.geom`, on the host library (`geom/_native.py`); both
 stages are cached on disk beside the SVG under the JAX package's file
@@ -112,6 +112,29 @@ class SESYDDataset:
                     bbox_sampling_step=self.step, mode=self.mode,
                     class_dict=self.class_dict, cache=self.cache,
                     files=self.files, require_gt=self.require_gt)
+
+    def get_anchor(self) -> dict:
+        """Per-class GT box width/height statistics (median, mean, max, min,
+        count): the reference's anchor-inspection tool
+        (graph_dict3.py:111-127), returned as a dict instead of printed
+        before a SystemExit (yolat_tpu/data/dataset.py:121-143)."""
+        whs: dict = {}
+        for path in self.files:
+            g = self._graph(path)
+            w, h = g["img_width"], g["img_height"]
+            boxes, labels = read_ground_truth_boxes(
+                path.replace(".svg", ".xml"), w, h, self.class_dict)
+            for (x0, y0, x1, y1), label in zip(boxes, labels):
+                whs.setdefault(int(label), []).append((x1 - x0, y1 - y0))
+        out = {}
+        for label, sizes in whs.items():
+            arr = np.asarray(sizes)
+            out[label] = {"median": np.median(arr, axis=0).tolist(),
+                          "mean": arr.mean(axis=0).tolist(),
+                          "max": arr.max(axis=0).tolist(),
+                          "min": arr.min(axis=0).tolist(),
+                          "count": len(arr)}
+        return out
 
     def _graph(self, path: str) -> dict:
         cache_path = path.replace(".svg", f".graph.v{CACHE_VERSION}.pkl")

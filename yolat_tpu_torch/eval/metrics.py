@@ -1,8 +1,8 @@
 """Host-side detection metrics: the exact eval protocol of the reference.
 
 A numpy copy of `yolat_tpu/eval/metrics.py` (whose package init imports
-jax), without the loop oracle `batch_statistics_loop`; tests hold it
-equal to the original.
+jax), with the loop oracle `batch_statistics_loop`; tests hold it equal
+to the original.
 
 Counterparts (utils/det_util.py + cad_recognition/train.py:324-509):
   batch_statistics    get_batch_statistics:154-202 — greedy per-detection TP
@@ -92,6 +92,30 @@ def batch_statistics(det_boxes, det_scores, det_labels, gt_boxes, gt_labels,
                 tp[i] = 1.0
                 consumed[j] = True
                 n_consumed += 1
+    return tp, det_scores, det_labels
+
+
+def batch_statistics_loop(det_boxes, det_scores, det_labels, gt_boxes,
+                          gt_labels, iou_threshold: float):
+    """Per-detection loop form: the direct transliteration of
+    det_util.get_batch_statistics:154-202, kept as the fuzz oracle of the
+    vectorised batch_statistics."""
+    D = len(det_boxes)
+    tp = np.zeros(D)
+    if len(gt_boxes):
+        consumed: list = []
+        for i in range(D):
+            if len(consumed) == len(gt_boxes):
+                break
+            if det_labels[i] not in gt_labels:
+                continue
+            iou = _iou_plus1(det_boxes[i], gt_boxes)
+            matched = (gt_labels == det_labels[i]) & (iou >= iou_threshold)
+            iou = np.where(matched, iou, 0.0)
+            j = int(np.argmax(iou))
+            if iou[j] >= iou_threshold and j not in consumed:
+                tp[i] = 1
+                consumed.append(j)
     return tp, det_scores, det_labels
 
 

@@ -125,7 +125,8 @@ def run_training(cfg, device, exp_dir: str | None = None,
     if cfg.graph != "bezier_cc_bb_iter":
         raise NotImplementedError(
             f"--graph {cfg.graph}: only the canonical 'bezier_cc_bb_iter' "
-            "pipeline trains (as in yolat_tpu/train/trainer.py:42-49)")
+            "pipeline trains (as in yolat_tpu/train/trainer.py:42-49); the "
+            "legacy graph builders live in yolat_tpu_torch/data/legacy.py")
     check_model_config(cfg)  # before any data is loaded
     if cfg.pp_banded_super and cfg.drop_edge > 0.0:
         raise ValueError(
@@ -158,178 +159,184 @@ def run_training(cfg, device, exp_dir: str | None = None,
     os.makedirs(log_dir, exist_ok=True)
     configure_logger(log_dir, tag="" if ranks is None
                      else f"[rank {ranks.rank}] ")
-    writer = ScalarWriter(log_dir)
-    ckpt = (CheckpointManager(os.path.join(exp_dir, "checkpoint"))
-            if is_main else None)
+    # the scalar log as JSON lines only: the JAX trainer also tries a
+    # TensorBoard event file, but torch.utils.tensorboard imports TensorFlow
+    # where that is installed (ROADMAP.md queue 3, stated differences)
+    writer = ScalarWriter(log_dir, use_tensorboard=False)
+    try:
+        ckpt = (CheckpointManager(os.path.join(exp_dir, "checkpoint"))
+                if is_main else None)
 
-    # each layout packs what its conv branch reads: the edge-window plan
-    # with its transpose, the dense neighbour table, or neither
-    window = cfg.train_layout == "window"
-    layout_kw = dict(edge_window=window, ew_transpose=window,
-                     dense=cfg.train_layout == "dense")
-    # the train split in this rank's windows of the global schedule; the
-    # test split over all ranks as one node, so every image is evaluated
-    train_dp = test_dp = {}
-    if ranks is not None:
-        train_dp = dict(n_devices=ranks.local_world, host_id=ranks.node,
-                        n_hosts=ranks.n_nodes, rank=ranks.local_rank)
-        test_dp = dict(n_devices=ranks.world, rank=ranks.rank)
+        # each layout packs what its conv branch reads: the edge-window plan
+        # with its transpose, the dense neighbour table, or neither
+        window = cfg.train_layout == "window"
+        layout_kw = dict(edge_window=window, ew_transpose=window,
+                         dense=cfg.train_layout == "dense")
+        # the train split in this rank's windows of the global schedule; the
+        # test split over all ranks as one node, so every image is evaluated
+        train_dp = test_dp = {}
+        if ranks is not None:
+            train_dp = dict(n_devices=ranks.local_world, host_id=ranks.node,
+                            n_hosts=ranks.n_nodes, rank=ranks.local_rank)
+            test_dp = dict(n_devices=ranks.world, rank=ranks.rank)
 
-    def make_loaders():  # the host library's build and the dataset caches
-        return (PackedLoader(train_ds, batch_size=cfg.batch_size,
-                             shuffle=True, seed=cfg.seed,
-                             buckets=cfg.buckets,
-                             **{**layout_kw, **train_plans_for(cfg),
-                                **train_dp}),
-                PackedLoader(test_ds, batch_size=cfg.batch_size * 2,
-                             **{**layout_kw, **extra_plans_for(cfg),
-                                **test_dp,
-                                "dense": layout_kw["dense"]
-                                or cfg.dense_layout}))
+        def make_loaders():  # the host library's build and the dataset caches
+            return (PackedLoader(train_ds, batch_size=cfg.batch_size,
+                                 shuffle=True, seed=cfg.seed,
+                                 buckets=cfg.buckets,
+                                 **{**layout_kw, **train_plans_for(cfg),
+                                    **train_dp}),
+                    PackedLoader(test_ds, batch_size=cfg.batch_size * 2,
+                                 **{**layout_kw, **extra_plans_for(cfg),
+                                    **test_dp,
+                                    "dense": layout_kw["dense"]
+                                    or cfg.dense_layout}))
 
-    train_loader, test_loader = local_first(ranks, "loaders", make_loaders)
-    steps_per_epoch = max(len(train_loader), 1)
+        train_loader, test_loader = local_first(ranks, "loaders", make_loaders)
+        steps_per_epoch = max(len(train_loader), 1)
 
-    model = init_model(cfg, device)
-    if ranks is not None:
-        replicate(model, ranks.group)
-    optimizer = make_optimizer(cfg.optimizer, model.parameters(), cfg.lr,
-                               cfg.weight_decay)
-    scheduler = make_scheduler(optimizer, cfg.lr, cfg.lr_adjust_freq,
-                               cfg.lr_decay_rate, steps_per_epoch)
-    start_epoch, best_value, it = 0, -float("inf"), 0
-    if cfg.pretrained_model:
-        path = cfg.pretrained_model.rstrip("/")
-        if path.endswith(".pth"):
-            state_from_pth(model, path)
-            logging.info("imported reference checkpoint %s", path)
+        model = init_model(cfg, device)
+        if ranks is not None:
+            replicate(model, ranks.group)
+        optimizer = make_optimizer(cfg.optimizer, model.parameters(), cfg.lr,
+                                   cfg.weight_decay)
+        scheduler = make_scheduler(optimizer, cfg.lr, cfg.lr_adjust_freq,
+                                   cfg.lr_decay_rate, steps_per_epoch)
+        start_epoch, best_value, it = 0, -float("inf"), 0
+        if cfg.pretrained_model:
+            path = cfg.pretrained_model.rstrip("/")
+            if path.endswith(".pth"):
+                state_from_pth(model, path)
+                logging.info("imported reference checkpoint %s", path)
+            else:
+                restore_dir, tag = split_checkpoint_path(path)
+                state, start_epoch, best_value = CheckpointManager(
+                    restore_dir).restore(tag, map_location=device)
+                it = load_train_state(state, model, optimizer, scheduler)
+                logging.info("resumed from %s (tag %s) at epoch %d",
+                             restore_dir, tag, start_epoch)
+        # the loader's epoch counter follows the resumed epoch, so the file
+        # order continues as an uninterrupted run's would
+        train_loader.epoch = max(start_epoch, 0)
+
+        if device.type == "cuda":
+            # build the kernels as set-up, outside the timed loop
+            local_first(ranks, "kernels", _build.library)
+        if cfg.scan_steps < 1:
+            raise ValueError(f"scan_steps {cfg.scan_steps}: at least 1")
+        if ranks is None:
+            chunk_len = cfg.scan_steps
+            scan_fn = make_scan_train_step(cfg, model, optimizer, scheduler,
+                                           cfg.scan_steps)
         else:
-            restore_dir, tag = split_checkpoint_path(path)
-            state, start_epoch, best_value = CheckpointManager(
-                restore_dir).restore(tag, map_location=device)
-            it = load_train_state(state, model, optimizer, scheduler)
-            logging.info("resumed from %s (tag %s) at epoch %d", restore_dir,
-                         tag, start_epoch)
-    # the loader's epoch counter follows the resumed epoch, so the file
-    # order continues as an uninterrupted run's would
-    train_loader.epoch = max(start_epoch, 0)
+            if cfg.scan_steps > 1:
+                logging.info("--scan_steps %d: the data-parallel step runs "
+                             "one batch per call", cfg.scan_steps)
+            chunk_len = 1
+            scan_fn = _dp_chunk_fn(cfg, model, optimizer, scheduler, ranks,
+                                   device)
+        generator = torch.Generator(device=device).manual_seed(cfg.seed + 1)
+        losses = AverageMeter()
+        test_value = 0.0
+        results: dict = {}
+        n_steps = n_images = n_eval_batches = n_released = 0
+        signatures: set = set()
+        bucket_sig: dict = {}  # bucket -> the signature of its last batch
+        train_seconds = 0.0
+        history: list = []
+        done = False
+        for epoch in range(start_epoch + 1, cfg.total_epochs + 1):
+            t_epoch = time.time()
+            # (first iteration, [K] device losses) of the chunks not yet
+            # fetched
+            pending: list = []
 
-    if device.type == "cuda":
-        # build the kernels as set-up, outside the timed loop
-        local_first(ranks, "kernels", _build.library)
-    if cfg.scan_steps < 1:
-        raise ValueError(f"scan_steps {cfg.scan_steps}: at least 1")
-    if ranks is None:
-        chunk_len = cfg.scan_steps
-        scan_fn = make_scan_train_step(cfg, model, optimizer, scheduler,
-                                       cfg.scan_steps)
-    else:
-        if cfg.scan_steps > 1:
-            logging.info("--scan_steps %d: the data-parallel step runs one "
-                         "batch per call", cfg.scan_steps)
-        chunk_len = 1
-        scan_fn = _dp_chunk_fn(cfg, model, optimizer, scheduler, ranks,
-                               device)
-    generator = torch.Generator(device=device).manual_seed(cfg.seed + 1)
-    losses = AverageMeter()
-    test_value = 0.0
-    results: dict = {}
-    n_steps = n_images = n_eval_batches = n_released = 0
-    signatures: set = set()
-    bucket_sig: dict = {}  # bucket -> the signature of its last batch
-    train_seconds = 0.0
-    history: list = []
-    done = False
-    for epoch in range(start_epoch + 1, cfg.total_epochs + 1):
-        t_epoch = time.time()
-        # (first iteration, [K] device losses) of the chunks not yet fetched
-        pending: list = []
+            def fetch_losses(log_test_value: bool) -> None:
+                """One read-back for the pending chunks' losses."""
+                if not pending:
+                    return
+                vals = torch.cat([v for _, v in pending]).tolist()
+                its = [i0 + j for i0, v in pending for j in range(v.shape[0])]
+                for it_i, loss in zip(its, vals):
+                    losses.update(loss)
+                    history.append(losses.val)
+                    writer.add_scalar("loss", losses.val, it_i)
+                    if log_test_value:
+                        writer.add_scalar("test_value", test_value, it_i)
+                pending.clear()
 
-        def fetch_losses(log_test_value: bool) -> None:
-            """One read-back for the pending chunks' losses."""
-            if not pending:
-                return
-            vals = torch.cat([v for _, v in pending]).tolist()
-            its = [i0 + j for i0, v in pending for j in range(v.shape[0])]
-            for it_i, loss in zip(its, vals):
-                losses.update(loss)
-                history.append(losses.val)
-                writer.add_scalar("loss", losses.val, it_i)
-                if log_test_value:
-                    writer.add_scalar("test_value", test_value, it_i)
-            pending.clear()
+            def run_chunk(chunk) -> None:
+                nonlocal it, n_steps, n_images
+                m = scan_fn(chunk, generator)
+                pending.append((it + 1, m["loss"]))
+                it += len(chunk)
+                n_steps += len(chunk)
+                n_images += sum(int(b["n_images"]) for b in chunk)
+                if sum(v.shape[0] for _, v in pending) >= cfg.print_freq:
+                    fetch_losses(True)
+                    logging.info("Epoch:%d Iter:%d LossMean:%.4f loss:%.4f",
+                                 epoch, it, losses.avg, losses.val)
+                    losses.reset()
 
-        def run_chunk(chunk) -> None:
-            nonlocal it, n_steps, n_images
-            m = scan_fn(chunk, generator)
-            pending.append((it + 1, m["loss"]))
-            it += len(chunk)
-            n_steps += len(chunk)
-            n_images += sum(int(b["n_images"]) for b in chunk)
-            if sum(v.shape[0] for _, v in pending) >= cfg.print_freq:
+            coordination_barrier(ranks, "train")
+            _sync(device)
+            t0 = time.perf_counter()
+            chunk: list = []
+            for bucket, batch in train_loader.iter_buckets():
+                b = pad_plans(batch)
+                sig = batch_signature(b)
+                if chunk and sig != batch_signature(chunk[0]):
+                    run_chunk(chunk)  # chunks never mix signatures
+                    chunk = []
+                old = bucket_sig.get(bucket, sig)
+                bucket_sig[bucket] = sig
+                if old != sig and old not in bucket_sig.values():
+                    # a grown pad: its old signature never returns
+                    n_released += scan_fn.release(old)
+                signatures.add(sig)
+                chunk.append(b)
+                done = (max_steps is not None
+                        and n_steps + len(chunk) >= max_steps)
+                if len(chunk) == chunk_len or done:
+                    run_chunk(chunk)
+                    chunk = []
+                if done:
+                    break
+            if chunk:
+                run_chunk(chunk)
+            if done and pending:
                 fetch_losses(True)
                 logging.info("Epoch:%d Iter:%d LossMean:%.4f loss:%.4f",
                              epoch, it, losses.avg, losses.val)
                 losses.reset()
+            # the epoch's unlogged losses go into the meter too, so the next
+            # epoch's first LossMean holds them, as the JAX trainer's does
+            fetch_losses(False)
+            _sync(device)
+            train_seconds += time.perf_counter() - t0
 
-        coordination_barrier(ranks, "train")
-        _sync(device)
-        t0 = time.perf_counter()
-        chunk: list = []
-        for bucket, batch in train_loader.iter_buckets():
-            b = pad_plans(batch)
-            sig = batch_signature(b)
-            if chunk and sig != batch_signature(chunk[0]):
-                run_chunk(chunk)  # chunks never mix signatures
-                chunk = []
-            old = bucket_sig.get(bucket, sig)
-            bucket_sig[bucket] = sig
-            if old != sig and old not in bucket_sig.values():
-                # a grown pad: its old signature never returns
-                n_released += scan_fn.release(old)
-            signatures.add(sig)
-            chunk.append(b)
-            done = max_steps is not None and n_steps + len(chunk) >= max_steps
-            if len(chunk) == chunk_len or done:
-                run_chunk(chunk)
-                chunk = []
+            if epoch >= cfg.eval_start or done or epoch == cfg.total_epochs:
+                coordination_barrier(ranks, "eval")
+                results = evaluate(cfg, model, test_loader,
+                                   max_det=cfg.max_det, device=device,
+                                   group=None if ranks is None
+                                   else ranks.host_group)
+                test_value = results["test_value"]
+                n_eval_batches += len(test_loader)
+                if is_main:
+                    logging.info(
+                        "Epoch:%d MAP@0.5:%.4f MAP@ALL:%.4f top1:%.4f (%.1fs)",
+                        epoch, results["map_50"], results["map_all"],
+                        results["top1_acc"], time.time() - t_epoch)
+            is_best = test_value > best_value
+            best_value = max(test_value, best_value)
+            if ckpt is not None:
+                ckpt.save(train_state(model, optimizer, scheduler, it), epoch,
+                          best_value, is_best)
             if done:
                 break
-        if chunk:
-            run_chunk(chunk)
-        if done and pending:
-            fetch_losses(True)
-            logging.info("Epoch:%d Iter:%d LossMean:%.4f loss:%.4f",
-                         epoch, it, losses.avg, losses.val)
-            losses.reset()
-        # the epoch's unlogged losses go into the meter too, so the next
-        # epoch's first LossMean holds them, as the JAX trainer's does
-        fetch_losses(False)
-        _sync(device)
-        train_seconds += time.perf_counter() - t0
-
-        if epoch >= cfg.eval_start or done or epoch == cfg.total_epochs:
-            coordination_barrier(ranks, "eval")
-            results = evaluate(cfg, model, test_loader, max_det=cfg.max_det,
-                               device=device,
-                               group=None if ranks is None
-                               else ranks.host_group)
-            test_value = results["test_value"]
-            n_eval_batches += len(test_loader)
-            if is_main:
-                logging.info(
-                    "Epoch:%d MAP@0.5:%.4f MAP@ALL:%.4f top1:%.4f (%.1fs)",
-                    epoch, results["map_50"], results["map_all"],
-                    results["top1_acc"], time.time() - t_epoch)
-        is_best = test_value > best_value
-        best_value = max(test_value, best_value)
-        if ckpt is not None:
-            ckpt.save(train_state(model, optimizer, scheduler, it), epoch,
-                      best_value, is_best)
-        if done:
-            break
-
-    writer.close()
+    finally:
+        writer.close()  # flushes the event file, on every exit
     results.update(best_value=best_value, exp_dir=exp_dir, steps=n_steps,
                    images=n_images, train_seconds=train_seconds,
                    losses=history, eval_batches=n_eval_batches,

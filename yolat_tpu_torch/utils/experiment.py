@@ -4,8 +4,8 @@ Counterpart of `yolat_tpu/utils/experiment.py` (the reference's
 OptInit._generate_exp_directory / _configure_logger,
 cad_recognition/config.py:112-172): a timestamped, uuid-named experiment
 directory with `checkpoint/`, file + stdout logging, and scalars as JSON
-lines (`scalars.jsonl`; the JAX package's optional TensorBoard writer is
-not carried).
+lines (`scalars.jsonl`) and, where `torch.utils.tensorboard` imports, in a
+TensorBoard event file beside them (`ScalarWriter`, :51-81).
 """
 
 from __future__ import annotations
@@ -43,14 +43,44 @@ def configure_logger(exp_dir: str, level: str = "info", tag: str = "") -> None:
 
 
 class ScalarWriter:
-    """Scalars as JSON lines {tag, value, step} in `scalars.jsonl`."""
+    """Scalars as JSON lines {tag, value, step} in `scalars.jsonl`, and,
+    with `use_tensorboard`, in a TensorBoard event file in `exp_dir`. Where
+    `torch.utils.tensorboard` does not import (tensorboard absent), the
+    writer keeps to the JSON lines, as the JAX package's does (:59-65);
+    `tensorboard` says which sinks it took. The import happens here, not
+    at module import: where TensorFlow is installed it pulls that in too.
+    `close` flushes both; the trainer closes the writer on every exit."""
 
-    def __init__(self, exp_dir: str):
+    def __init__(self, exp_dir: str, use_tensorboard: bool = True):
         self._jsonl = open(os.path.join(exp_dir, "scalars.jsonl"), "a")
+        self._tb = None
+        if use_tensorboard:
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+            except ImportError:
+                pass
+            else:
+                self._tb = SummaryWriter(log_dir=exp_dir)
+
+    @property
+    def tensorboard(self) -> bool:
+        """Whether the scalars also go to a TensorBoard event file."""
+        return self._tb is not None
 
     def add_scalar(self, tag: str, value, step: int):
-        self._jsonl.write(json.dumps({"tag": tag, "value": float(value),
+        value = float(value)
+        self._jsonl.write(json.dumps({"tag": tag, "value": value,
                                       "step": step}) + "\n")
+        if self._tb is not None:
+            self._tb.add_scalar(tag, value, step)
+
+    def flush(self):
+        self._jsonl.flush()
+        if self._tb is not None:
+            self._tb.flush()
 
     def close(self):
+        self.flush()
         self._jsonl.close()
+        if self._tb is not None:
+            self._tb.close()
