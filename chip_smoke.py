@@ -35,7 +35,11 @@ no jax. Phases, each of which raises on failure (non-zero exit):
      plain version (f32, bf16); the fused pool head's kernel route
      (kernel 3 -> kernel 11) against its plain route for pooled, the
      batch statistics and all five gradients under a fixed random
-     cotangent (relative Frobenius error 1e-5 at f32, 5e-4 at bf16);
+     cotangent (relative Frobenius error 1e-5 at f32, 5e-4 at bf16), and
+     at bf16 both routes against a float64 run of the plain route on the
+     same bf16-rounded x and W (the kernel route's error at most
+     HEAD_F64_FACTOR = 1.5 times the plain route's + 1e-6, with the
+     pooled entries and block maxima the routes part on printed);
      the kernel route against the unfused composition (Linear -> masked
      BN -> ReLU -> segment max, torch autograd) at f32 (1e-5); kernel
      11 twice, bit-identical; paired median times; then the whole bf16
@@ -249,8 +253,9 @@ no jax. Phases, each of which raises on failure (non-zero exit):
      once per step, one graph captured per batch signature met (each
      signature's first step eager, every other step a replay; at most one
      signature per bucket and pad growth), the bytes the live graphs'
-     pools hold; kernels 3 and 11 against their plain route (phase 5's
-     limits, f32 and bf16) on an epoch of the trainer's mixup batches;
+     pools hold; kernels 3 and 11 against their plain route on an epoch of
+     the trainer's mixup batches (kernel 3 alone and the f32 head at phase
+     5's limits, the bf16 head by phase 5's float64 rule);
      `cli.test` in fast_bf16 with classfix NMS (kernels 1, 2, N1 at 2, 1, 1
      per batch) and in fast on the dense table (kernel 4 instead of 1), the
      AP table finite; under seeded weights that keep many proposals
@@ -351,8 +356,39 @@ no jax. Phases, each of which raises on failure (non-zero exit):
      the GT boxes (true positives on every image), at IoU 0.05-0.95,
      `PartNetDataset`'s refusal without h5py, `ScalarWriter`'s sinks; the
      phase's time.
+ 26. YOLaT++ under --act / --norm, and data parallel beyond gp2, on
+     phase 6's floorplans at full width (batch 4; seeded open-gate models,
+     their LayerNorms' affine terms drawn too): (a) under `--act gelu
+     --norm layer` and `--act leakyrelu --norm batch`, the train-mode
+     module on its three routes, card against CPU at f32 (prim_at_node
+     and the logits within 1e-4 of their scale, the loss 1e-5; the
+     factored route with its prefix mean in float64 on both, its f32
+     prefix mean held to phase 12's bound apart), each f32 run's
+     gradients against the card's float64 run (relative Frobenius 3e-2
+     per tensor, the gates as one vector), the ReLU/LeakyReLU gates the
+     devices part on; every call of kernels 7, 7b, 8 and 8b of the banded
+     route (f32, and a bf16 forward and backward) against its plain
+     version at phase 14's limits; the bf16 banded step as a graph
+     replay (CUDA-event ms, device busy, graph pool, kernels 7-8b once a
+     replay); `cli.train --arch yolat_pp --act gelu --norm layer
+     --pp_banded_super true` (bf16, 4 steps: kernels 7 and 8 at steps +
+     evaluated batches, 7b and 8b at steps), `cli.test --serve_mode flax`
+     (the AP table; kernels 7, 8 and N1 once a batch), cli.export_ckpt
+     and `cli.infer --serve_mode module` on phase 4's SVGs (SVGs/s), and
+     `cli.infer --serve_mode fast_bf16` refusing with its flags named;
+     (b) tests/test_torch_dp_zoo.py's six cases (gat under leakyrelu, gen,
+     attr_edge_cf, edge under --norm layer, YOLaT++ under --act leakyrelu,
+     edge with the fused head) at full width in two gloo ranks on the one
+     card (`tests/torch_dp_zoo_ranks.zoo_scenarios`, CUDA tensors, batch 2
+     a rank, 2 SGD steps): the ranks bit-identical, identical shards
+     against the single-device step within phase 19's rule of its own
+     spread, the fused head's kernel route (kernels 3 and 11 once a step
+     a rank) against its plain route under DP within phase 20's f32
+     limits; the phase's time.
 Everything it runs comes from yolat_tpu_torch, the synthetic SVG writer
-included: it imports neither jax nor the JAX package yolat_tpu.
+included, and from the rank helpers of tests/torch_dp_zoo_ranks.py
+(torch and the port only): it imports neither jax nor the JAX package
+yolat_tpu.
 The kernels line (a JSON object describing each kernel; launches are
 counted over the path that runs it, with the counts set to 0 just before:
 phase 4 for the serving kernels, phase 6 for the fused head's, phase 10 for
@@ -362,7 +398,9 @@ kernel 12, `edge_window_decomp`, phase 19's first `cli.infer --chunk 8`
 run for N1's fixpoint entry and its `cli.test` for the classfix entry;
 a replay adds the launches its capture recorded; `conv_zoo_launches` on
 the rows of kernels 3, 11 and N1 counts phase 23's runs, each CLI run
-from 0)
+from 0; `act_norm_launches` on the rows of kernels 7, 7b, 8, 8b and N1
+counts phase 26's cli.train, cli.test and cli.infer from 0, and on those
+of kernels 3 and 11 one rank's launches in the fused DP case)
 comes before the nvidia-smi line; the last line is
 {"ok": true, "device": {...}}. Each kernel's bound_ms is the larger of its
 bytes (each input read once, each output written once; of a gathered
@@ -823,27 +861,39 @@ def serve_phase(root, ckpt, work, dev_line):
 
 
 def _rel(a, b, ref=None) -> float:
-    """||a - b|| / ||ref or b||, in f32."""
+    """||a - b|| / ||ref or b||, in f32 (float64 where b is)."""
     ref = b if ref is None else ref
-    return ((a.float() - b.float()).norm()
-            / max(ref.float().norm().item(), 1e-30)).item()
+    wide = str(b.dtype) == "torch.float64"
+    a, b, ref = ((t.double() if wide else t.float()) for t in (a, b, ref))
+    return ((a - b).norm() / max(ref.norm().item(), 1e-30)).item()
 
 
-def _head_run(cat, maskf, lin, bn, blk_first, n_prop, cot, dtype, route):
+def _head_run(cat, maskf, lin, bn, blk_first, n_prop, cot, dtype, route,
+              round_to=None):
     """The fused head on `route`: (pooled, mean, var) and the gradients
-    of sum(pooled * cot) wrt x, W, b, gamma, beta."""
+    of sum(pooled * cot) wrt x, W, b, gamma, beta. x and W are cast to
+    `dtype`, after rounding them to `round_to` if given; at float64 (the
+    plain route only) the Dense bias and the BatchNorm terms too."""
     import torch
 
     from yolat_tpu_torch.ops.fused_pool_train import fused_pool_train
 
-    leaves = [cat.detach().clone().requires_grad_(True),
-              lin.weight.detach().t().contiguous().requires_grad_(True),
-              lin.bias.detach().clone().requires_grad_(True),
-              bn.weight.detach().clone().requires_grad_(True),
-              bn.bias.detach().clone().requires_grad_(True)]
+    wide = dtype == torch.float64
+
+    def leaf(t, rounded):
+        t = t.detach()
+        if rounded and round_to is not None:
+            t = t.to(round_to)
+        if wide or rounded:
+            t = t.to(dtype)
+        return t.clone().contiguous().requires_grad_(True)
+
+    leaves = [leaf(cat, True), leaf(lin.weight.t(), True),
+              leaf(lin.bias, False), leaf(bn.weight, False),
+              leaf(bn.bias, False)]
     x, w, b, g, be = leaves
     pooled, mean, var, _ = fused_pool_train(
-        x.to(dtype), maskf, w.to(dtype), b, g, be, blk_first, n_prop, route)
+        x, maskf, w, b, g, be, blk_first, n_prop, route)
     (pooled.float() * cot).sum().backward()
     torch.cuda.synchronize()
     return ({"pooled": pooled.detach(), "mean": mean, "var": var},
@@ -980,6 +1030,13 @@ def train_kernel_phase(model, batch, dev_line):
               + f"; max abs grad err {abs_err:.3e}")
         check(all(v <= tol for v in errs.values()),
               f"fused head {name}: kernel route disagrees with the plain route")
+        if dt == torch.bfloat16:
+            print(f"fused head bf16 against the float64 plain route (kernel "
+                  f"<= {HEAD_F64_FACTOR} x plain + {HEAD_F64_FLOOR:g} in "
+                  f"{', '.join(HEAD_F64_KEYS)}):")
+            print(_head_vs_f64(cat, maskf, lin, bn, blk_first, n_prop, cot,
+                               (got, want), (kv, kg), (pv, pg), errs,
+                               "phase 5 fused head"))
         if dt == torch.float32:
             # at bf16 a rounding flip at a bf16 boundary can move a winner
             # between the routes, so the element-wise error of the
@@ -4034,18 +4091,84 @@ def _served_kernels(cfg, folded, batch, label, want, dev_line) -> dict:
     return seen
 
 
+def _head_apart(bm_k, bm_p, pooled_k, pooled_p, blk_first, n_prop) -> dict:
+    """Where the two bf16 routes of the fused head part, from kernel 3's
+    and its plain version's block maxima [N/8, H] and each route's pooled
+    [P, H]: pooled entries of other values; block maxima that round to
+    another bf16 value (real blocks); pooled entries whose winning blocks
+    (block max equal to the pooled value and above 0) differ."""
+    import torch
+
+    first = blk_first.long()
+    real = bm_p.float() > -5e29
+    win_k = (bm_k == pooled_k[first]) & (bm_k.float() > 0)
+    win_p = (bm_p == pooled_p[first]) & (bm_p.float() > 0)
+    flip = torch.zeros(n_prop, bm_k.shape[1], device=bm_k.device)
+    flip.scatter_reduce_(0, first[:, None].expand(-1, bm_k.shape[1]),
+                         (win_k != win_p).float(), "amax")
+    return {"pooled": int((pooled_k != pooled_p).sum()),
+            "rounded": int(((bm_k != bm_p) & real).sum()),
+            "winner": int(flip.sum()), "entries": pooled_k.numel()}
+
+
+# the bf16 head's rule: against the float64 plain route on the same
+# bf16-rounded x and W, the kernel route's relative Frobenius error of
+# each of these is at most HEAD_F64_FACTOR times the bf16 plain route's
+# (+ HEAD_F64_FLOOR, where both routes share the code: mean and var)
+HEAD_F64_KEYS = ("pooled", "mean", "var", "dW", "db", "dgamma", "dbeta")
+HEAD_F64_FACTOR, HEAD_F64_FLOOR = 1.5, 1e-6
+
+
+def _head_vs_f64(cat, maskf, lin, bn, blk_first, n_prop, cot, bm, kernel,
+                 plain, errs, label) -> str:
+    """Holds the bf16 head's kernel route to the float64 rule (HEAD_F64_*)
+    and returns the line that says how far each bf16 route stands from
+    float64 (dx too, not held), how far apart the routes are (`errs`) and
+    where they part (`_head_apart`; bm = kernel 3's and its plain
+    version's block maxima). kernel, plain: each route's ({pooled, mean,
+    var}, {gradients})."""
+    import torch
+
+    rv, rg = _head_run(cat, maskf, lin, bn, blk_first, n_prop, cot,
+                       torch.float64, "plain", round_to=torch.bfloat16)
+    ref = {**rv, **rg}
+    routes = ({**kernel[0], **kernel[1]}, {**plain[0], **plain[1]})
+    e_k, e_p = {}, {}
+    for k in HEAD_F64_KEYS + ("dx",):
+        norm = ref["dbeta"] if k == "db" else None
+        e_k[k] = _rel(routes[0][k], ref[k], norm)
+        e_p[k] = _rel(routes[1][k], ref[k], norm)
+    apart = _head_apart(*bm, kernel[0]["pooled"], plain[0]["pooled"],
+                        blk_first, n_prop)
+    bad = [k for k in HEAD_F64_KEYS
+           if e_k[k] > HEAD_F64_FACTOR * e_p[k] + HEAD_F64_FLOOR]
+    line = (f"  {(cat.shape[0], n_prop)}: vs float64, kernel / plain: "
+            + ", ".join(f"{k} {e_k[k]:.3e} / {e_p[k]:.3e}" for k in e_k)
+            + "; kernel vs plain: "
+            + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+            + f"; apart {apart}")
+    check(not bad, f"{label} bf16: kernel route farther from float64 than "
+          f"{HEAD_F64_FACTOR} x the plain route in {bad}: {line}")
+    return line
+
+
 def _head_routes(cfg, batches, label, dev_line) -> None:
     """The fused training head on each of `batches` (on the card), seeded
     weights: kernel 3 alone against its plain version element-wise, f32
     and bf16 (phase 5's rule, |err| <= 1e-4 + rtol|ref|, rtol 1e-4 and
     1e-2); the whole head (kernels 3 and 11) against its plain route in
     f32 within HEAD_TOL (pooled, mean, var and the gradients, relative
-    Frobenius). The bf16 route's errors are printed, not held, with the
-    pooled entries the two routes round apart: they accumulate in other
-    orders, so an entry can round to another bf16 value or another winner,
-    and on these 1.7-2.1k-slot batches the route read 5.06e-4 (dbeta)
-    against phase 5's bf16 limit of 5e-4, set on the 3.2k-slot bench
-    batch."""
+    Frobenius). At bf16 the two routes accumulate in other orders, so an
+    entry can round to another bf16 value or another winner, and on the
+    mixup diagram batches the kernel route read 5.06e-4 (dbeta) from the
+    plain route, over phase 5's 5e-4. So the bf16 route is held to the
+    float64 plain route on the same bf16-rounded x and W (the exact
+    function both bf16 routes approximate): for each of HEAD_F64_KEYS
+    the kernel route's relative Frobenius error is at most
+    HEAD_F64_FACTOR (1.5) times the bf16 plain route's, + HEAD_F64_FLOOR
+    (1e-6). Printed per batch: both routes' errors against float64 (dx
+    too, not held), the kernel route's against the plain route, and
+    where the routes part (`_head_apart`)."""
     import torch
 
     from yolat_tpu_torch.nn.model import seeded_model
@@ -4056,7 +4179,7 @@ def _head_routes(cfg, batches, label, dev_line) -> None:
 
     model = seeded_model(cfg, seed=5).to("cuda").train()
     worst = {"k3 f32": 0.0, "k3 bf16": 0.0, "f32": 0.0, "bf16": 0.0}
-    shapes, apart = [], []
+    shapes, lines = [], []
     for batch in batches:
         with torch.no_grad():
             cat, _ = model.cls_net.features(batch)
@@ -4075,11 +4198,11 @@ def _head_routes(cfg, batches, label, dev_line) -> None:
             mean, var, _, _, _ = _stats(x, maskf, w, lin.bias.detach())
             sc = _scale_shift(mean, var, lin.bias.detach(),
                               bn.weight.detach(), bn.bias.detach())
-            got = folded_mlp_block_max(x, maskf, w, sc).float()
-            want = folded_mlp_block_max_plain(x, maskf, w, sc).float()
-            err = (got - want).abs()
+            got = folded_mlp_block_max(x, maskf, w, sc)
+            want = folded_mlp_block_max_plain(x, maskf, w, sc)
+            err = (got.float() - want.float()).abs()
             rtol = 1e-4 if dt == torch.float32 else 1e-2
-            check(bool((err <= 1e-4 + rtol * want.abs()).all()),
+            check(bool((err <= 1e-4 + rtol * want.float().abs()).all()),
                   f"{label}: kernel 3 {tag} (nodes, proposals) {shapes[-1]} "
                   f"disagrees with its plain version: max_abs_err "
                   f"{err.max().item():.3e}")
@@ -4096,23 +4219,27 @@ def _head_routes(cfg, batches, label, dev_line) -> None:
                       list(kv.values()) + list(kg.values()))
                   and kg["dW"].abs().max().item() > 0,
                   f"{label} {tag}: non-finite head outputs or no winners")
+            worst[tag] = max(worst[tag], max(errs.values()))
             if dt == torch.float32:
                 check(all(v <= HEAD_TOL[tag] for v in errs.values()),
                       f"{label} f32 (nodes, proposals) {shapes[-1]}: kernel "
                       f"route vs plain route {errs}")
-            else:
-                apart.append((int((kv["pooled"] != pv["pooled"]).sum()),
-                              kv["pooled"].numel()))
-            worst[tag] = max(worst[tag], max(errs.values()))
+                continue
+            lines.append(_head_vs_f64(cat, maskf, lin, bn, blk_first,
+                                      n_prop, cot, (got, want), (kv, kg),
+                                      (pv, pg), errs, label))
     print(f"{label}: (nodes, proposal slots) per batch {shapes}; kernel 3 "
           f"alone against its plain version, max_abs_err f32 "
           f"{worst['k3 f32']:.3e}, bf16 {worst['k3 bf16']:.3e} (|err| <= "
           f"1e-4 + rtol|ref|, rtol 1e-4 / 1e-2); the head's kernel route "
           f"against its plain route, largest relative Frobenius error of "
           f"pooled, mean, var and the gradients: f32 {worst['f32']:.2e} "
-          f"(<= {HEAD_TOL['f32']:g}), bf16 {worst['bf16']:.2e} (not held; "
-          f"(pooled entries rounded apart, entries) per batch {apart}) "
+          f"(<= {HEAD_TOL['f32']:g}), bf16 {worst['bf16']:.2e}; bf16 held "
+          f"to the float64 plain route (kernel <= {HEAD_F64_FACTOR} x plain "
+          f"+ {HEAD_F64_FLOOR:g} in {', '.join(HEAD_F64_KEYS)}) "
           f"[{dev_line}]")
+    for line in lines:
+        print(line)
 
 
 def _served_phase(cfg, root, pth, step, label, dev_line) -> None:
@@ -5480,6 +5607,575 @@ def toy_phase(work, floor_root, bench_np, detect, dev_line) -> None:
           f"replays); {time.perf_counter() - t_start:.1f} s [{dev_line}]")
 
 
+# phase 26: YOLaT++ under --act / --norm at full width on phase 6's
+# floorplans; the conv zoo and YOLaT++ under data parallel, two gloo ranks
+# on the one card
+PP_ACT_NORMS = (("gelu", "layer"), ("leakyrelu", "batch"))
+PP_ACT_ROUTES = {"per_edge": {}, "banded": {"pp_banded_super": True},
+                 "factored": {"pp_factored_prim": True}}
+# card against CPU at f32 (the factored route's prefix mean in float64 on
+# both, its f32 rounding held to phase 12's bound apart): prim_at_node and
+# the logits of their scale, the loss as phase 23; the gradients of each
+# f32 run,
+# card and CPU, against the card's float64 run (the per-edge route's for
+# the banded route: the same function) by tests/torch_pp_train_common.py's
+# rule, relative Frobenius 3e-2 per tensor and the gates as one vector; a
+# gradient below 1e-4 on both sides (a Dense bias feeding a BatchNorm)
+# absolutely at 1e-4
+PP_ACT_TOL = {"prim": 1e-4, "logits": 1e-4, "loss": 1e-5, "grad": 3e-2,
+              "noise": 1e-4}
+PP_ACT_STEPS = 4   # cli.train --act gelu --norm layer bf16 steps
+PP_ACT_TIMED = 10  # bf16 replays timed per act and norm
+# phase 26 (b): tests/test_torch_dp_zoo.py's cases at full width, batch 2
+# a rank (4 a step), SGD lr 1e-2, f32
+DP_ZOO_CASES = {
+    "gat": dict(conv="gat", act="leakyrelu"),
+    "gen": dict(conv="gen"),
+    "attr_edge_cf": dict(conv="attr_edge_cf"),
+    "edge_layer": dict(conv="edge", norm="layer"),
+    "pp_leakyrelu": dict(arch="yolat_pp", act="leakyrelu", norm="batch"),
+    "edge_fused": dict(conv="edge", fused_head_train=True),
+}
+DP_ZOO_STEPS = 2
+K78 = ("banded_gather", "banded_gather_bwd", "banded_scatter_own",
+       "banded_scatter_own_bwd")
+
+
+def _pp_act_run(model, batch):
+    """Train-mode forward and backward of the detection loss: (prim_at_node,
+    logits, loss, {name: grad}, {activation: input > 0} of every ReLU and
+    LeakyReLU), tensors on the CPU in float64 (the gates bool)."""
+    import torch
+
+    from yolat_tpu_torch.nn.layers import LeakyReLU
+    from yolat_tpu_torch.nn.model import detection_loss
+
+    gates, hooks = {}, []
+    for name, m in model.named_modules():
+        if isinstance(m, (torch.nn.ReLU, LeakyReLU)):
+            hooks.append(m.register_forward_hook(
+                lambda mod, inp, out, name=name: gates.__setitem__(
+                    name, (inp[0] > 0).cpu())))
+    model.train()
+    model.zero_grad()
+    probes = {}
+    try:
+        logits = model(batch, probes=probes)[0]
+    finally:
+        for h in hooks:
+            h.remove()
+    loss = detection_loss(logits, batch["labels"],
+                          batch["proposal_mask"])["loss"]
+    loss.backward()
+    grads = {n: p.grad.detach().cpu().double()
+             for n, p in model.named_parameters()}
+    return (probes["prim_at_node"].detach().cpu().double(),
+            logits.detach().cpu().double(), loss.item(), grads, gates)
+
+
+@contextlib.contextmanager
+def _banded_calls():
+    """Records (name, args, output) of every call of kernels 7, 7b, 8 and
+    8b's wrappers (`ops/banded_train`'s module functions, which the
+    autograd functions call) while open."""
+    from yolat_tpu_torch.ops import banded_train as bt
+
+    names = ("gather_fwd", "gather_bwd", "scatter_own_fwd", "scatter_own_bwd")
+    orig = {n: getattr(bt, n) for n in names}
+    calls = []
+
+    def wrap(n):
+        def fn(*args):
+            out = orig[n](*args)
+            calls.append((n, args, out))
+            return out
+        return fn
+
+    for n in names:
+        setattr(bt, n, wrap(n))
+    try:
+        yield calls
+    finally:
+        for n in names:
+            setattr(bt, n, orig[n])
+
+
+def _hold_banded_calls(calls, label) -> str:
+    """Each recorded call of kernels 7-8b against its plain version at
+    phase 14's limits: 7 and 8b exact; 7b and 8 against the float64 sum of
+    the same terms within (k - 1) 2^-24 sum|terms| (+ 2^-8 |ref| for a
+    bf16 output), k the most terms a node's sum adds."""
+    import torch
+
+    from yolat_tpu_torch.ops import banded_train as bt
+
+    worst, seen = {}, set()
+    for name, args, out in calls:
+        seen.add(name)
+        if name in ("gather_fwd", "scatter_own_bwd"):
+            want = (bt.gather_plain(*args) if name == "gather_fwd"
+                    else bt.scatter_own_bwd_plain(*args))
+            pairs = list(zip(out, want)) if name == "gather_fwd" else [
+                (out, want)]
+            ratio = 0.0 if all(torch.equal(g, w) for g, w in pairs) else (
+                float("inf"))
+        else:
+            if name == "gather_bwd":
+                g_own, g_oth, own, oth, nptr, tperm, tptr, n = args
+                terms = [(g_own, own.long()), (g_oth, oth.long())]
+                k = int(((nptr[1:] - nptr[:-1]) + (tptr[1:] - tptr[:-1]))
+                        .max())
+            else:
+                rows, own, nptr, n = args
+                e = int(nptr[-1])
+                terms = [(rows[:e], own[:e].long())]
+                k = int((nptr[1:] - nptr[:-1]).max())
+            want = torch.zeros(out.shape, dtype=torch.float64,
+                               device=out.device)
+            mass = torch.zeros_like(want)
+            for t, i in terms:
+                want.index_add_(0, i, t.double())
+                mass.index_add_(0, i, t.double().abs())
+            lim = (k - 1) * 2.0 ** -24 * mass + 1e-30
+            if out.dtype == torch.bfloat16:
+                lim = lim + 2.0 ** -8 * want.abs()
+            ratio = ((out.double() - want).abs() / lim).max().item()
+        worst[name] = max(worst.get(name, 0.0), ratio)
+    check(seen == {"gather_fwd", "gather_bwd", "scatter_own_fwd",
+                   "scatter_own_bwd"} and all(v <= 1.0 for v in worst.values()),
+          f"{label}: kernels 7-8b against their plain versions, largest "
+          f"|err| / limit {worst} over {len(calls)} calls")
+    return (f"{len(calls)} calls of kernels 7-8b, largest |err| / limit "
+            + ", ".join(f"{k} {v:.3g}" for k, v in sorted(worst.items())))
+
+
+@contextlib.contextmanager
+def _prefix_f64(seen: list):
+    """While open, YOLaT++'s factored level takes its prefix mean in
+    float64 (`nn/yolat_pp.prefix_member_mean` on a float64 copy of its
+    input, the result in the input's type); `seen` gets each call's
+    (s_f, batch, pool)."""
+    from yolat_tpu_torch.nn import yolat_pp
+
+    orig = yolat_pp.prefix_member_mean
+
+    def wide(s_f, batch, pool):
+        seen.append((s_f.detach(), batch, pool))
+        m, valid = orig(s_f.double(), batch, pool)
+        return m.to(s_f.dtype), valid
+
+    yolat_pp.prefix_member_mean = wide
+    try:
+        yield
+    finally:
+        yolat_pp.prefix_member_mean = orig
+
+
+def _prefix_drift(s_f, batch, pool, label) -> str:
+    """Phase 12's check of the factored level's f32 prefix mean against its
+    float64 value, on the train step's own input: within 8 * 2^-24 of the
+    largest prefix sum."""
+    import torch
+
+    from yolat_tpu_torch.nn.yolat_pp import prefix_member_mean
+
+    got, valid = prefix_member_mean(s_f, batch, pool)
+    want, _ = prefix_member_mean(s_f.double(), batch, pool)
+    err = (got.double() - want)[valid].abs().max().item()
+    rows = torch.where(batch["sup_member"][:, None], s_f,
+                       torch.zeros_like(s_f)).double()
+    top = rows.cumsum(0).abs().max().item()
+    limit = 8 * 2.0 ** -24 * top
+    feat = s_f.abs().max().item()
+    check(err <= limit, f"{label}: the f32 prefix mean drifts, {err:.3e} "
+          f"(limit {limit:.3e})")
+    return (f"f32 prefix mean against float64 {err:.3e} = {err / feat:.2e} "
+            f"of the largest feature (limit {limit:.3e} = 8 * 2^-24 of the "
+            f"largest prefix sum {top:.3e})")
+
+
+def _pp_act_grads(got, ref, label) -> tuple:
+    """tests/torch_pp_train_common.py's float64 rule: -> (largest relative
+    Frobenius error of a tensor, its name, the gates' as one vector)."""
+    import torch
+
+    from yolat_tpu_torch.config import PP_GATES
+
+    errs = {}
+    for k, v in ref.items():
+        g = got[k]
+        if float(v.abs().max()) < 1e-4 and float(g.abs().max()) < 1e-4:
+            check(float((g - v).abs().max()) <= PP_ACT_TOL["noise"],
+                  f"{label}: noise-level gradient {k}")
+            continue
+        if k not in PP_GATES:
+            errs[k] = float((g - v).norm() / v.norm())
+    gv = torch.stack([got[k].reshape(()) for k in PP_GATES])
+    rv = torch.stack([ref[k].reshape(()) for k in PP_GATES])
+    gate = float((gv - rv).norm() / rv.norm())
+    worst = max(errs, key=errs.get)
+    check(errs[worst] <= PP_ACT_TOL["grad"] and gate <= PP_ACT_TOL["grad"],
+          f"{label}: gradients against float64, {worst} {errs[worst]:.3e}, "
+          f"gates {gate:.3e} (limit {PP_ACT_TOL['grad']})")
+    return errs[worst], worst, gate
+
+
+def _pp_act_card_cpu(cfg, batch_np, dev_line) -> None:
+    """Phase 26 (a): the train-mode module under cfg's act and norm on its
+    three routes, card against CPU at f32 and each f32 run against the
+    card's float64 run; kernels 7-8b's calls of the banded route (f32, and
+    a bf16 forward and backward) held to their plain versions."""
+    import copy
+
+    import torch
+
+    from yolat_tpu_torch.data.packing import to_device
+    from yolat_tpu_torch.nn.model import build_model, seeded_model
+    from yolat_tpu_torch.train.loop import forward_loss, prepare_batch
+
+    fb = {d: prepare_batch(cfg, to_device(batch_np, d))
+          for d in ("cpu", "cuda")}
+    fb64 = {k: (v.double() if torch.is_tensor(v) and v.dtype == torch.float32
+                else v) for k, v in fb["cuda"].items()}
+    base = {"per_edge": seeded_model(cfg, 26),
+            "factored": seeded_model(cfg.replace(pp_factored_prim=True),
+                                      26)}
+    refs = {}
+    for route, kw in PP_ACT_ROUTES.items():
+        rcfg = cfg.replace(**kw)
+        src = base["factored" if route == "factored" else "per_edge"]
+        model = build_model(rcfg)
+        model.load_state_dict(src.state_dict())
+        if route != "banded":  # banded: the per-edge route's function
+            refs[route] = _pp_act_run(copy.deepcopy(model).to("cuda")
+                                      .double(), fb64)
+        ref = refs["factored" if route == "factored" else "per_edge"]
+        # the factored level's f32 prefix sums round at the size of the
+        # running sum, in another order on each device (3.41e-3 of
+        # prim_at_node's scale apart at this batch): the two devices compare
+        # with that prefix mean in float64, and its f32 rounding is held to
+        # its own bound (`_prefix_drift`)
+        seen = []
+        wide = (_prefix_f64(seen) if route == "factored"
+                else contextlib.nullcontext())
+        t0 = time.perf_counter()
+        with _banded_calls() as calls, wide:
+            got = _pp_act_run(copy.deepcopy(model).to("cuda"), fb["cuda"])
+        torch.cuda.synchronize()
+        t_card = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with (_prefix_f64([]) if route == "factored"
+              else contextlib.nullcontext()):
+            want = _pp_act_run(model, fb["cpu"])
+        t_cpu = time.perf_counter() - t0
+        pm = fb["cpu"]["proposal_mask"]
+        prim = ((got[0] - want[0]).abs().max()
+                / max(float(want[0].abs().max()), 1e-30)).item()
+        lg = ((got[1][pm] - want[1][pm]).abs().max()
+              / max(float(want[1][pm].abs().max()), 1e-30)).item()
+        ls = abs(got[2] - want[2]) / abs(want[2])
+        ptol = PP_ACT_TOL["prim"]
+        flips = sum(int((got[4][k] != v).sum()) for k, v in want[4].items())
+        gated = sum(v.numel() for v in want[4].values())
+        label = f"phase 26 {cfg.act}/{cfg.norm} {route}"
+        check(prim <= ptol and lg <= PP_ACT_TOL["logits"]
+              and ls <= PP_ACT_TOL["loss"],
+              f"{label}: card against CPU, prim_at_node {prim:.2e} (<= "
+              f"{ptol}), logits {lg:.2e}, loss {ls:.2e}")
+        g_card = _pp_act_grads(got[3], ref[3], f"{label} card f32")
+        g_cpu = _pp_act_grads(want[3], ref[3], f"{label} CPU f32")
+        text = ""
+        if route == "factored":
+            text = "; " + _prefix_drift(*seen[0], label)
+        if route == "banded":
+            text = "; " + _hold_banded_calls(calls, label + " f32")
+            bcfg = rcfg.replace(dtype="bfloat16")
+            m16 = copy.deepcopy(model).to("cuda")
+            with _banded_calls() as calls16:
+                forward_loss(bcfg, m16, fb["cuda"])["loss"].backward()
+            text += "; bf16 " + _hold_banded_calls(calls16, label + " bf16")
+        else:
+            check(not calls, f"{label}: kernels 7-8b ran off the banded "
+                  "route")
+        print(f"{label}: card against CPU, prim_at_node {prim:.2e}, logits "
+              f"{lg:.2e}, loss {ls:.2e}; gradients against the card's "
+              f"float64 run, card {g_card[0]:.2e} ({g_card[1]}), gates "
+              f"{g_card[2]:.2e}, CPU {g_cpu[0]:.2e} ({g_cpu[1]}), gates "
+              f"{g_cpu[2]:.2e}; ReLU/LeakyReLU gates apart card against CPU "
+              f"{flips} of {gated}{text}; forward + backward "
+              f"{1e3 * t_card:.1f} ms card (first call), {1e3 * t_cpu:.1f} "
+              f"ms CPU [{dev_line}]")
+
+
+def _pp_act_replays(cfg, batches, dev_line) -> dict:
+    """Phase 26 (a): the bf16 banded train step under cfg's act and norm as
+    a graph replay (`make_scan_train_step`, scan 1, a seeded open-gate
+    model): the first step eager and captured, one replay unclocked, then
+    PP_ACT_TIMED replays, each one CUDA-event span (staging included);
+    device busy from the profiler; the graph's pool; kernels 7-8b
+    launches per replay."""
+    import torch
+
+    from yolat_tpu_torch.cli.profile import _trace
+    from yolat_tpu_torch.nn.model import seeded_model
+    from yolat_tpu_torch.ops import _build
+    from yolat_tpu_torch.train.loop import make_scan_train_step
+    from yolat_tpu_torch.train.optim import make_optimizer
+
+    bcfg = cfg.replace(dtype="bfloat16", pp_banded_super=True)
+    model = seeded_model(bcfg, 26).to("cuda")
+    run = make_scan_train_step(bcfg, model, make_optimizer(
+        bcfg.optimizer, model.parameters(), bcfg.lr), None, 1)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for b in batches + batches[:1]:
+        run([b], gen)
+    _build.reset_launch_counts()
+    times, losses = [], []
+    for i in range(PP_ACT_TIMED):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = run([batches[i % len(batches)]], gen)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+        losses.append(float(out["loss"][0]))
+    per = {k: _build.launch_counts[k] / PP_ACT_TIMED for k in K78}
+    busy = _trace(lambda: run([batches[0]], gen), 5)
+    st = run.stats()
+    label = f"phase 26 {cfg.act}/{cfg.norm} bf16 banded step"
+    check(st["graphs"] >= 1 and all(v == 1 for v in per.values())
+          and all(map(_finite, losses)),
+          f"{label}: graphs {st}, kernels 7-8b per replay {per}, losses "
+          f"{losses}")
+    print(f"{label} (batch {BATCH}, 64 channels, graph replay): median "
+          f"{statistics.median(times):.3f} ms, range {min(times):.3f}-"
+          f"{max(times):.3f} over {len(times)} CUDA-event spans (staging "
+          f"included); device busy {busy['device_busy_ms_per_call']} ms in "
+          f"{busy['device_kernels_per_call']:.0f} kernels; graph pool "
+          f"{st['graph_bytes']} bytes; kernels 7-8b per replay {per}; "
+          f"losses {[round(v, 4) for v in losses]} [{dev_line}]")
+    del run, model
+    torch.cuda.empty_cache()
+    return per
+
+
+def _pp_act_clis(root, train_root, work, n_classes, dev_line) -> dict:
+    """Phase 26 (a): cli.train --arch yolat_pp --act gelu --norm layer
+    --pp_banded_super true (bf16), cli.test --serve_mode flax, cli.export_ckpt
+    and cli.infer --serve_mode module on phase 4's SVGs; cli.infer
+    --serve_mode fast_bf16 refuses with its flags named. Returns the
+    launches over the three runs."""
+    from yolat_tpu_torch.cli import export_ckpt, infer
+    from yolat_tpu_torch.cli import test as test_cli
+    from yolat_tpu_torch.cli import train as train_cli
+    from yolat_tpu_torch.ops import _build
+
+    flags = ["--arch", "yolat_pp", "--act", "gelu", "--norm", "layer",
+             "--pp_banded_super", "true"]
+    base = ["--data_dir", train_root, "--device", "cuda", "--batch_size",
+            str(BATCH), "--n_filters", "64"]
+    _build.reset_launch_counts()
+    res = train_cli.main(base + flags + [
+        "--dtype", "bfloat16", "--max_steps", str(PP_ACT_STEPS),
+        "--print_freq", "2", "--root_dir", os.path.join(work, "log_pp_act")])
+    c = res["launches"]
+    steps, evals = res["steps"], res["eval_batches"]
+    want = {"banded_gather": steps + evals, "banded_gather_bwd": steps,
+            "banded_scatter_own": steps + evals,
+            "banded_scatter_own_bwd": steps, "folded_mlp_block_max": 0,
+            "fused_pool_train_bwd": 0}
+    got = {k: c[k] for k in want}
+    check(steps == PP_ACT_STEPS and all(map(_finite, res["losses"]))
+          and got == want and c["nms_fixpoint"] > 0,
+          f"phase 26 cli.train {' '.join(flags)}: {steps} steps, losses "
+          f"{res['losses']}, launches {got} (the code implies {want}), N1 "
+          f"{c['nms_fixpoint']}")
+    _check_graphs(res, 1, "phase 26 cli.train")
+    print(f"phase 26 cli.train {' '.join(flags)} (bf16, batch {BATCH}, 64 "
+          f"channels): {steps} steps, "
+          f"{1e3 * res['train_seconds'] / steps:.3f} ms per step (first "
+          f"step and capture included), {evals} evaluated batches; losses "
+          f"{[round(v, 4) for v in res['losses']]}; MAP@0.5 "
+          f"{res['map_50']:.4f}; launches {got}, N1 {c['nms_fixpoint']}; "
+          f"{_graph_line(res)} [{dev_line}]")
+    ckdir = os.path.join(res["exp_dir"], "checkpoint")
+    table = test_cli.main(base + flags + [
+        "--phase", "test", "--serve_mode", "flax", "--pretrained_model",
+        ckdir])
+    tc = {k: table["launches"][k] for k in K78 + ("nms_fixpoint",)}
+    check(len(table["map_per_th"]) == 10
+          and all(map(_finite, table["map_per_th"]))
+          and tc["banded_gather"] == tc["banded_scatter_own"] == tc[
+              "nms_fixpoint"] > 0
+          and tc["banded_gather_bwd"] == tc["banded_scatter_own_bwd"] == 0,
+          f"phase 26 cli.test --serve_mode flax: AP {table['map_per_th']}, "
+          f"launches {tc}")
+    print(f"phase 26 cli.test --serve_mode flax {' '.join(flags)}: MAP@0.5 "
+          f"{table['map_50']:.4f}, MAP@all {table['map_all']:.4f}, top1 "
+          f"{table['top1_acc']:.4f}; launches {tc}")
+    pth = os.path.join(work, "pp_act.pth")
+    export_ckpt.main(["--pretrained_model", ckdir, "--n_filters", "64",
+                      "--n_classes", str(n_classes), "--out", pth] + flags)
+    out = os.path.join(work, "pp_act.jsonl")
+    serve = ["--input_dir", root, "--pretrained_model", pth, "--out", out,
+             "--device", "cuda", "--conf_th", "0.0", "--batch_size",
+             str(BATCH), "--n_filters", "64"] + flags[:6]
+    rates = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        infer.main(serve + ["--serve_mode", "module"])
+        rates.append(N_SVGS / (time.perf_counter() - t0))
+    with open(out) as f:
+        recs = [json.loads(line) for line in f]
+    check(len(recs) == N_SVGS and all("error" not in r for r in recs),
+          f"phase 26 cli.infer --serve_mode module: {len(recs)} records")
+    refused = ""
+    try:
+        infer.main(serve + ["--serve_mode", "fast_bf16"])
+    except ValueError as e:
+        refused = str(e)
+    check("--act gelu --norm layer" in refused,
+          f"phase 26 cli.infer --serve_mode fast_bf16 refused: {refused!r}")
+    counts = dict(_build.launch_counts)
+    print(f"phase 26 cli.infer --serve_mode module {' '.join(flags[:6])}: "
+          f"{len(recs)} records, "
+          f"{sum(len(r['detections']) for r in recs)} detections, "
+          f"{rates[0]:.3f} SVGs/s first run, {rates[1]:.3f} second; "
+          f"fast_bf16 refused: {refused.split(':')[0]}; launches over "
+          f"train, test and infer { {k: counts[k] for k in K78 + ('nms_fixpoint',)} } "
+          f"[{dev_line}]")
+    return counts
+
+
+def _torch_run(run) -> tuple:
+    """A rank's ([losses], numpy state, ...) as `_dp_diff` takes it, the
+    running variances left out (the unbiased correction of the global
+    count)."""
+    import torch
+
+    return run[0], {k: torch.from_numpy(v) for k, v in run[1].items()
+                    if not k.endswith("running_var")}
+
+
+def _dp_zoo_card(train_root, n_classes, dev_line) -> dict:
+    """Phase 26 (b): tests/test_torch_dp_zoo.py's cases at full width in two
+    gloo ranks on the one card (`tests/torch_dp_zoo_ranks.zoo_scenarios`,
+    CUDA tensors): the ranks hold one state; identical shards against the
+    single-device step within phase 19's rule of its own spread; the fused
+    head's kernel route against its plain route under DP (phase 20's f32
+    limits on the loss and, per tensor, the 2-step update). Returns the
+    fused case's per-rank launches of kernels 3 and 11."""
+    import numpy as np
+
+    from yolat_tpu_torch.nn.model import seeded_model
+    from yolat_tpu_torch.parallel.launch import spawn_ranks
+
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    import torch_dp_zoo_ranks
+
+    cases, states = {}, {}
+    for name, kw in DP_ZOO_CASES.items():
+        cases[name] = dict(n_classes=n_classes, width=64, lr=1e-2, model=kw,
+                           steps=DP_ZOO_STEPS, plain=name == "edge_fused")
+        model = seeded_model(torch_dp_zoo_ranks.case_config(cases[name]),
+                              26)
+        states[name] = {k: v.numpy().copy()
+                        for k, v in model.state_dict().items()}
+        del model
+    t0 = time.perf_counter()
+    outs = spawn_ranks(torch_dp_zoo_ranks.zoo_scenarios, DP_WORLD,
+                       (train_root, DP_WORLD, cases, states, "cuda", 10,
+                        BATCH // 2, False, True), join_timeout_s=600)
+    secs = time.perf_counter() - t0
+    check([o["n_images"] for o in outs] == [[BATCH // 2] * DP_ZOO_STEPS]
+          * DP_WORLD, f"phase 26 dp: images per rank per step "
+          f"{[o['n_images'] for o in outs]}")
+    launches = None
+    for name in DP_ZOO_CASES:
+        r0, r1 = outs[0][name], outs[1][name]
+        one = _dp_diff(_torch_run(r0["dp"]), _torch_run(r1["dp"]))
+        d = _dp_diff(_torch_run(r0["identical"]), _torch_run(r0["single"]))
+        spread = _dp_diff(_torch_run(r0["single_again"]),
+                          _torch_run(r0["single"]))
+        losses = r0["dp"][0]
+        check(one[2]
+              and all(map(_finite, losses)) and _within_spread(d, spread),
+              f"phase 26 dp {name}: ranks apart {one}, identical shards "
+              f"against the single-device step {d}, its spread {spread}, "
+              f"losses {losses}")
+        text = ""
+        if name == "edge_fused":
+            start = states[name]
+            kern, plain = r0["dp"], r0["dp_plain"]
+            loss_err = max(abs(x - y) / abs(y)
+                           for x, y in zip(kern[0], plain[0]))
+            upd = {}
+            for k, v in plain[1].items():
+                if k.endswith(("running_mean", "running_var",
+                               "num_batches_tracked")):
+                    continue
+                du, dp = kern[1][k] - start[k], v - start[k]
+                if np.abs(du).max() < 2e-6 and np.abs(dp).max() < 2e-6:
+                    check(np.abs(du - dp).max() <= 2e-6,
+                          f"phase 26 dp {name}: noise-level update {k}")
+                    continue
+                upd[k] = float(np.linalg.norm(du - dp) / np.linalg.norm(dp))
+            worst = max(upd, key=upd.get)
+            tol = DP_ROUTE_TOL["f32"]
+            launches = kern[2]
+            check(loss_err <= tol[0] and upd[worst] <= tol[1]
+                  and kern[2] == (DP_ZOO_STEPS, DP_ZOO_STEPS)
+                  and plain[2] == (0, 0),
+                  f"phase 26 dp {name}: kernel route against plain route, "
+                  f"loss {loss_err:.2e}, update {worst} {upd[worst]:.2e} "
+                  f"(limits {tol}); kernels 3, 11 {kern[2]}, plain "
+                  f"{plain[2]}")
+            text = (f"; kernel route against plain route under DP: loss "
+                    f"{loss_err:.2e}, largest update {upd[worst]:.2e} "
+                    f"({worst}); kernels 3, 11 per rank {kern[2]} over "
+                    f"{DP_ZOO_STEPS} steps, plain {plain[2]}")
+        print(f"phase 26 dp {name} ({DP_ZOO_CASES[name]}): losses "
+              f"{[round(v, 5) for v in losses]}; ranks bit-identical "
+              f"{one[2]}; identical shards against the single-device step "
+              f"{d[0]:.3g} / {d[1]:.3g} (bit-identical {d[2]}), single "
+              f"against itself {spread[0]:.3g} / {spread[1]:.3g}; "
+              f"{r0['seconds']:.1f} s on rank 0{text} [{dev_line}]")
+    print(f"phase 26 dp: {len(DP_ZOO_CASES)} cases on {DP_WORLD} gloo ranks "
+          f"sharing one card, batch {BATCH // 2} a rank, {DP_ZOO_STEPS} SGD "
+          f"steps, f32, 64 channels; {secs:.1f} s for the ranks")
+    return {"folded_mlp_block_max": launches[0],
+            "fused_pool_train_bwd": launches[1]}
+
+
+def pp_act_norm_phase(root, train_root, work, dev_line) -> dict:
+    """Phase 26: YOLaT++ under --act gelu --norm layer and --act leakyrelu
+    --norm batch at full width on phase 6's floorplans (batch 4): card
+    against CPU on the three routes, kernels 7-8b held per call, the bf16
+    step as a replay, the CLIs; then the conv zoo and YOLaT++ under data
+    parallel. Returns each kernel's launches on the phase's paths."""
+    from yolat_tpu_torch.config import Config
+    from yolat_tpu_torch.data.dataset import SESYDDataset
+    from yolat_tpu_torch.data.loader import PackedLoader, train_plans_for
+    from yolat_tpu_torch.ops.plans import pad_plans
+
+    t_start = time.perf_counter()
+    ds = SESYDDataset(train_root, "train", bbox_sampling_step=10)
+    for act, norm in PP_ACT_NORMS:
+        cfg = Config(arch="yolat_pp", n_classes=ds.n_classes, act=act,
+                     norm=norm, data_aug=False)
+        batches = [pad_plans(b) for b in PackedLoader(
+            ds, batch_size=BATCH, prefetch=0, edge_window=False,
+            **train_plans_for(cfg.replace(pp_banded_super=True)))]
+        _pp_act_card_cpu(cfg, batches[0], dev_line)
+        _pp_act_replays(cfg, batches, dev_line)
+    clis = _pp_act_clis(root, train_root, work, ds.n_classes, dev_line)
+    counts = {k: clis[k] for k in K78 + ("nms_fixpoint",)}
+    counts.update(_dp_zoo_card(train_root, ds.n_classes, dev_line))
+    print(f"phase 26: {time.perf_counter() - t_start:.1f} s")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -5712,6 +6408,11 @@ def main() -> int:
         # the kernels, the profiling tools, the host modules
         toy_phase(work, root, batches[0], detected, dev_line)
 
+        # 26. YOLaT++ under --act / --norm, card against CPU, the kernels
+        # of its banded route, its bf16 step, its CLIs; the conv zoo and
+        # YOLaT++ under data parallel, two gloo ranks on the one card
+        act_norm = pp_act_norm_phase(root, train_root, work, dev_line)
+
     # the kernels line
     sources = {"edge_window_message_sum": (
                    "yolat_tpu_torch/csrc/edge_window.cu",
@@ -5784,7 +6485,9 @@ def main() -> int:
                 **{x: res[k][x] for x in ("queued_ms", "warm_ms",
                                           "library_device_ms")
                    if x in res[k]},
-                **({"conv_zoo_launches": zoo[k]} if k in zoo else {})}
+                **({"conv_zoo_launches": zoo[k]} if k in zoo else {}),
+                **({"act_norm_launches": act_norm[k]} if k in act_norm
+                   else {})}
                for k in sources]
     print(json.dumps({"kernels": kernels}))
     print(dev_line)

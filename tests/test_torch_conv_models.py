@@ -324,8 +324,10 @@ REFUSALS = [
     (dict(conv="gen", dense_layout=True), "dense_layout true"),
     (dict(fused_head_train=True, act="gelu"), "fused_head_train"),
     (dict(fused_head_train=True, norm="layer"), "fused_head_train"),
-    (dict(arch="yolat_pp", act="leakyrelu"), "arch yolat_pp"),
-    (dict(arch="yolat_pp", norm="layer"), "arch yolat_pp"),
+    # YOLaT++ takes every act and norm; another conv stays refused under
+    # them
+    (dict(arch="yolat_pp", act="leakyrelu", conv="gat"), "arch yolat_pp"),
+    (dict(arch="yolat_pp", norm="layer", conv="sage"), "arch yolat_pp"),
     (dict(arch="yolat_pp", conv="edge"), "arch yolat_pp"),
     (dict(conv="dyn_edge"), "conv 'dyn_edge'"),
     (dict(act="swish"), "act 'swish'"),

@@ -65,7 +65,8 @@ def test_banded_route_matches_sparse_route_and_jax(toy):
     pb_, sb, gb = _prim_run(banded, fb)
     jbatch = jax_finalize(jax.tree.map(jnp.asarray, jb))
     _, jstats, jprim, jgrads = _jax_forward(
-        jcfg, state, jbatch, loss_of=lambda p: jnp.tanh(p / 10.0).sum())
+        jcfg, state, jbatch, loss_of=lambda p: jnp.tanh(p / 10.0).sum(),
+        jit=True)
     jg = _by_name(jgrads, state.batch_stats)
     js = _by_name(state.params, jstats)
     scale = np.abs(pa).max()
@@ -131,7 +132,7 @@ def test_fresh_model_is_the_canonical_detector_and_its_gates_learn(batches):
     _, state = _jax_state(jcfg, jb, open_gates=False)
     model = _port_model(cfg, state)
     jbatch = jax_finalize(jax.tree.map(jnp.asarray, jb))
-    jloss, _, _, jgrads = _jax_forward(jcfg, state, jbatch)
+    jloss, _, _, jgrads = _jax_forward(jcfg, state, jbatch, jit=True)
     loss = forward_loss(cfg, model, fb)["loss"]
     loss.backward()
     np.testing.assert_allclose(loss.item(), jloss, rtol=1e-5)
@@ -182,7 +183,8 @@ def test_edge_dropout_strips_the_stale_pack_fields_and_matches_jax(batches):
               and not k.startswith(("ew_", "sew_", "cwd_", "cws_"))}
     jbatch = jax_finalize(jax.tree.map(
         jnp.asarray, {**jbatch, "edge_mask": kept}))
-    jloss, _, _, _ = _jax_forward(jcfg.replace(drop_edge=0.0), state, jbatch)
+    jloss, _, _, _ = _jax_forward(jcfg.replace(drop_edge=0.0), state, jbatch,
+                                  jit=True)
     np.testing.assert_allclose(loss.item(), jloss, rtol=1e-5)
     # with the stale counts left in, the means divide by the wrong numbers
     stale_fb = {**fb, **{k: torch.from_numpy(pb[k]) for k in gone}}

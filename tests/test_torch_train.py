@@ -172,15 +172,18 @@ def test_train_step_matches_jax(batches, fused):
                                        {k: v[0] for k, v in jb.items()}))
     jm = jax_build_model(jcfg)
 
-    def loss_fn(params):
+    def loss_fn(params, batch):
         (logits, _), mut = jm.apply(
-            {"params": params, "batch_stats": state.batch_stats}, jbatch,
+            {"params": params, "batch_stats": state.batch_stats}, batch,
             train=True, mutable=["batch_stats"])
-        return jax_loss(logits, jbatch["labels"],
-                        jbatch["proposal_mask"])["loss"], mut
+        return jax_loss(logits, batch["labels"],
+                        batch["proposal_mask"])["loss"], mut
 
-    (jloss, mut), jgrads = jax.value_and_grad(loss_fn, has_aux=True)(
-        state.params)
+    # one jitted call, the batch an argument (closed over as a constant,
+    # JAX's jitted gradient parts from its eager one: ROADMAP's stated
+    # differences, PR 18)
+    (jloss, mut), jgrads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(
+        state.params, jbatch)
     fb = prepare_batch(cfg, to_device(pb, "cpu"))
     _build.reset_launch_counts()
     loss = forward_loss(cfg, model, fb)["loss"]

@@ -29,10 +29,9 @@ conv of the port reads it.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
-from yolat_tpu_torch.nn.layers import MaskedBatchNorm, act_fn
+from yolat_tpu_torch.nn.layers import MaskedBatchNorm, act_fn, leaky_relu
 from yolat_tpu_torch.ops.knn import dilated, knn_graph
 from yolat_tpu_torch.ops.segment import segment_softmax, segment_sum
 
@@ -76,8 +75,8 @@ class GATConv(nn.Module):
         alpha_src = (h * self.a_src).sum(-1)  # [N, H]
         alpha_dst = (h * self.a_dst).sum(-1)
         src, dst = edge[:, 0].long(), edge[:, 1].long()
-        logits = F.leaky_relu(alpha_src.index_select(0, src)
-                              + alpha_dst.index_select(0, dst), 0.2)
+        logits = leaky_relu(alpha_src.index_select(0, src)
+                            + alpha_dst.index_select(0, dst), 0.2)
         attn = segment_softmax(logits, dst, n, mask=edge_mask)  # [E, H]
         msg = h.index_select(0, src) * attn[:, :, None]
         msg = torch.where(edge_mask.bool()[:, None, None], msg,

@@ -4,8 +4,9 @@ Counterpart of `yolat_tpu/nn/layers.py:30-237` (`act_fn`,
 `MaskedBatchNorm`, `SumEmbedding`, `MLP`, `FusedPoolFusion`). The MLP is laid out as the
 reference's flat Sequential (gcn_lib/sparse/torch_nn.py:50-71): per stage
 Linear, then the norm (`norm`: 'batch', 'layer' or None) and the
-activation (`act`: 'relu', 'leakyrelu' with slope 0.2, 'gelu' in flax's
-tanh form, or None), each taking an index where it is there. With the
+activation (`act`: 'relu', 'leakyrelu' with slope 0.2 and flax's gradient
+1 at 0, 'gelu' in flax's tanh form, or None), each taking an index where
+it is there. With the
 defaults (ReLU, BatchNorm) a stage-k Linear sits at index 3k and its
 BatchNorm at 3k+1 — the state-dict keys
 `yolat_tpu/train/import_reference._export_mlp` (:138-165) writes; a bare
@@ -108,6 +109,26 @@ def _is_none(name) -> bool:
     return name is None or str(name).lower() == "none"
 
 
+def leaky_relu(x, negative_slope: float = 0.2):
+    """flax's leaky_relu: x where x >= 0, else negative_slope * x. Its
+    gradient at x = 0 is 1, where torch's F.leaky_relu gives the slope: a
+    GAT node with no incoming edge sits at its bias exactly, 0 at init, so
+    the kink decides that bias's gradient."""
+    return torch.where(x >= 0, x, x * negative_slope)
+
+
+class LeakyReLU(nn.Module):
+    """`leaky_relu` as a module (no tensors, so it takes a Sequential index
+    as torch.nn.LeakyReLU does)."""
+
+    def __init__(self, negative_slope: float = 0.2):
+        super().__init__()
+        self.negative_slope = negative_slope
+
+    def forward(self, x):
+        return leaky_relu(x, self.negative_slope)
+
+
 def act_layer(name):
     """The activation module of `act` (`yolat_tpu/nn/layers.py:30-40`;
     flax's nn.gelu is the tanh approximation), or None for 'none' / None."""
@@ -117,7 +138,7 @@ def act_layer(name):
     if name == "relu":
         return nn.ReLU()
     if name == "leakyrelu":
-        return nn.LeakyReLU(0.2)
+        return LeakyReLU(0.2)
     if name == "gelu":
         return nn.GELU(approximate="tanh")
     raise NotImplementedError(f"--act {name!r}: relu, leakyrelu, gelu or none")

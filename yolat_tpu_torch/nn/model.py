@@ -304,11 +304,13 @@ def check_model_config(cfg) -> None:
     """Refuse what the JAX package runs silently or fails on without
     saying why: an unknown conv; the dense table (--train_layout dense,
     --dense_layout true) with a conv that has no dense branch; the fused
-    pool head or YOLaT++ with other MLPs than ReLU and BatchNorm (JAX's
-    fused head is ReLU + BN whatever --act says, so it would train one
-    function and evaluate another); YOLaT++ with another conv (its convs
-    are attr_edge_gp2 whatever --conv says); the window layout with
-    another conv (the JAX model trains it sparse)."""
+    pool head with other MLPs than ReLU and BatchNorm (JAX's fused head
+    is ReLU + BN whatever --act says, so it would train one function and
+    evaluate another); YOLaT++ with another conv (its convs are
+    attr_edge_gp2 whatever --conv says); the window layout with another
+    conv (the JAX model trains it sparse). YOLaT++ takes every --act and
+    --norm: its hierarchy, fusion and head MLPs take them, its two gp2
+    convs stay ReLU and BatchNorm, as in JAX."""
     if cfg.conv not in CONV_NAMES:
         raise NotImplementedError(
             f"--conv {cfg.conv!r}: one of {', '.join(CONV_NAMES)}")
@@ -329,11 +331,6 @@ def check_model_config(cfg) -> None:
             f"--fused_head_train true with --act {cfg.act} --norm "
             f"{cfg.norm}: the fused pool head is ReLU and BatchNorm (--act "
             "relu --norm batch)")
-    if cfg.arch in PP_ARCHS and not _canonical_mlps(cfg):
-        raise NotImplementedError(
-            f"--arch {cfg.arch} with --act {cfg.act} --norm {cfg.norm}: "
-            "YOLaT++ runs ReLU and BatchNorm in this port (--act relu --norm "
-            "batch)")
     if cfg.arch in PP_ARCHS and cfg.conv != CANONICAL_CONV:
         raise NotImplementedError(
             f"--arch {cfg.arch} with --conv {cfg.conv}: YOLaT++'s convs are "
@@ -360,7 +357,8 @@ def build_model(cfg):
                              classifier=cfg.classifier, dropout=cfg.dropout,
                              factored_prim=cfg.pp_factored_prim,
                              banded_super=cfg.pp_banded_super,
-                             fused_pool=cfg.fused_head_train)
+                             fused_pool=cfg.fused_head_train,
+                             act=cfg.act, norm=cfg.norm)
     if cfg.arch != CANONICAL_ARCH:
         raise NotImplementedError(
             f"arch {cfg.arch!r}: this port runs {CANONICAL_ARCH} and "
@@ -376,17 +374,19 @@ def build_model(cfg):
 def seeded_model(cfg, seed: int = 0):
     """A random eval-mode detector made from `seed`: Kaiming weights and
     randomised BatchNorm affine terms and running statistics, so folding
-    them is not the identity (smoke checks, profiling, tests). A YOLaT++
+    them is not the identity, and randomised LayerNorm affine terms, so a
+    misplaced one shows (smoke checks, profiling, tests). A YOLaT++
     model gets its gates opened (0.3, 0.4, 0.5, 0.6): at their initial zero
     no hierarchy level reaches the logits."""
     model = build_model(cfg)
     gen = torch.Generator().manual_seed(seed)
     init_weights(model, gen)
     for m in model.modules():
-        if isinstance(m, MaskedBatchNorm):
+        if isinstance(m, (MaskedBatchNorm, nn.LayerNorm)):
             f = m.weight.shape[0]
             m.weight.copy_(1.0 + 0.2 * torch.randn(f, generator=gen))
             m.bias.copy_(0.1 * torch.randn(f, generator=gen))
+        if isinstance(m, MaskedBatchNorm):
             m.running_mean.copy_(0.2 * torch.randn(f, generator=gen))
             m.running_var.copy_(0.5 + torch.rand(f, generator=gen))
     if cfg.arch in PP_ARCHS:
@@ -409,7 +409,8 @@ def load_jax_variables(model, variables):
         sd = export_state_dict(variables, n_blocks=model.n_blocks,
                                conv=model.conv, act=model.act)
     else:
-        sd = export_state_dict_pp(variables, n_blocks=model.n_blocks)
+        sd = export_state_dict_pp(variables, n_blocks=model.n_blocks,
+                                  act=model.act)
     return _load_numpy_state(model, sd)
 
 

@@ -159,16 +159,22 @@ PP_MLPS = ("fusion_block", "fusion_block_super", "point_pe_mlp", "curve_mlp",
            "super_edge_mlp", "super_fact_mlp", "super_node_mlp")
 
 
-def export_state_dict_pp(variables: Mapping, n_blocks: int = 2) -> dict:
+def export_state_dict_pp(variables: Mapping, n_blocks: int = 2,
+                         act="relu") -> dict:
     """JAX flax variables of a YOLaTPlusPlus ({'params', 'batch_stats'},
-    numpy leaves) -> the state dict of `nn.yolat_pp.YOLaTPlusPlus` (numpy
-    leaves). A checkpoint holds `super_edge_mlp` or `super_fact_mlp`;
-    whichever is there comes through. The running statistics of every
-    MLP and the four gates come with the weights (a train step starts from
-    them), and a `fusion_block` trained through the fused pool head has
-    the MLP's own tree (dense_0 + bn_0)."""
+    numpy leaves) with `act` -> the state dict of
+    `nn.yolat_pp.YOLaTPlusPlus` (numpy leaves). A checkpoint holds
+    `super_edge_mlp` or `super_fact_mlp`; whichever is there comes
+    through. The running statistics of every MLP and the four gates come
+    with the weights (a train step starts from them), and a `fusion_block`
+    trained through the fused pool head has the MLP's own tree (dense_0 +
+    bn_0). The hierarchy, fusion and head MLPs take the model's act and
+    norm (under --act none their Sequential indices close up; `ln_k` is a
+    LayerNorm's weight and bias); the gp2 convs' MLPs stay ReLU and
+    BatchNorm."""
     params = variables["params"]
     stats = variables.get("batch_stats", {})
+    has_act = _has_act(act)
     out: dict = {}
     for i in range(n_blocks):
         name, ref = f"AttrEdgeGP2_{i}", f"convs.{i}"
@@ -179,11 +185,13 @@ def export_state_dict_pp(variables: Mapping, n_blocks: int = 2) -> dict:
                                f"{ref}.mlp_node"))
     for name in PP_MLPS:
         if name in params:
-            out.update(_export_mlp(params[name], stats.get(name, {}), name))
+            out.update(_export_mlp(params[name], stats.get(name, {}), name,
+                                   has_act))
     k = 0
     while f"pred_{k}" in params:
+        last = f"pred_{k + 1}" not in params
         out.update(_export_mlp(params[f"pred_{k}"], stats.get(f"pred_{k}", {}),
-                               f"prediction_cls.{k}"))
+                               f"prediction_cls.{k}", has_act and not last))
         k += 1
     for g in PP_GATES:
         out[g] = np.asarray(params[g], np.float32).reshape(())

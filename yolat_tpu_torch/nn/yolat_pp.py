@@ -23,6 +23,15 @@ zero, so a fresh model is the canonical detector bit for bit:
              `super_node_mlp`, added to the 512-wide head feature
              (gate_super).
 
+Every MLP of the hierarchy, the fusion and the head (`point_pe_mlp`,
+`curve_mlp`, `super_edge_mlp` / `super_fact_mlp`, `super_node_mlp`,
+`fusion_block`, `fusion_block_super`, `prediction_cls.0` and `.1`) takes
+`act` and `norm` (cfg.act, cfg.norm; `nn.layers.MLP`), as the JAX module
+does (:121-353); the two gp2 convs stay ReLU and BatchNorm, and
+`prediction_cls.2` stays bare. A LayerNorm normalises every row, pad rows
+too; those rows reach no sum (segment_mean masks, kernel 8 sums the
+plan's rows up to nptr[N]).
+
 A model holds `super_edge_mlp` or `super_fact_mlp`, never both, as a JAX
 checkpoint does. The parameter tree is flat, as the JAX module's
 (`AttrEdgeGP2_{i}` at the top, not under `cls_net`): `convs.{i}`,
@@ -126,12 +135,14 @@ class YOLaTPlusPlus(nn.Module):
                  channels: int = 64, n_blocks: int = 2, n_blocks_out: int = 2,
                  n_freqs: int = 4, classifier: str = "softmax",
                  dropout: float = 0.0, factored_prim: bool = False,
-                 banded_super: bool = False, fused_pool: bool = False):
+                 banded_super: bool = False, fused_pool: bool = False,
+                 act="relu", norm="batch"):
         super().__init__()
         c = channels
         self.n_blocks, self.n_blocks_out = n_blocks, n_blocks_out
         self.n_freqs = n_freqs
         self.classifier = classifier
+        self.act, self.norm = act, norm
         self.factored_prim = factored_prim
         self.banded_super = banded_super
         self.fused_pool = fused_pool
@@ -141,20 +152,21 @@ class YOLaTPlusPlus(nn.Module):
             AttrEdgeGP2(in_channels if i == 0 else c, c)
             for i in range(n_blocks))
         fusion_dims = c * n_blocks_out
-        self.fusion_block = FusedPoolFusion(fusion_dims, FUSION)
-        self.fusion_block_super = MLP([fusion_dims, FUSION])
+        kw = dict(act=act, norm=norm)
+        self.fusion_block = FusedPoolFusion(fusion_dims, FUSION, **kw)
+        self.fusion_block_super = MLP([fusion_dims, FUSION], **kw)
         self.prediction_cls = nn.ModuleList([
-            MLP([(fusion_dims + FUSION) * 2, 512]),
-            MLP([512, 256], drop=dropout),
+            MLP([(fusion_dims + FUSION) * 2, 512], **kw),
+            MLP([512, 256], drop=dropout, **kw),
             MLP([256, n_classes], bare=True),
         ])
-        self.point_pe_mlp = MLP([4 * n_freqs, c])
-        self.curve_mlp = MLP([4 + 2 * c, c])
+        self.point_pe_mlp = MLP([4 * n_freqs, c], **kw)
+        self.curve_mlp = MLP([4 + 2 * c, c], **kw)
         if factored_prim:
-            self.super_fact_mlp = MLP([2 * c + 4, c])
+            self.super_fact_mlp = MLP([2 * c + 4, c], **kw)
         else:
-            self.super_edge_mlp = MLP([2 * c + 4, c])
-        self.super_node_mlp = MLP([4 * n_freqs + 2 * c, 512])
+            self.super_edge_mlp = MLP([2 * c + 4, c], **kw)
+        self.super_node_mlp = MLP([4 * n_freqs + 2 * c, 512], **kw)
         for g in PP_GATES:
             setattr(self, g, nn.Parameter(torch.zeros(())))
 

@@ -28,11 +28,19 @@ NEG = -1e30
 ROWS, COLS = 64, 128  # the CUDA kernel's tile
 
 
+def acc_type(x):
+    """The plain routes' accumulation type: float64 for a float64 x (the
+    reference a smoke check holds the card's routes to), else float32."""
+    return torch.float64 if x.dtype == torch.float64 else torch.float32
+
+
 def folded_rows(x, w, sc):
-    """(z, y) [N, H] f32 of the plain pool head: z = x @ W (W in x's
-    type, f32 products and sums), y = z * sc[0] + sc[1]."""
-    z = x.float() @ w.to(x.dtype).float()
-    return z, z * sc[0].float() + sc[1].float()
+    """(z, y) [N, H] of the plain pool head in `acc_type(x)`: z = x @ W
+    (W in x's type, f32 products and sums for f32 and bf16 x), y = z *
+    sc[0] + sc[1]."""
+    acc = acc_type(x)
+    z = x.to(acc) @ w.to(x.dtype).to(acc)
+    return z, z * sc[0].to(acc) + sc[1].to(acc)
 
 
 def folded_mlp_block_max_plain(x, node_maskf, w, sc, block: int = 8):

@@ -44,7 +44,8 @@ import torch
 import torch.distributed as dist
 
 from yolat_tpu_torch.ops import _build
-from yolat_tpu_torch.ops.block_max import (NEG, folded_mlp_block_max,
+from yolat_tpu_torch.ops.block_max import (NEG, acc_type,
+                                           folded_mlp_block_max,
                                            folded_mlp_block_max_plain,
                                            folded_rows)
 from yolat_tpu_torch.ops.plans import POOL_BLOCK, plan_aligned
@@ -68,12 +69,13 @@ def _sum_over(group, *parts):
 
 
 def _stats(xm, maskf, w, b, group=None):
-    """Closed-form masked BN train moments of z = x@W + b (f32): mean, var
-    (biased), count (clamped at 1), the masked row sum sx and the Gram
-    matrix x^T x (both local). With a group, the count and the moments are
-    summed over its ranks."""
-    xf, wf, bf = xm.float(), w.float(), b.float()
-    n = maskf.sum()
+    """Closed-form masked BN train moments of z = x@W + b (f32, or float64
+    for a float64 xm): mean, var (biased), count (clamped at 1), the
+    masked row sum sx and the Gram matrix x^T x (both local). With a
+    group, the count and the moments are summed over its ranks."""
+    acc = acc_type(xm)
+    xf, wf, bf = xm.to(acc), w.to(acc), b.to(acc)
+    n = maskf.to(acc).sum()
     sx = xf.sum(dim=0)
     sxw = sx @ wf
     gram = xf.t() @ xf
@@ -88,9 +90,11 @@ def _stats(xm, maskf, w, b, group=None):
 
 
 def _scale_shift(mean, var, b, gamma, beta):
-    """[2, H] f32: the BN scale and shift folded with the Dense bias."""
-    inv = torch.rsqrt(var + BN_EPS) * gamma.float()
-    return torch.stack([inv, b.float() * inv + beta.float() - mean * inv])
+    """[2, H] in mean's type (f32, or float64 on the float64 plain route):
+    the BN scale and shift folded with the Dense bias."""
+    acc = mean.dtype
+    inv = torch.rsqrt(var + BN_EPS) * gamma.to(acc)
+    return torch.stack([inv, b.to(acc) * inv + beta.to(acc) - mean * inv])
 
 
 def fused_pool_train_bwd_plain(xm, maskf, w, sc, pooled_b, gp_b,
@@ -98,19 +102,21 @@ def fused_pool_train_bwd_plain(xm, maskf, w, sc, pooled_b, gp_b,
     """Plain PyTorch version of kernel 11: xm [N, Cin] (masked rows),
     maskf [N, 1] f32, w [Cin, H], sc [2, H] f32, pooled_b [N/8, H] in xm's
     type, gp_b [N/8, H] f32 -> (dw_u [Cin, H] f32, dx_s [N, Cin] in xm's
-    type, sum u [H] f32, sum u*z [H] f32). Recomputes through
-    `folded_rows`, as `folded_mlp_block_max_plain` computes."""
+    type, sum u [H] f32, sum u*z [H] f32); for a float64 xm every f32
+    above is float64. Recomputes through `folded_rows`, as
+    `folded_mlp_block_max_plain` computes."""
+    acc = acc_type(xm)
     z, y = folded_rows(xm, w, sc)
     a = torch.where(maskf > 0.0, torch.relu(y), torch.full_like(y, NEG))
     # compare at the stored precision: the recompute rounded as the
     # forward rounded its block maxima
-    aq = a.to(pooled_b.dtype).float()
-    pr = pooled_b.float().repeat_interleave(block, dim=0)
-    gr = gp_b.float().repeat_interleave(block, dim=0)
+    aq = a.to(pooled_b.dtype).to(acc)
+    pr = pooled_b.to(acc).repeat_interleave(block, dim=0)
+    gr = gp_b.to(acc).repeat_interleave(block, dim=0)
     u = torch.where((aq == pr) & (y > 0.0), gr, torch.zeros_like(gr))
-    s = (u * sc[0].float()).to(xm.dtype).float()
-    dw_u = xm.float().t() @ s
-    dx_s = (s @ w.to(xm.dtype).float().t()).to(xm.dtype)
+    s = (u * sc[0].to(acc)).to(xm.dtype).to(acc)
+    dw_u = xm.to(acc).t() @ s
+    dx_s = (s @ w.to(xm.dtype).to(acc).t()).to(xm.dtype)
     return dw_u, dx_s, u.sum(dim=0), (u * z).sum(dim=0)
 
 
@@ -194,9 +200,10 @@ class FusedPoolTrain(torch.autograd.Function):
         bred = block_max(xm, maskf, w, sc, block=POOL_BLOCK)
         h = bred.shape[1]
         idx = blk_first.long()[:, None].expand(-1, h)
-        raw = torch.full((n_prop, h), NEG, dtype=torch.float32,
+        acc = acc_type(x)
+        raw = torch.full((n_prop, h), NEG, dtype=acc,
                          device=x.device).scatter_reduce_(
-            0, idx, bred.float(), "amax", include_self=True)
+            0, idx, bred.to(acc), "amax", include_self=True)
         pooled = torch.where(raw <= NEG / 2, torch.zeros_like(raw),
                              raw).to(x.dtype)
         # sc is kept, not rebuilt: at f32 the backward finds the winners
@@ -212,13 +219,14 @@ class FusedPoolTrain(torch.autograd.Function):
     def backward(ctx, gp, _gmean, _gvar, _gn):
         (xm, maskf, w, b, blk_first, mean, var, n, sx, gram, sc,
          pooled) = ctx.saved_tensors
-        bf, wf = b.float(), w.float()
+        acc = mean.dtype
+        bf, wf = b.to(acc), w.to(acc)
         inv_sig = torch.rsqrt(var + BN_EPS)
         inv = sc[0]  # inv_sig * gamma
         # pooled stays in its stored type: the recompute is compared at
         # the precision the forward stored
         pooled_b = pooled[blk_first.long()]
-        gp_b = gp.float()[blk_first.long()]
+        gp_b = gp.to(acc)[blk_first.long()]
         bwd = (fused_pool_train_bwd if ctx.route == "kernel"
                else fused_pool_train_bwd_plain)
         dw_u, dx_s, usum, uzraw = bwd(xm, maskf, w, sc, pooled_b, gp_b)
@@ -232,15 +240,15 @@ class FusedPoolTrain(torch.autograd.Function):
         c2 = -szc / n
         c1 = -(usum_g * inv / n) - mean * c2
         uzsum = uzraw + bf * usum
-        n_l = torch.clamp(maskf.sum(), min=1.0)  # the local mask count
+        n_l = torch.clamp(maskf.to(acc).sum(), min=1.0)  # the local count
         dw = dw_u + sx[:, None] * (c1 + bf * c2)[None, :] + (gram @ wf) * c2
         db = usum * inv + n_l * c1 + c2 * (sx @ wf + n_l * bf)
         dgamma = (uzsum - mean * usum) * inv_sig
         dbeta = usum
         m2 = (wf * c2[None, :]) @ wf.t()
-        mrow = maskf.float()
-        dx = (dx_s.float() + mrow * ((c1 + bf * c2) @ wf.t())[None, :]
-              + xm.float() @ m2)
+        mrow = maskf.to(acc)
+        dx = (dx_s.to(acc) + mrow * ((c1 + bf * c2) @ wf.t())[None, :]
+              + xm.to(acc) @ m2)
         # rows enter as xm = x * mask, so only masked-in rows get gradient
         dx = (dx * mrow).to(xm.dtype)
         return (dx, None, dw.to(w.dtype), db.to(b.dtype),
