@@ -384,7 +384,35 @@ no jax. Phases, each of which raises on failure (non-zero exit):
      against the single-device step within phase 19's rule of its own
      spread, the fused head's kernel route (kernels 3 and 11 once a step
      a rank) against its plain route under DP within phase 20's f32
-     limits; the phase's time.
+     limits; the phase's time;
+ 27. --remat on the canonical detector at full width (64 channels, 2
+     blocks, fusion 1024) on phase 6's floorplans (batch 4): (a) per route
+     (sparse, the window layout with kernels 9 and 10, the fused head with
+     kernels 3 and 11) at f32 and bf16, remat off, on, on, off in turns
+     from one init and generator seed: after the eager first step the loss
+     (relative) and running statistics within REMAT_TOL (f32 phase 23's
+     card-against-CPU rule, bf16 phase 20's), the gradients (relative
+     Frobenius) within 4 times remat off against itself, the worst over
+     the second off arm and 14 more eager first steps (1e-4 at f32, 2e-3
+     at bf16, where that is smaller), bit-identical where the remat-off
+     runs are; then the first
+     step of `make_scan_train_step` eager under sync debug 'error' and
+     captured, and 3 replays within phase 19's rule of remat off's own
+     spread; the same launches with and without remat; (b) per arm the
+     eager step's peak bytes (`max_memory_allocated`), the graph pool's
+     bytes, the median replay (10 CUDA-event spans, staging included) and
+     the graph alone (median of 3 spans of 10 back-to-back replays), with
+     the card's name and power limit; (c) `cli.train --remat true --dtype
+     bfloat16 --fused_head_train true --train_layout window`, 4 steps: one
+     graph, 3 replays, kernels 3 and 11 once a step, 9 and 10 as phase 10
+     counts them; (d) gp2 with and without remat in two gloo ranks on the
+     one card (`tests/torch_dp_zoo_ranks.zoo_scenarios`, batch 2 a rank,
+     2 SGD steps, f32): the ranks bit-identical; the DP update with remat
+     against without within 4 times the DP step without remat against
+     itself (1e-6 loss, 1e-5 state, where that is smaller), identical
+     shards with remat against the single-device step without by the same
+     rule of that step's own spread; 21 collectives a step without remat
+     and 27 with; the phase's time.
 Everything it runs comes from yolat_tpu_torch, the synthetic SVG writer
 included, and from the rank helpers of tests/torch_dp_zoo_ranks.py
 (torch and the port only): it imports neither jax nor the JAX package
@@ -400,7 +428,9 @@ a replay adds the launches its capture recorded; `conv_zoo_launches` on
 the rows of kernels 3, 11 and N1 counts phase 23's runs, each CLI run
 from 0; `act_norm_launches` on the rows of kernels 7, 7b, 8, 8b and N1
 counts phase 26's cli.train, cli.test and cli.infer from 0, and on those
-of kernels 3 and 11 one rank's launches in the fused DP case)
+of kernels 3 and 11 one rank's launches in the fused DP case;
+`remat_launches` on the rows of kernels 3, 9, 9b, 10, 10b and 11 counts
+phase 27's `cli.train --remat true` from 0)
 comes before the nvidia-smi line; the last line is
 {"ok": true, "device": {...}}. Each kernel's bound_ms is the larger of its
 bytes (each input read once, each output written once; of a gathered
@@ -6176,6 +6206,425 @@ def pp_act_norm_phase(root, train_root, work, dev_line) -> dict:
     return counts
 
 
+# phase 27: --remat on the canonical detector at full width (64 channels,
+# 2 blocks, fusion 1024) on phase 6's floorplans, batch 4
+REMAT_ROUTES = {"sparse": {}, "window": {"train_layout": "window"},
+                "fused": {"fused_head_train": True}}
+REMAT_ARMS = (False, True, True, False)  # remat off / on, in turns
+REMAT_REPLAYS = 3  # replays compared after the eager step and the capture
+REMAT_TIMED = 10   # replays timed per arm, one CUDA-event span each
+REMAT_QUEUED = (3, 10)  # spans of back-to-back replays of the graph alone
+# remat on against remat off after the eager first step, from the same
+# weights and generator seed: the loss (relative) and each running
+# statistic (max |diff| over max |value|) within f32 phase 23's
+# card-against-CPU rule, bf16 phase 20's kernel-against-plain rule; the
+# worst gradient (relative Frobenius) within REMAT_SPREAD times the worst of
+# remat off against itself, or 'grad' where that is smaller; a gradient
+# below 1e-4 on both sides (a Dense bias feeding a BatchNorm) at atol 1e-4;
+# where the remat-off runs are bit-identical the remat runs must be too
+# (the recompute runs the forward's own kernels)
+REMAT_TOL = {"float32": {"loss": 1e-5, "stats": 1e-4, "grad": 1e-4},
+             "bfloat16": {"loss": 2e-3, "stats": 2e-3, "grad": 2e-3}}
+REMAT_SPREAD = 4  # phase 19's multiple of a run's own spread
+# remat off's spread is taken over this many more eager first steps beside
+# the two off arms: `index_add_`'s atomics give a few distinct gradients,
+# so one pair of runs may land on the same one
+REMAT_DRAWS = 14
+REMAT_CLI_STEPS = 4
+# the DP step's collectives: 10 BatchNorm moment sums forward, 10
+# backward, 1 flat gradient buffer; with remat the recompute sums the
+# moments of the 6 rematerialised BatchNorms again
+REMAT_DP = {"gp2": 21, "gp2_remat": 27}
+REMAT_DP_STEPS = 2
+# the DP update with remat against the one without, (max |loss diff|, max
+# |state diff|): within REMAT_SPREAD times the DP step without remat
+# against itself, or these where that is smaller; a running mean moved
+# twice a step stands off by ~0.15 of the batch mean after 2 steps
+REMAT_DP_TOL = (1e-6, 1e-5)
+
+
+def _remat_arm(cfg, seq, dev_line) -> dict:
+    """One arm of phase 27 (a)/(b): cfg's model from cfg.seed, one eager
+    step (make_train_step) with its peak memory, then make_scan_train_step:
+    the first call eager under sync debug 'error' and captured, REMAT_REPLAYS
+    replays, REMAT_TIMED timed replays (staging included), then the graph
+    alone in REMAT_QUEUED queued spans; the launches of the whole arm."""
+    import torch
+
+    from yolat_tpu_torch.data.packing import to_device
+    from yolat_tpu_torch.ops import _build
+    from yolat_tpu_torch.train.loop import (make_scan_train_step,
+                                            make_train_step)
+    from yolat_tpu_torch.train.optim import make_optimizer
+    from yolat_tpu_torch.train.trainer import init_model
+
+    model = init_model(cfg, "cuda")
+    opt = make_optimizer(cfg.optimizer, model.parameters(), cfg.lr,
+                         cfg.weight_decay)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    _build.reset_launch_counts()
+    b0 = to_device(seq[0], "cuda")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    loss = float(make_train_step(cfg, model, opt)(b0, gen)["loss"])
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    first = _first_step(model, loss)
+    del b0
+    run = make_scan_train_step(cfg, model, opt, None, 1)
+    losses = [float(run([b], gen)["loss"][0])
+              for b in seq[1:2 + REMAT_REPLAYS]]
+    state = _state(model)
+    times, timed = [], []
+    for i in range(REMAT_TIMED):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = run([seq[i % len(seq)]], gen)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+        timed.append(float(out["loss"][0]))
+    st = run.stats()
+    check(st["graphs"] == 1 and all(map(_finite, losses + timed)),
+          f"phase 27 {cfg.dtype} {cfg.train_layout} fused "
+          f"{cfg.fused_head_train} remat {cfg.remat}: graphs {st}, losses "
+          f"{losses}, timed {timed}")
+    graph = next(iter(run.captured.values()))["graph"]
+    queued = []
+    for _ in range(REMAT_QUEUED[0]):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(REMAT_QUEUED[1]):
+            graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        queued.append(start.elapsed_time(end) / REMAT_QUEUED[1])
+    counts = dict(_build.launch_counts)
+    del run, model, opt
+    torch.cuda.empty_cache()
+    return dict(first=first, replays=(losses, state), base=base, peak=peak,
+                pool=st["graph_bytes"], ms=statistics.median(times),
+                queued_ms=statistics.median(queued), counts=counts)
+
+
+def _first_step(model, loss: float) -> dict:
+    return {"loss": loss,
+            "grads": {n: p.grad.detach().clone()
+                      for n, p in model.named_parameters()},
+            "stats": {k: v.clone() for k, v in model.state_dict().items()
+                      if k.endswith(("running_mean", "running_var"))}}
+
+
+def _remat_draw(cfg, b0) -> dict:
+    """The eager first step of cfg's model from cfg.seed on the device
+    batch b0, generator seed 5, as `_remat_arm` takes it."""
+    import torch
+
+    from yolat_tpu_torch.train.loop import make_train_step
+    from yolat_tpu_torch.train.optim import make_optimizer
+    from yolat_tpu_torch.train.trainer import init_model
+
+    model = init_model(cfg, "cuda")
+    opt = make_optimizer(cfg.optimizer, model.parameters(), cfg.lr,
+                         cfg.weight_decay)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    return _first_step(model, float(make_train_step(cfg, model, opt)(
+        b0, gen)["loss"]))
+
+
+def _remat_first_diff(on: dict, off: dict) -> dict:
+    """Two eager first steps apart by REMAT_TOL's measures: 'loss',
+    'stats' (the worst running statistic), 'grad' (the worst gradient's
+    (name, relative Frobenius error)), 'noise' (the largest |diff| of the
+    gradients below 1e-4 on both sides) and 'same' (bit-identical)."""
+    import torch
+
+    out = {"loss": abs(on["loss"] - off["loss"]) / abs(off["loss"]),
+           "stats": max(float((on["stats"][k] - v).abs().max()
+                              / v.abs().max())
+                        for k, v in off["stats"].items()),
+           "grad": ("", 0.0), "noise": 0.0}
+    for n, g in off["grads"].items():
+        a, b = on["grads"][n].double(), g.double()
+        if a.abs().max() < 1e-4 and b.abs().max() < 1e-4:
+            out["noise"] = max(out["noise"], float((a - b).abs().max()))
+        else:
+            err = float((a - b).norm() / b.norm())
+            out["grad"] = max(out["grad"], (n, err), key=lambda t: t[1])
+    out["same"] = (on["loss"] == off["loss"]
+                   and all(torch.equal(on["grads"][n], g)
+                           for n, g in off["grads"].items())
+                   and all(torch.equal(on["stats"][k], v)
+                           for k, v in off["stats"].items()))
+    return out
+
+
+def _remat_spread(diffs: list) -> dict:
+    """The worst of several `_remat_first_diff`s: each measure's largest,
+    'same' where all are bit-identical."""
+    return {"loss": max(d["loss"] for d in diffs),
+            "stats": max(d["stats"] for d in diffs),
+            "grad": max((d["grad"] for d in diffs), key=lambda t: t[1]),
+            "noise": max(d["noise"] for d in diffs),
+            "same": all(d["same"] for d in diffs)}
+
+
+def _remat_within(d: dict, spread: dict, tol: dict) -> bool:
+    return (d["loss"] <= tol["loss"] and d["stats"] <= tol["stats"]
+            and d["grad"][1] <= max(REMAT_SPREAD * spread["grad"][1],
+                                    tol["grad"])
+            and d["noise"] <= 1e-4 and (d["same"] or not spread["same"]))
+
+
+def _remat_dp_within(d, spread) -> bool:
+    return d[2] or (not spread[2] and all(
+        x <= max(REMAT_SPREAD * y, t)
+        for x, y, t in zip(d, spread, REMAT_DP_TOL)))
+
+
+def _worst_key(a, b) -> str:
+    """The state key where two runs ([losses], state dict) stand furthest
+    apart."""
+    return max((k for k in a[1] if a[1][k].numel()),
+               key=lambda k: float((a[1][k].float()
+                                    - b[1][k].float()).abs().max()))
+
+
+def _remat_routes(train_root, n_classes, dev_line) -> None:
+    """Phase 27 (a) and (b): per route (sparse, window, fused head) and
+    dtype, remat off, on, on, off in turns from one init and generator
+    seed; the eager first step held to REMAT_TOL and to remat off's own
+    spread over the off arms and REMAT_DRAWS more eager first steps, the
+    replays to phase 19's rule of the off arms' spread; peak bytes of the
+    eager step, graph pool bytes and the median replay per arm."""
+    from yolat_tpu_torch.config import Config
+    from yolat_tpu_torch.data.dataset import SESYDDataset
+    from yolat_tpu_torch.data.loader import PackedLoader
+    from yolat_tpu_torch.data.packing import to_device
+    from yolat_tpu_torch.ops.plans import pad_plans
+
+    tds = SESYDDataset(train_root, "train", bbox_sampling_step=10)
+    for route, kw in REMAT_ROUTES.items():
+        window = kw.get("train_layout") == "window"
+        bs = [pad_plans(b) for b in PackedLoader(
+            tds, batch_size=BATCH, prefetch=0, edge_window=window,
+            ew_transpose=window)]
+        seq = [bs[i % len(bs)] for i in range(2 + REMAT_REPLAYS)]
+        for dtype, tol in REMAT_TOL.items():
+            cfg = Config(n_classes=n_classes, dtype=dtype, **kw)
+            arms = [_remat_arm(cfg.replace(remat=r), seq, dev_line)
+                    for r in REMAT_ARMS]
+            off, on = (arms[0], arms[3]), (arms[1], arms[2])
+            t0 = time.perf_counter()
+            b0 = to_device(seq[0], "cuda")
+            apart = [_remat_first_diff(off[1]["first"], off[0]["first"])]
+            for _ in range(REMAT_DRAWS):
+                apart.append(_remat_first_diff(_remat_draw(cfg, b0),
+                                               off[0]["first"]))
+            spread = _remat_spread(apart)
+            del b0
+            t_draws = time.perf_counter() - t0
+            rspread = _dp_diff(off[1]["replays"], off[0]["replays"])
+            label = f"phase 27 {route} {dtype}"
+            diffs = []
+            for arm in on:
+                d = _remat_first_diff(arm["first"], off[0]["first"])
+                check(_remat_within(d, spread, tol),
+                      f"{label}: remat on against off after the eager step "
+                      f"{d} (limits {tol}, the gradient's or {REMAT_SPREAD} "
+                      f"times off's own, a gradient below 1e-4 at 1e-4); "
+                      f"off against itself {spread}")
+                r = _dp_diff(arm["replays"], off[0]["replays"])
+                check(_within_spread(r, rspread),
+                      f"{label}: {REMAT_REPLAYS + 1} graph steps, remat on "
+                      f"against off: losses {r[0]}, state {r[1]} (off "
+                      f"against itself {rspread})")
+                diffs.append((d, r))
+            for a in arms:
+                check(a["counts"] == arms[0]["counts"],
+                      f"{label}: the same launches with and without remat: "
+                      f"{[x['counts'] for x in arms]}")
+            mem = {name: ([a["peak"] for a in pair],
+                          [a["peak"] - a["base"] for a in pair],
+                          [a["pool"] for a in pair],
+                          [round(a["ms"], 3) for a in pair],
+                          [round(a["queued_ms"], 3) for a in pair])
+                   for name, pair in (("off", off), ("on", on))}
+            launched = {k: v for k, v in arms[0]["counts"].items() if v}
+            print(f"{label}: remat on against off after the eager step, "
+                  f"both on arms: "
+                  + "; ".join(f"loss {d['loss']:.3g}, running statistics "
+                              f"{d['stats']:.3g}, worst gradient "
+                              f"{d['grad'][0]} {d['grad'][1]:.3g}, noise "
+                              f"{d['noise']:.3g}, bit-identical {d['same']}"
+                              for d, _ in diffs)
+                  + f" (off against itself, the worst of "
+                  f"{REMAT_DRAWS + 1} more eager first steps against the "
+                  f"first off arm's, {t_draws:.1f} s: loss "
+                  f"{spread['loss']:.3g}, running statistics "
+                  f"{spread['stats']:.3g}, worst gradient "
+                  f"{spread['grad'][0]} {spread['grad'][1]:.3g}, noise "
+                  f"{spread['noise']:.3g}, bit-identical {spread['same']}; "
+                  f"gradient limit "
+                  f"{max(REMAT_SPREAD * spread['grad'][1], tol['grad']):.3g}"
+                  f"); the next {REMAT_REPLAYS + 1} steps "
+                  f"(eager and captured, then replays): max |loss diff| / "
+                  f"max |state diff| from off "
+                  + ", ".join(f"{r[0]:.3g} / {r[1]:.3g} ({r[2]})"
+                              for _, r in diffs)
+                  + f", off against itself {rspread[0]:.3g} / "
+                  f"{rspread[1]:.3g} ({rspread[2]}); launches per arm "
+                  f"{launched} [{dev_line}]")
+            print(f"remat memory and time {route} {dtype} (batch {BATCH}, "
+                  f"64 channels, arms in turns off/on/on/off): eager step "
+                  f"peak bytes off {mem['off'][0]} on {mem['on'][0]}, above "
+                  f"the bytes before it off {mem['off'][1]} on "
+                  f"{mem['on'][1]}; graph pool bytes off {mem['off'][2]} on "
+                  f"{mem['on'][2]}; median replay ms off {mem['off'][3]} on "
+                  f"{mem['on'][3]} ({REMAT_TIMED} CUDA-event spans each, "
+                  f"staging included); the graph alone, ms a replay "
+                  f"(median of {REMAT_QUEUED[0]} spans of "
+                  f"{REMAT_QUEUED[1]} back-to-back replays) off "
+                  f"{mem['off'][4]} on {mem['on'][4]} [{dev_line}]")
+
+
+def _remat_cli(train_root, work, dev_line) -> dict:
+    """Phase 27 (c): cli.train --remat true (bf16, the fused head, the
+    window layout) for REMAT_CLI_STEPS steps: graphs captured and
+    replayed, kernels 3, 11, 9 and 10 (forward and backward) with the
+    launch counts the code implies. Returns the launches."""
+    from yolat_tpu_torch.cli import train as train_cli
+    from yolat_tpu_torch.ops import _build
+
+    _build.reset_launch_counts()
+    res = train_cli.main([
+        "--data_dir", train_root, "--device", "cuda", "--remat", "true",
+        "--dtype", "bfloat16", "--fused_head_train", "true",
+        "--train_layout", "window", "--data_aug", "true", "--batch_size",
+        str(BATCH), "--n_filters", "64", "--n_blocks", str(N_BLOCKS),
+        "--max_steps", str(REMAT_CLI_STEPS), "--root_dir",
+        os.path.join(work, "log_remat"), "--print_freq", "1"])
+    counts = res["launches"]
+    check(counts == dict(_build.launch_counts),
+          "the CLI's launch counts are the counters' rise")
+    steps, evals = res["steps"], res["eval_batches"]
+    check(steps == REMAT_CLI_STEPS and evals >= 1
+          and all(map(_finite, res["losses"])),
+          f"phase 27 cli.train --remat true: {steps} steps, {evals} "
+          f"evaluated batches, losses {res['losses']}")
+    _check_graphs(res, 1, "phase 27 cli.train --remat true")
+    want = {"folded_mlp_block_max": steps, "fused_pool_train_bwd": steps,
+            "ew_pair_features": N_BLOCKS * (steps + evals),
+            "ew_window_segment_sum": N_BLOCKS * (steps + evals),
+            "ew_window_segment_sum_bwd": N_BLOCKS * steps,
+            "ew_pair_features_bwd": (N_BLOCKS - 1) * steps}
+    got = {k: counts[k] for k in want}
+    check(got == want, f"phase 27 cli.train --remat true launched {got}, "
+          f"the code implies {want}")
+    secs = res["train_seconds"]
+    print(f"phase 27 cli.train --remat true --dtype bfloat16 "
+          f"--fused_head_train true --train_layout window: {steps} steps in "
+          f"{secs:.3f} s = {steps / secs:.3f} steps/s (first step and "
+          f"capture included), {evals} evaluated batches; losses "
+          f"{[round(v, 4) for v in res['losses']]}; {_graph_line(res)}; "
+          f"launches {got} [{dev_line}]")
+    return got
+
+
+def _remat_dp(train_root, n_classes, dev_line) -> None:
+    """Phase 27 (d): gp2 with remat and without in two gloo ranks on the
+    one card (`tests/torch_dp_zoo_ranks.zoo_scenarios`, CUDA tensors,
+    batch 2 a rank, SGD, f32): the ranks bit-identical; the DP update with
+    remat against the one without within REMAT_DP_TOL or REMAT_SPREAD times
+    the DP step without remat against itself; identical shards with remat
+    against the single-device step without by the same rule of that step's
+    own spread; the collectives a step."""
+    from yolat_tpu_torch.nn.model import seeded_model
+    from yolat_tpu_torch.parallel.launch import spawn_ranks
+
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    import torch_dp_zoo_ranks
+
+    cases = {name: dict(n_classes=n_classes, width=64, lr=1e-2,
+                        model=dict(remat=name == "gp2_remat"),
+                        steps=REMAT_DP_STEPS, again=name == "gp2")
+             for name in REMAT_DP}
+    model = seeded_model(torch_dp_zoo_ranks.case_config(cases["gp2"]), 27)
+    state = {k: v.numpy().copy() for k, v in model.state_dict().items()}
+    del model
+    t0 = time.perf_counter()
+    outs = spawn_ranks(torch_dp_zoo_ranks.zoo_scenarios, DP_WORLD,
+                       (train_root, DP_WORLD, cases,
+                        dict.fromkeys(cases, state), "cuda", 10, BATCH // 2,
+                        False, True), join_timeout_s=600)
+    secs = time.perf_counter() - t0
+    r0, r1 = outs
+    one = _dp_diff(_torch_run(r0["gp2_remat"]["dp"]),
+                   _torch_run(r1["gp2_remat"]["dp"]))
+    run = {(name, arm): _torch_run(r0[name][arm]) for name, arm in (
+        ("gp2", "dp"), ("gp2", "dp_again"), ("gp2", "single"),
+        ("gp2", "single_again"), ("gp2_remat", "dp"),
+        ("gp2_remat", "identical"))}
+    pairs = {"dp_spread": (("gp2", "dp_again"), ("gp2", "dp")),
+             "remat": (("gp2_remat", "dp"), ("gp2", "dp")),
+             "spread": (("gp2", "single_again"), ("gp2", "single")),
+             "ident": (("gp2_remat", "identical"), ("gp2", "single"))}
+    diff = {k: _dp_diff(run[a], run[b]) for k, (a, b) in pairs.items()}
+    apart = {k: _worst_key(run[a], run[b]) for k, (a, b) in pairs.items()
+             if not diff[k][2]}
+    dp_spread, d = diff["dp_spread"], diff["remat"]
+    spread, ident = diff["spread"], diff["ident"]
+    calls = {name: [o[name]["collectives"]["dp"] / REMAT_DP_STEPS
+                    for o in outs] for name in REMAT_DP}
+    losses = r0["gp2_remat"]["dp"][0]
+    check(one[2] and all(map(_finite, losses))
+          and _remat_dp_within(d, dp_spread)
+          and _remat_dp_within(ident, spread)
+          and all(c == [n, n] for c, n in zip(calls.values(),
+                                              REMAT_DP.values())),
+          f"phase 27 dp: ranks apart {one}; remat against off {d}; DP "
+          f"without remat against itself {dp_spread}; identical shards "
+          f"with remat against the single-device step without {ident}; "
+          f"single against itself {spread}; worst keys {apart}; limits "
+          f"{REMAT_SPREAD} times the spread or {REMAT_DP_TOL}; collectives "
+          f"a step {calls} (want {REMAT_DP}); losses {losses}")
+    print(f"phase 27 dp: gp2 on {DP_WORLD} gloo ranks sharing one card, "
+          f"batch {BATCH // 2} a rank, {REMAT_DP_STEPS} SGD steps, f32, 64 "
+          f"channels: remat ranks bit-identical {one[2]}; the DP update with "
+          f"remat against without {d[0]:.3g} / {d[1]:.3g} (loss / state, "
+          f"bit-identical {d[2]}), DP without remat against itself "
+          f"{dp_spread[0]:.3g} / {dp_spread[1]:.3g} (bit-identical "
+          f"{dp_spread[2]}); identical shards with remat against the "
+          f"single-device step without {ident[0]:.3g} / {ident[1]:.3g}, "
+          f"single against itself {spread[0]:.3g} / {spread[1]:.3g} "
+          f"(running variances left out); the worst state key of each "
+          f"pair apart {apart}; collectives a step {calls}; "
+          f"losses {[round(v, 5) for v in losses]}; {secs:.1f} s for the "
+          f"ranks [{dev_line}]")
+
+
+def remat_phase(train_root, work, dev_line) -> dict:
+    """Phase 27: --remat on the canonical detector at full width on phase
+    6's floorplans: (a) remat on against off, f32 and bf16, on the sparse
+    layout, the window layout (kernels 9, 10) and the fused head (kernels
+    3, 11), after the eager first step and over graph replays; (b) peak
+    memory, graph pool and replay time with and without it; (c) cli.train
+    --remat true; (d) gp2 with remat under data parallel. Returns (c)'s
+    launches."""
+    from yolat_tpu_torch.data.dataset import SESYDDataset
+
+    t_start = time.perf_counter()
+    n_classes = SESYDDataset(train_root, "train").n_classes
+    _remat_routes(train_root, n_classes, dev_line)
+    launches = _remat_cli(train_root, work, dev_line)
+    _remat_dp(train_root, n_classes, dev_line)
+    print(f"phase 27: {time.perf_counter() - t_start:.1f} s")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -6413,6 +6862,11 @@ def main() -> int:
         # YOLaT++ under data parallel, two gloo ranks on the one card
         act_norm = pp_act_norm_phase(root, train_root, work, dev_line)
 
+        # 27. --remat: remat on against off on the sparse, window and
+        # fused-head routes, its memory and time, cli.train --remat true,
+        # gp2 with remat under data parallel
+        remat = remat_phase(train_root, work, dev_line)
+
     # the kernels line
     sources = {"edge_window_message_sum": (
                    "yolat_tpu_torch/csrc/edge_window.cu",
@@ -6487,7 +6941,8 @@ def main() -> int:
                    if x in res[k]},
                 **({"conv_zoo_launches": zoo[k]} if k in zoo else {}),
                 **({"act_norm_launches": act_norm[k]} if k in act_norm
-                   else {})}
+                   else {}),
+                **({"remat_launches": remat[k]} if k in remat else {})}
                for k in sources]
     print(json.dumps({"kernels": kernels}))
     print(dev_line)

@@ -51,6 +51,16 @@ from yolat_tpu_torch.train.checkpoint import (CheckpointManager,
 WIDTH = 16
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this file's small tensors (under xdist the
+    default pool per worker oversubscribes the cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _jax_state(jcfg, example, seed=0):
     """A JAX train state of jcfg's arch with open gates, randomised BN
     terms and a head leaning toward background (so proposals are kept)."""

@@ -82,6 +82,16 @@ WIDTH = 16
 DENSE_KEYS = ("nbr_idx", "nbr_attr", "nbr_mask")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this file's small tensors (under xdist the
+    default pool per worker oversubscribes the cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # ---------------------------------------------------------------------------
 # kernels 9 and 10: plain versions against the Pallas kernels (interpret)
 # ---------------------------------------------------------------------------
@@ -286,8 +296,9 @@ def setup(synthetic_root):
     assert ew_train_of(pb) is not None and "nbr_idx" in pb
     jbatch = jax_finalize(jax.tree.map(jnp.asarray, jb))
     jm = JaxModel(n_classes=ds.n_classes, channels=WIDTH, sorted_edges=True)
-    variables = jax.tree.map(np.asarray, jm.init(
-        {"params": jax.random.key(0)}, jbatch, train=True))
+    variables = jax.tree.map(np.asarray, jax.jit(
+        lambda b: jm.init({"params": jax.random.key(0)}, b, train=True))(
+            jbatch))
     return dict(n_classes=ds.n_classes, variables=variables, jbatch=jbatch,
                 tbatch=finalize_batch(to_device(pb, "cpu")),
                 mask=pb["proposal_mask"])
@@ -366,15 +377,18 @@ def test_conv_layer_matches_jax(setup, layout):
     jconv = JaxConv(in_channels=WIDTH, out_channels=WIDTH, sorted_edges=True)
     m = jnp.asarray(node_mask)[:, None]
 
-    def run(xv, p):
+    def run(xv, p, kw):
         (out, out_node), mut = jconv.apply(
             {"params": p, "batch_stats": stats}, xv, xv, train=True,
-            mutable=["batch_stats"], **jkw)
+            mutable=["batch_stats"], **kw)
         return (jnp.sum(jnp.tanh(out) * m) + jnp.sum(out_node * m),
                 (out, out_node, mut["batch_stats"]))
 
-    (_, (jout, jnode, jstats)), (jdx, jdp) = jax.value_and_grad(
-        run, argnums=(0, 1), has_aux=True)(jnp.asarray(x), params)
+    # one jitted call, the batch an argument (closed over as a constant,
+    # JAX's jitted gradient parts from its eager one: ROADMAP's stated
+    # differences)
+    (_, (jout, jnode, jstats)), (jdx, jdp) = jax.jit(jax.value_and_grad(
+        run, argnums=(0, 1), has_aux=True))(jnp.asarray(x), params, jkw)
 
     xt = torch.from_numpy(x).requires_grad_(True)
     kw = dict(dst_count=tbatch["dst_count"])
@@ -428,21 +442,23 @@ def test_model_matches_jax_in_each_layout(setup, layout):
     variables = setup["variables"]
     m = setup["mask"]
 
-    want, _ = jm.apply(variables, jbatch, train=False)
+    want, _ = jax.jit(lambda v, b: jm.apply(v, b, train=False))(variables,
+                                                                  jbatch)
     with torch.no_grad():
         got, _ = pm.eval()(tbatch)
     np.testing.assert_allclose(got.numpy()[m], np.asarray(want)[m],
                                rtol=1e-4, atol=1e-4)
 
-    def loss_fn(params):
+    def loss_fn(params, batch):
         (logits, _), mut = jm.apply(
             {"params": params, "batch_stats": variables["batch_stats"]},
-            jbatch, train=True, mutable=["batch_stats"])
-        return jax_loss(logits, jbatch["labels"],
-                        jbatch["proposal_mask"])["loss"], mut
+            batch, train=True, mutable=["batch_stats"])
+        return jax_loss(logits, batch["labels"],
+                        batch["proposal_mask"])["loss"], mut
 
-    (jloss, mut), jgrads = jax.value_and_grad(loss_fn, has_aux=True)(
-        variables["params"])
+    # jitted, the batch an argument (as the conv test above)
+    (jloss, mut), jgrads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(
+        variables["params"], jbatch)
     logits, _ = pm.train()(tbatch)
     loss = detection_loss(logits, tbatch["labels"],
                           tbatch["proposal_mask"])["loss"]

@@ -15,6 +15,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from torch_dp_ranks import TIMEOUT_S, _SUM, _plain_all_reduce, _state, join
 from yolat_tpu_torch.config import Config
@@ -31,6 +32,7 @@ from yolat_tpu_torch.train.loop import make_dp_train_step, make_train_step
 
 # the launch counts each arm reports
 KERNELS = ("folded_mlp_block_max", "fused_pool_train_bwd")
+_ALL_REDUCE = dist.all_reduce
 
 
 def case_config(case: dict) -> Config:
@@ -57,6 +59,8 @@ def zoo_scenarios(local_rank: int, store_path: str, data_dir: str,
     train split at bbox_sampling_step `step` (`batch_size` images a rank,
     the loader's own schedule, the plans the case's arch trains on):
       'dp'         the DP step over the world group on this rank's windows;
+      'dp_again'   for a case with 'again', 'dp' once more: its spread where
+                   float atomics make two runs differ, as on a card;
       'dp64'       with `f64`, the same with the model and the batch's
                    float fields in float64 (the reference an f32 update is
                    held to where rounding decides it; the ranks still
@@ -72,8 +76,9 @@ def zoo_scenarios(local_rank: int, store_path: str, data_dir: str,
     backward) in MaskedBatchNorm. case['noise'], if given, is added to the
     batches: per step {key: [W, ...] by the rank whose window it is}.
     -> {case: {arm: (losses, state after, launches of KERNELS), 'seconds':
-    the case's wall}}, and this rank's image counts. `device` 'cuda': both
-    ranks on card 0, CUDA tensors over gloo."""
+    the case's wall, 'collectives': {arm: the arm's `dist.all_reduce`
+    calls over its steps}}}, and this rank's image counts. `device`
+    'cuda': both ranks on card 0, CUDA tensors over gloo."""
     if device == "cpu":
         ranks = join(local_rank, store_path, world)
         # one thread a rank: the test runs beside other workers' tests
@@ -97,6 +102,8 @@ def zoo_scenarios(local_rank: int, store_path: str, data_dir: str,
                     prefetch=0, **plans))
             return windows[key]
 
+        calls: dict = {}  # the case's collectives by arm
+
         def run(name, case, arm):
             cfg, model, opt = _model(case, states[name], dev)
             r = ranks.rank if arm.startswith("dp") else 0
@@ -119,19 +126,29 @@ def zoo_scenarios(local_rank: int, store_path: str, data_dir: str,
             if arm == "dp_plain":
                 layers.fused_pool_train = functools.partial(
                     fpt.fused_pool_train, route="plain")
+            n = [0]
+
+            def counted(*args, **kw):
+                n[0] += 1
+                return _ALL_REDUCE(*args, **kw)
+
             _build.reset_launch_counts()
+            dist.all_reduce = counted
             try:
                 losses = [float(step(to_device(b, dev))["loss"])
                           for b in batches]
             finally:
+                dist.all_reduce = _ALL_REDUCE
                 layers.all_reduce_sum = _SUM
                 layers.fused_pool_train = fpt.fused_pool_train
+            calls[arm] = n[0]
             return (losses, _state(model.cpu()),
                     tuple(_build.launch_counts[k] for k in KERNELS))
 
         out: dict = {}
         for name, case in cases.items():
-            arms = ["dp"] + (["dp64"] if f64 else []) + ["identical"]
+            arms = (["dp"] + (["dp_again"] if case.get("again") else [])
+                    + (["dp64"] if f64 else []) + ["identical"])
             if case.get("plain"):
                 arms.append("dp_plain")
             if case.get("fault"):
@@ -139,8 +156,10 @@ def zoo_scenarios(local_rank: int, store_path: str, data_dir: str,
             elif ranks.rank == 0:
                 arms += ["single"] + (["single_again"] if spread else [])
             t0 = time.perf_counter()
+            calls.clear()
             out[name] = {arm: run(name, case, arm) for arm in arms}
             out[name]["seconds"] = time.perf_counter() - t0
+            out[name]["collectives"] = dict(calls)
         out["n_images"] = [int(b["n_images"]) for b in window(
             case_config(next(iter(cases.values()))), ranks.rank)]
         return out

@@ -7,6 +7,7 @@ the same names:
   python -m yolat_tpu_torch.cli.train --data_dir DIR [--batch_size 4]
       [--total_epochs 200] [--lr 2.5e-4] [--dtype float32|bfloat16]
       [--fused_head_train true] [--train_layout sparse|window|dense]
+      [--remat true]
       [--conv attr_edge_gp2|edge|gat|...] [--act relu|leakyrelu|gelu|none]
       [--norm batch|layer|none]
       [--arch yolat_pp [--pp_banded_super true | --pp_factored_prim true]]
@@ -58,6 +59,17 @@ combination is refused (`nn.model.check_model_config`). `--graph` other
 than bezier_cc_bb_iter is refused; `--bias`, `--k`, `--epsilon`,
 `--stochastic` and `--pos_edge_th` are accepted and unused, as in the JAX
 CLI.
+
+`--remat true` checkpoints, in training, attr_edge_gp2's message MLP on
+every layout and the fusion MLPs (`fusion_block` off the fused head,
+`fusion_block_super` always), as the JAX package's `maybe_remat_mlp`
+does: their activations are recomputed in the backward, which holds
+less device memory and takes longer. The losses, gradients, running
+statistics and checkpoints are those of remat off, so a checkpoint moves
+freely between the two. The other convs take it on the fusion MLPs
+only; YOLaT++ reads it nowhere, as in JAX. The parser is shared, so
+`cli.test`, `cli.detect`, `cli.detect_badcase` and `cli.export_ckpt`
+take the flag too and do nothing with it (evaluation never checkpoints).
 
 `--arch yolat_pp` trains YOLaT++ (`nn/yolat_pp.py`) on one of three routes
 through its primitive level: per super edge over the padded buffer (the
@@ -155,6 +167,9 @@ def build_parser() -> argparse.ArgumentParser:
              "weights, f32 BN statistics")
     add("--fused_head_train", default=d.fused_head_train, type=_bool,
         help="train-mode fused pool head (kernels 3 and 11)")
+    add("--remat", default=d.remat, type=_bool,
+        help="rematerialise gp2's message MLP and the fusion MLPs in "
+             "training (recomputed in the backward: memory for time)")
     add("--dense_layout", default=d.dense_layout, type=_bool,
         help="pack the dense neighbour table for evaluation (cli.test's "
              "engine then takes kernel 4; the module its dense branch)")

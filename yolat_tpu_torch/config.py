@@ -132,6 +132,9 @@ class Config:
                                     # 9 and 10 over the edge-window plan) or
                                     # 'dense' (the neighbour table)
     fused_head_train: bool = False  # the fused pool head (kernels 3 and 11)
+    remat: bool = False             # checkpoint gp2's message MLP and the
+                                    # fusion MLPs in training (recomputed
+                                    # in the backward: memory for time)
     scan_steps: int = 1             # train steps per dispatch: one transfer
                                     # of that many batches, their steps
                                     # replayed back to back (JAX: lax.scan)

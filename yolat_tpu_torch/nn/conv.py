@@ -96,9 +96,13 @@ def _slot_mean(msg, nbr_mask):
 
 
 class AttrEdgeGP2(nn.Module):
-    def __init__(self, in_channels: int, out_channels: int):
+    def __init__(self, in_channels: int, out_channels: int,
+                 remat: bool = False):
         super().__init__()
-        self.nn = MLP([in_channels * 2 + 4, out_channels, out_channels])
+        # `remat` checkpoints the message MLP alone, on every layout
+        # (`yolat_tpu/nn/conv.py:99`); mlp_node and lin_r stay plain
+        self.nn = MLP([in_channels * 2 + 4, out_channels, out_channels],
+                      remat=remat)
         self.lin_r = nn.Linear(in_channels, out_channels)
         self.mlp_node = MLP([in_channels, out_channels])
 
@@ -352,16 +356,19 @@ class SAGEConv(nn.Module):
 
 
 def make_conv(name: str, in_channels: int, out_channels: int, act="relu",
-              norm="batch", heads: int = 8):
+              norm="batch", heads: int = 8, remat: bool = False):
     """The conv `name` (`yolat_tpu/nn/conv.py:465-495`): attr_edge_gp2 is
     ReLU and BatchNorm whatever act and norm say, gat splits out_channels
-    over `heads` heads, gen takes neither act nor norm."""
+    over `heads` heads, gen takes neither act nor norm. `remat` reaches
+    attr_edge_gp2's message MLP alone (`yolat_tpu/nn/conv.py:478-480`)."""
     name = name.lower()
     if name not in CONV_REGISTRY:
         raise NotImplementedError(
             f"--conv {name!r}: one of {', '.join(CONV_NAMES)}")
     cls = CONV_REGISTRY[name]
-    if name in ("attr_edge_gp2", "gen"):
+    if name == "attr_edge_gp2":
+        return cls(in_channels, out_channels, remat=remat)
+    if name == "gen":
         return cls(in_channels, out_channels)
     kw = dict(act=act, norm=norm)
     if name == "multilayer_edge":

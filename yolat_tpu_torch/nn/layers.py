@@ -29,6 +29,21 @@ psum's transpose in the backward); the running statistics move from those
 global moments, so every rank holds the same ones. FusedPoolFusion hands
 its group to the fused head (kernels 3 and 11). With no group set, both
 are what they are on one device.
+Rematerialisation (`remat=True`, `yolat_tpu/nn/layers.py:158-169`,
+`maybe_remat_mlp`): in train mode with grad enabled, the MLP runs under
+`torch.utils.checkpoint` (non-reentrant, no RNG state saved: a
+rematerialised MLP has no dropout) and its activations are recomputed in
+the backward. `remat` is an attribute, not a wrapper module, so the
+state-dict keys are the same with it on and off. The checkpointed function
+takes the MLP's parameters as explicit inputs and applies each layer to
+them (`torch.func.functional_call`): under the bf16 step's own
+`functional_call` the recompute then reads the bf16 copies the forward
+read, not the f32 parameters put back by then, and the gradients reach the
+f32 master weights through the casts. The recompute leaves the running
+statistics where the forward moved them (`move_running=False`); under
+data parallel it sums the moments over the ranks again, as
+`jax.checkpoint` recomputes its psum. Eval mode, and train mode under
+no_grad, run the plain forward.
 Weight init matches the reference model_init: Kaiming-normal (fan_in,
 ReLU gain) for Linear weights, zero biases (`init_weights`).
 """
@@ -37,6 +52,8 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
 from yolat_tpu_torch.ops.fused_pool_train import fused_pool_train
 from yolat_tpu_torch.parallel.distributed import all_reduce_sum
@@ -66,7 +83,7 @@ class MaskedBatchNorm(nn.Module):
         self.running_mean.copy_((1 - m) * self.running_mean + m * mean)
         self.running_var.copy_((1 - m) * self.running_var + m * unbiased)
 
-    def forward(self, x, mask=None):
+    def forward(self, x, mask=None, move_running: bool = True):
         if self.training:
             xf = x.float()
             if mask is not None:
@@ -89,7 +106,8 @@ class MaskedBatchNorm(nn.Module):
             count = torch.clamp(count, min=1.0)
             mean = total / count
             var = torch.clamp(total_sq / count - mean * mean, min=0.0)
-            self.update_running(mean.detach(), var.detach(), count)
+            if move_running:
+                self.update_running(mean.detach(), var.detach(), count)
         else:
             mean, var = self.running_mean, self.running_var
         inv = torch.rsqrt(var + self.eps) * self.weight
@@ -190,10 +208,14 @@ class MLP(nn.Sequential):
     (`yolat_tpu/nn/layers.py:119-155`); the defaults are BatchNorm and
     ReLU, and bare=True keeps only the Linear layers (the reference's
     classifier stage). `mask` selects the rows of the BatchNorm
-    statistics."""
+    statistics. `remat` checkpoints it in training (module docstring)."""
 
     def __init__(self, channels, bare: bool = False, drop: float = 0.0,
-                 act="relu", norm="batch", bias: bool = True):
+                 act="relu", norm="batch", bias: bool = True,
+                 remat: bool = False):
+        if remat and drop > 0:
+            raise ValueError("a rematerialised MLP has no dropout: its "
+                             "recompute would draw other masks")
         if bare:
             act, norm = None, None
         layers, ends = [], []
@@ -205,10 +227,13 @@ class MLP(nn.Sequential):
             ends.append(len(layers) - 1)
         super().__init__(*layers)
         self.drop = drop
+        self.remat = remat
         # the last layer of each stage: dropout follows it in training
         self.stage_ends = frozenset(ends) if drop > 0 else frozenset()
 
     def forward(self, x, mask=None, generator=None):
+        if self.remat and self.training and torch.is_grad_enabled():
+            return self._checkpointed(x, mask)
         for i, layer in enumerate(self):
             if isinstance(layer, MaskedBatchNorm):
                 x = layer(x, mask)
@@ -217,6 +242,32 @@ class MLP(nn.Sequential):
             if i in self.stage_ends and self.training:
                 x = dropout(x, self.drop, generator)
         return x
+
+    def _checkpointed(self, x, mask):
+        """The forward under a non-reentrant checkpoint, over the
+        parameters as they are now (the bf16 copies under the step's
+        functional_call); only the first of its two calls moves the
+        running statistics."""
+        names = [[n for n, _ in layer.named_parameters()] for layer in self]
+        flat = [getattr(layer, n) for layer, ns in zip(self, names)
+                for n in ns]
+        calls = []
+
+        def run(x, mask, *flat):
+            first = not calls
+            calls.append(1)
+            it = iter(flat)
+            for layer, ns in zip(self, names):
+                params = {n: next(it) for n in ns}
+                if isinstance(layer, MaskedBatchNorm):
+                    x = functional_call(layer, params, (x, mask),
+                                        {"move_running": first})
+                else:
+                    x = functional_call(layer, params, (x,))
+            return x
+
+        return checkpoint(run, x, mask, *flat, use_reentrant=False,
+                          preserve_rng_state=False)
 
 
 class FusedPoolFusion(MLP):
@@ -228,8 +279,10 @@ class FusedPoolFusion(MLP):
     (`ops/fused_pool_train.py`); it moves the running statistics with
     MaskedBatchNorm's convention."""
 
-    def __init__(self, cin: int, h: int, act="relu", norm="batch"):
-        super().__init__([cin, h], act=act, norm=norm)
+    def __init__(self, cin: int, h: int, act="relu", norm="batch",
+                 remat: bool = False):
+        # `remat` checkpoints the unfused forward; `pool` is never wrapped
+        super().__init__([cin, h], act=act, norm=norm, remat=remat)
 
     def pool(self, cat, node_mask, blk_first, n_prop: int):
         lin, bn = self[0], self[1]

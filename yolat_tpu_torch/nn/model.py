@@ -17,6 +17,15 @@ the same features. attr_edge_gp is given [f || its proposal's mean of f],
 attr_edge_cf the node positions, and the dense table goes only to the
 convs of `nn.conv.DENSE_CONVS`.
 
+`remat` (cfg.remat, --remat) checkpoints the MLPs the JAX package wraps
+(`yolat_tpu/nn/model.py:122, 141-156`): attr_edge_gp2's message MLP `nn`
+on every layout, the unfused `fusion_block` forward (not its fused
+`.pool`) and `fusion_block_super`, on the dual and the single-stream
+path; the other convs' MLPs, `mlp_node`, `lin_r` and `prediction_cls`
+stay plain. Their activations are recomputed in the backward
+(`nn.layers.MLP`); losses, gradients, running statistics and state-dict
+keys are those of remat off.
+
 Train mode (`model.train()`) uses masked batch statistics everywhere. With
 `fused_pool` set (cfg.fused_head_train) the train-mode pool head is the
 fused op of `ops/fused_pool_train.py` (kernels 3 and 11):
@@ -70,18 +79,18 @@ class _GConv(nn.Module):
     """The reference's GraphConv wrapper (`.gconv` holds the conv)."""
 
     def __init__(self, cin: int, cout: int, conv: str = CANONICAL_CONV,
-                 act="relu", norm="batch"):
+                 act="relu", norm="batch", remat: bool = False):
         super().__init__()
-        self.gconv = make_conv(conv, cin, cout, act, norm)
+        self.gconv = make_conv(conv, cin, cout, act, norm, remat=remat)
 
 
 class _ResBlock(nn.Module):
     """The reference's ResBlock (`.body`); its residual is off for gp2."""
 
     def __init__(self, c: int, conv: str = CANONICAL_CONV, act="relu",
-                 norm="batch"):
+                 norm="batch", remat: bool = False):
         super().__init__()
-        self.body = _GConv(c, c, conv, act, norm)
+        self.body = _GConv(c, c, conv, act, norm, remat)
 
 
 def takes_fused_head(module, cat, plan) -> bool:
@@ -115,7 +124,8 @@ class Backbone(nn.Module):
     def __init__(self, in_channels: int = 5, channels: int = 64,
                  n_blocks: int = 2, n_blocks_out: int = 2,
                  fused_pool: bool = False, window_edges: bool = False,
-                 conv: str = CANONICAL_CONV, act="relu", norm="batch"):
+                 conv: str = CANONICAL_CONV, act="relu", norm="batch",
+                 remat: bool = False):
         super().__init__()
         if window_edges:
             _check_window(conv)
@@ -126,13 +136,14 @@ class Backbone(nn.Module):
         self.window_edges = window_edges
         # train-mode CPU batches that could not take the fused head
         self.fused_fallbacks = 0
-        self.head = _GConv(in_channels, channels, conv, act, norm)
-        self.backbone = nn.ModuleList(_ResBlock(channels, conv, act, norm)
-                                      for _ in range(n_blocks - 1))
+        self.head = _GConv(in_channels, channels, conv, act, norm, remat)
+        self.backbone = nn.ModuleList(
+            _ResBlock(channels, conv, act, norm, remat)
+            for _ in range(n_blocks - 1))
         self.fusion_block = FusedPoolFusion(self.fusion_dims, FUSION, act,
-                                            norm)
+                                            norm, remat)
         self.fusion_block_super = MLP([self.fusion_dims, FUSION], act=act,
-                                      norm=norm)
+                                      norm=norm, remat=remat)
 
     def features(self, batch: dict):
         """-> (cat [N, C * n_blocks_out], cat_super [N, C * n_blocks_out]):
@@ -225,13 +236,15 @@ class SparseCADGCN(nn.Module):
                  channels: int = 64, n_blocks: int = 2, n_blocks_out: int = 2,
                  classifier: str = "softmax", dropout: float = 0.0,
                  fused_pool: bool = False, window_edges: bool = False,
-                 conv: str = CANONICAL_CONV, act="relu", norm="batch"):
+                 conv: str = CANONICAL_CONV, act="relu", norm="batch",
+                 remat: bool = False):
         super().__init__()
         self.n_blocks = n_blocks
         self.classifier = classifier
         self.conv, self.act, self.norm = conv, act, norm
         self.cls_net = Backbone(in_channels, channels, n_blocks, n_blocks_out,
-                                fused_pool, window_edges, conv, act, norm)
+                                fused_pool, window_edges, conv, act, norm,
+                                remat)
         fusion_out = self.cls_net.fusion_dims + FUSION
         self.prediction_cls = nn.ModuleList([
             MLP([fusion_out * 2, 512], act=act, norm=norm),
@@ -310,7 +323,10 @@ def check_model_config(cfg) -> None:
     attr_edge_gp2 whatever --conv says); the window layout with another
     conv (the JAX model trains it sparse). YOLaT++ takes every --act and
     --norm: its hierarchy, fusion and head MLPs take them, its two gp2
-    convs stay ReLU and BatchNorm, as in JAX."""
+    convs stay ReLU and BatchNorm, as in JAX. --remat passes here under
+    every arch: YOLaT++ reads it nowhere, as its JAX module declares the
+    field and reads it nowhere (`yolat_tpu/nn/yolat_pp.py:84`), so it
+    builds and trains the same module with it on or off."""
     if cfg.conv not in CONV_NAMES:
         raise NotImplementedError(
             f"--conv {cfg.conv!r}: one of {', '.join(CONV_NAMES)}")
@@ -341,7 +357,8 @@ def build_model(cfg):
     """The detector of a `yolat_tpu_torch.config.Config`
     (yolat_tpu/train/loop.py:47-81): SparseCADGCN with cfg's conv, act and
     norm, or YOLaT++ (`nn.yolat_pp.YOLaTPlusPlus`) for an arch of
-    `PP_ARCHS`; `check_model_config` first."""
+    `PP_ARCHS` (which reads no `cfg.remat`); `check_model_config`
+    first."""
     check_model_config(cfg)
     if cfg.arch in PP_ARCHS:
         from yolat_tpu_torch.nn.yolat_pp import YOLaTPlusPlus
@@ -367,7 +384,8 @@ def build_model(cfg):
                         cfg.n_blocks, cfg.n_blocks_out, cfg.classifier,
                         cfg.dropout, cfg.fused_head_train,
                         window_edges=cfg.train_layout == "window",
-                        conv=cfg.conv, act=cfg.act, norm=cfg.norm)
+                        conv=cfg.conv, act=cfg.act, norm=cfg.norm,
+                        remat=cfg.remat)
 
 
 @torch.no_grad()
